@@ -1,33 +1,45 @@
-// packed_spmm forward: fused bit-unpack + normalise + aggregate for sm_90a.
+// packed_spmm for sm_90a: fused bit-unpack + dropedge + normalise +
+// aggregate, and its transpose (the backward).
 //
-//   out[b] = norm(unpack(bits[b])) @ x[b]
-//   bits [B, N, BYTES] uint8 (BYTES = ceil(N/8)), x [B, N, F] f32 -> [B, N, F] f32
+//   forward     out[b] = W[b] @ x[b]
+//   transposed  dx[b]  = W[b]^T @ g[b]
+//   W[b] = norm(unpack(bits[b]) * keep(seed, b))
+//   bits [B, N, BYTES] uint8 (BYTES = ceil(N/8)), x / g [B, N, F] f32 -> [B, N, F] f32
 //
-// Replaces the TPU kernel shadow_gnn_tpu/ops/pallas_packed.py:_kernel
-// (called from packed_spmm -> _call, transpose=False, dropedge 0).
+// Replaces the TPU kernel shadow_gnn_tpu/ops/pallas_packed.py:_kernel,
+// called from packed_spmm -> _call with transpose=False (the forward) and
+// from packed_spmm._bwd -> _call with transpose=True (the backward).
 //
 // Bit layout (sampling/cache.py, "tiled"): column j of row i is bit
-// (j / BYTES) of byte (j % BYTES).  Bits of columns >= N are never read,
-// and degrees mask them off, so padding bits read as 0.
+// (j / BYTES) of byte (j % BYTES).  Columns >= N are never read.
 //
-// Norms, degrees clipped at 1:  none: raw 0/1 product;  rw: row i scaled
-// by 1/deg_i;  sym: entry (i, j) scaled by deg_i^-1/2 deg_j^-1/2 (every
-// row's degree is needed, so the block keeps all N degrees in shared
-// memory);  gin at dropedge 0: the raw product (deg0/degd = 1 on every
-// non-empty row).
+// Dropedge: keep(seed, b, i, j) is the counter hash of
+// shadow_gnn_torch/ops/normalize.py (mix32 below), so the plain PyTorch
+// version draws the same mask bit for bit and the backward regenerates
+// the forward's mask from the seed.  Survival of entry (i, j): A(i,j) and
+// keep(i,j); for sym also A(j,i) and keep(j,i) (s * s^T).  Degrees count
+// the survivors, clipped at 1.  Row scales: none 1; rw 1/deg_i; sym
+// deg_i^-1/2 on both sides; gin deg0_i / deg_i (deg0 = undropped degree).
 //
 // What bounds it: one call must read bits and x once and write out once,
-// B*(N*BYTES + 2*N*F*4) bytes; the gather-add form does nnz*F adds, far
-// below the card's f32 rate, so it is bound by memory bytes.  The TPU
-// kernel's lane-repeat unpack and dense MXU dot (2*B*N^2*F flops) are not
-// carried over: the cached PPR blocks hold about 2 edges per row (~1%
-// dense at N=208), so a dense product would do ~200x the necessary work.
+// B*(N*BYTES + 2*N*F*4) bytes, in either direction: 53.6 MB at B=64,
+// N=208, F=500, which is 0.016 ms at 3.35 TB/s.  The gather-add form does about nnz*F multiply-adds, far below the
+// card's f32 rate, so it is bound by memory bytes.  The TPU kernel's
+// dense MXU dot (2*B*N^2*F flops) is not carried over: the cached PPR
+// blocks hold about 2 edges per row (~1% dense at N=208).
 //
 // Design (simple first, no wgmma/TMA): one block per (b, tile of
-// `rows_per_block` rows).  One warp per tile row decodes the row into an
-// ascending neighbour list in shared memory with ballots (deterministic
-// summation order).  Then the block's threads stride over F, so each
-// neighbour row x[b, j, :] is read coalesced, and accumulate in f32.
+// `rows_per_block` output rows).  One warp per output row walks its line
+// of the bit block (the forward a row, the transposed kernel a column)
+// 32 entries per ballot into an ascending list of survivors in shared
+// memory.  Then the block's threads stride over F, so each listed row of
+// x / g is read coalesced, and accumulate in f32 in list order: no
+// atomics, and the result is deterministic.  A column walk reads one bit
+// per row, so the transposed kernel first copies the subgraph's whole bit
+// block (5.4 KB at N=208) into shared memory.  Row scales that the sum
+// needs beyond the tile (sym, and every norm of the transposed kernel,
+// whose column sums run over all rows) are computed by one pass of warps
+// over all N rows of the block.
 #include <cuda_runtime.h>
 #include <stdint.h>
 
@@ -35,81 +47,127 @@ namespace {
 
 enum Norm { kNone = 0, kRw = 1, kSym = 2, kGin = 3 };
 
-// number of set bits of one packed row among columns j < n
-__device__ __forceinline__ int row_degree(const uint8_t* row, int n, int nbytes) {
-  int d = 0;
-  for (int byte = 0; byte < nbytes; ++byte) {
-    const int nvalid = (n - byte + nbytes - 1) / nbytes;  // bits s: s*nbytes+byte < n
-    const unsigned mask = nvalid >= 8 ? 0xffu : ((1u << nvalid) - 1u);
-    d += __popc(row[byte] & mask);
-  }
-  return d;
+// the lowbias32 finaliser; ops/normalize.py:mix32 is its plain twin
+__device__ __forceinline__ uint32_t mix32(uint32_t x) {
+  x ^= x >> 16;
+  x *= 0x7FEB352Du;
+  x ^= x >> 15;
+  x *= 0x846CA68Bu;
+  x ^= x >> 16;
+  return x;
 }
 
-// shared memory: dinv[n] f32 | scale[rows] f32 | cnt[rows] i32 | nbr[rows*n] u16
-__global__ void packed_spmm_fwd_kernel(const uint8_t* __restrict__ bits,
-                                       const float* __restrict__ x,
-                                       float* __restrict__ out, int n,
-                                       int nbytes, int f, int rows_per_block,
-                                       int tiles, int norm) {
-  extern __shared__ __align__(16) unsigned char smem[];
-  float* dinv = reinterpret_cast<float*>(smem);
-  float* scale = dinv + n;
-  int* cnt = reinterpret_cast<int*>(scale + rows_per_block);
-  uint16_t* nbr = reinterpret_cast<uint16_t*>(cnt + rows_per_block);
+struct Drop {
+  bool on;
+  uint32_t key;     // mix32(mix32(seed) + b)
+  uint32_t thresh;  // uint32(int(p * (2^32 - 1)))
+  __device__ __forceinline__ bool keep(int i, int j) const {
+    return mix32(key ^ (((uint32_t)i << 16) | (uint32_t)j)) > thresh;
+  }
+};
 
+__device__ __forceinline__ bool bit(const uint8_t* blk, int nbytes, int i, int j) {
+  return (blk[i * nbytes + j % nbytes] >> (j / nbytes)) & 1;
+}
+
+// Warp-collective walk of line k of the block: row k (col=false) or
+// column k (col=true), in ascending order of the other index m.  Writes
+// the surviving m into lst (when not null); returns (survivors, entries
+// set before the drop).
+__device__ __forceinline__ int2 walk(const uint8_t* blk, int n, int nbytes, int k,
+                                     bool col, bool sym, const Drop& d,
+                                     uint16_t* lst) {
+  const int lane = threadIdx.x & 31;
+  const unsigned below = (1u << lane) - 1u;
+  int kept = 0, raw = 0;
+  for (int c = 0; c < n; c += 32) {
+    const int m = c + lane;
+    const int i = col ? m : k;
+    const int j = col ? k : m;
+    const bool a = m < n && bit(blk, nbytes, i, j);
+    const bool s = a && (!d.on || (d.keep(i, j) &&
+                                   (!sym || (bit(blk, nbytes, j, i) && d.keep(j, i)))));
+    const unsigned ms = __ballot_sync(0xffffffffu, s);
+    raw += __popc(__ballot_sync(0xffffffffu, a));
+    if (lst != nullptr && s) lst[kept + __popc(ms & below)] = (uint16_t)m;
+    kept += __popc(ms);
+  }
+  return make_int2(kept, raw);
+}
+
+__device__ __forceinline__ float row_scale(int norm, int deg, int deg0) {
+  const float d = fmaxf((float)deg, 1.0f);
+  if (norm == kRw) return 1.0f / d;
+  if (norm == kSym) return rsqrtf(d);
+  if (norm == kGin) return (float)deg0 / d;
+  return 1.0f;
+}
+
+// shared memory: [kT: bit block, rounded up to 16 B] | rscale[n] f32 |
+//                cnt[rows] i32 | nbr[rows*n] u16
+template <bool kT>
+__global__ void packed_spmm_kernel(const uint8_t* __restrict__ bits,
+                                   const float* __restrict__ x,
+                                   float* __restrict__ out, int n, int nbytes,
+                                   int f, int norm, int drop_on, uint32_t seed,
+                                   uint32_t thresh, int rows_per_block, int tiles) {
+  extern __shared__ __align__(16) unsigned char smem[];
   const int b = blockIdx.x / tiles;
   const int row0 = (blockIdx.x % tiles) * rows_per_block;
   const int rows = min(rows_per_block, n - row0);
-  const uint8_t* bits_b = bits + (size_t)b * n * nbytes;
+  const uint8_t* blk = bits + (size_t)b * n * nbytes;
+  unsigned char* p = smem;
+  if (kT) {
+    const int nb = n * nbytes;
+    for (int k = threadIdx.x; k < nb; k += blockDim.x) smem[k] = blk[k];
+    blk = smem;
+    p += (nb + 15) / 16 * 16;
+  }
+  float* rscale = reinterpret_cast<float*>(p);
+  int* cnt = reinterpret_cast<int*>(rscale + n);
+  uint16_t* nbr = reinterpret_cast<uint16_t*>(cnt + rows_per_block);
+  const Drop d{drop_on != 0, mix32(mix32(seed) + (uint32_t)b), thresh};
+  const bool sym = norm == kSym;
+  const int lane = threadIdx.x & 31;
+  const int warp = threadIdx.x >> 5;
+  const int nwarps = blockDim.x >> 5;
+  if (kT) __syncthreads();
+
+  // scales of every row, where the sum reads rows outside the tile
+  const bool all_rows = (kT || sym) && norm != kNone;
+  if (all_rows) {
+    for (int i = warp; i < n; i += nwarps) {
+      const int2 c = walk(blk, n, nbytes, i, false, sym, d, nullptr);
+      if (lane == 0) rscale[i] = row_scale(norm, c.x, c.y);
+    }
+  }
+  for (int r = warp; r < rows; r += nwarps) {
+    const int2 c = walk(blk, n, nbytes, row0 + r, kT, sym, d, nbr + r * n);
+    if (lane == 0) {
+      cnt[r] = c.x;
+      if (!kT && !sym) rscale[row0 + r] = row_scale(norm, c.x, c.y);
+    }
+  }
+  __syncthreads();
+
+  // forward:    out[i] = rscale[i] * sum_j (sym ? rscale[j] : 1) * x[j]
+  // transposed: out[j] = (sym ? rscale[j] : 1) * sum_i rscale[i] * g[i]
+  const bool weighted = kT ? norm != kNone : sym;
   const float* x_b = x + (size_t)b * n * f;
   float* out_b = out + (size_t)b * n * f;
-
-  if (norm == kSym) {
-    for (int j = threadIdx.x; j < n; j += blockDim.x) {
-      const float d = (float)row_degree(bits_b + (size_t)j * nbytes, n, nbytes);
-      dinv[j] = rsqrtf(fmaxf(d, 1.0f));
-    }
-  }
-
-  const int lane = threadIdx.x & 31;
-  const int nwarps = blockDim.x >> 5;
-  const unsigned below = (1u << lane) - 1u;
-  for (int r = threadIdx.x >> 5; r < rows; r += nwarps) {
-    const uint8_t* row = bits_b + (size_t)(row0 + r) * nbytes;
-    int base = 0;
-    for (int c = 0; c < n; c += 32) {
-      const int j = c + lane;
-      const bool set = j < n && ((row[j % nbytes] >> (j / nbytes)) & 1);
-      const unsigned m = __ballot_sync(0xffffffffu, set);
-      if (set) nbr[r * n + base + __popc(m & below)] = (uint16_t)j;
-      base += __popc(m);
-    }
-    if (lane == 0) cnt[r] = base;
-  }
-  __syncthreads();
-
-  if (threadIdx.x < rows) {
-    const int r = threadIdx.x;
-    float s = 1.0f;
-    if (norm == kRw) s = 1.0f / fmaxf((float)cnt[r], 1.0f);
-    else if (norm == kSym) s = dinv[row0 + r];
-    scale[r] = s;
-  }
-  __syncthreads();
-
   for (int r = 0; r < rows; ++r) {
     const int deg = cnt[r];
     const uint16_t* lst = nbr + r * n;
-    const float s = scale[r];
-    float* out_row = out_b + (size_t)(row0 + r) * f;
+    const int row = row0 + r;
+    const float s = kT ? (sym ? rscale[row] : 1.0f) : rscale[row];
+    float* out_row = out_b + (size_t)row * f;
     for (int col = threadIdx.x; col < f; col += blockDim.x) {
       float acc = 0.0f;
-      if (norm == kSym) {
+      if (weighted) {
 #pragma unroll 4
         for (int k = 0; k < deg; ++k) {
-          const int j = lst[k];
-          acc += dinv[j] * x_b[(size_t)j * f + col];
+          const int m = lst[k];
+          acc += rscale[m] * x_b[(size_t)m * f + col];
         }
       } else {
 #pragma unroll 4
@@ -120,27 +178,46 @@ __global__ void packed_spmm_fwd_kernel(const uint8_t* __restrict__ bits,
   }
 }
 
+template <bool kT>
+int launch(const void* bits, const void* x, void* out, int n, int nbytes, int f,
+           int norm, int drop_on, uint32_t seed, uint32_t thresh,
+           int rows_per_block, int tiles, int grid, int threads, int smem_bytes,
+           void* stream) {
+  if (smem_bytes > 48 * 1024) {
+    const cudaError_t e = cudaFuncSetAttribute(
+        packed_spmm_kernel<kT>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+        smem_bytes);
+    if (e != cudaSuccess) return (int)e;
+  }
+  packed_spmm_kernel<kT><<<grid, threads, smem_bytes, (cudaStream_t)stream>>>(
+      static_cast<const uint8_t*>(bits), static_cast<const float*>(x),
+      static_cast<float*>(out), n, nbytes, f, norm, drop_on, seed, thresh,
+      rows_per_block, tiles);
+  return (int)cudaGetLastError();
+}
+
 }  // namespace
 
 extern "C" {
 
-// Launches on `stream`; grid, block and dynamic shared memory come from
-// the caller (shadow_gnn_torch/ops/packed.py:launch_dims).  Returns
-// cudaGetLastError() after the launch (0 = launched).
+// Both launch on `stream`; grid, block and dynamic shared memory come
+// from the caller (shadow_gnn_torch/ops/packed.py:launch_dims).  Each
+// returns cudaGetLastError() after the launch (0 = launched).
 int packed_spmm_forward(const void* bits, const void* x, void* out, int n,
-                        int nbytes, int f, int norm, int rows_per_block,
-                        int tiles, int grid, int threads, int smem_bytes,
-                        void* stream) {
-  if (smem_bytes > 48 * 1024) {
-    const cudaError_t e = cudaFuncSetAttribute(
-        packed_spmm_fwd_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-        smem_bytes);
-    if (e != cudaSuccess) return (int)e;
-  }
-  packed_spmm_fwd_kernel<<<grid, threads, smem_bytes, (cudaStream_t)stream>>>(
-      static_cast<const uint8_t*>(bits), static_cast<const float*>(x),
-      static_cast<float*>(out), n, nbytes, f, rows_per_block, tiles, norm);
-  return (int)cudaGetLastError();
+                        int nbytes, int f, int norm, int drop_on, uint32_t seed,
+                        uint32_t thresh, int rows_per_block, int tiles, int grid,
+                        int threads, int smem_bytes, void* stream) {
+  return launch<false>(bits, x, out, n, nbytes, f, norm, drop_on, seed, thresh,
+                       rows_per_block, tiles, grid, threads, smem_bytes, stream);
+}
+
+int packed_spmm_transposed(const void* bits, const void* g, void* out, int n,
+                           int nbytes, int f, int norm, int drop_on,
+                           uint32_t seed, uint32_t thresh, int rows_per_block,
+                           int tiles, int grid, int threads, int smem_bytes,
+                           void* stream) {
+  return launch<true>(bits, g, out, n, nbytes, f, norm, drop_on, seed, thresh,
+                      rows_per_block, tiles, grid, threads, smem_bytes, stream);
 }
 
 }  // extern "C"

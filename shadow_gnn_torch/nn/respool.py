@@ -2,7 +2,9 @@
 
 Only center pooling with ``residue=none`` for the node task is ported:
 the readout is the last conv layer's row at each subgraph's target, and
-it has no parameters (reference ``layers.py:161-163``).
+it has no parameters and no dropout (reference ``layers.py:161-163``;
+the JAX ResPool returns before its MLP, so ``dropout`` never applies).
+Every other readout raises at construction.
 """
 from __future__ import annotations
 

@@ -46,6 +46,18 @@ DEFAULT_PARAMS = {
     "percent_per_epoch": {"train": 1.0, "valid": 1.0, "test": 1.0},
 }
 
+# per-dataset metric (reference CONFIG_TEMPLATE.yml:5-13)
+DATA_METRIC = {
+    "flickr": "accuracy",
+    "reddit": "accuracy",
+    "yelp": "f1",
+    "arxiv": "accuracy_ogb",
+    "products": "accuracy_ogb",
+    "papers100M": "accuracy_ogb",
+    "collab": "hits50",
+    "ppa": "hits100",
+}
+
 
 def _check(ok: bool, what: str):
     if not ok:

@@ -1,25 +1,34 @@
-"""Serving pipeline: data -> PPR tables -> subgraph cache -> model.
+"""Training and serving pipeline: data -> PPR tables -> subgraph cache
+-> model -> loops.
 
-The serving subset of the JAX package's ``train/pipeline.py`` Trainer:
-per-mode device graphs, per-mode PPR top-k tables (native host push +
-the reference's bin cache), the bit-packed subgraph cache of the
-deterministic PPR sampler, and point-query serving through
-:meth:`Trainer.predict_nodes` / :meth:`Trainer.embed_nodes`.
+The port of the JAX package's ``train/pipeline.py`` Trainer for the
+node task: per-mode device graphs, per-mode PPR top-k tables (native
+host push + the reference's bin cache), the bit-packed subgraph cache
+of the deterministic PPR sampler, training (:meth:`Trainer.train`:
+epochs of TRAIN and VALID, best-model selection, final passes) and
+point-query serving (:meth:`Trainer.predict_nodes` /
+:meth:`Trainer.embed_nodes`).
 
 Differences from the JAX Trainer:
 * everything runs eagerly on ``device`` (default ``"cuda"``; CUDA
-  absent raises); there are no epoch or chunk programs;
+  absent raises), one batch at a time: there are no epoch-scan, chunk,
+  partition or profiler programs;
+* dropout masks come from a ``torch.Generator`` on the device and
+  dropedge seeds from one on the host, both seeded per epoch from
+  ``rng_np``; the masks themselves differ from JAX's.  ``rng_np`` is
+  consumed in the JAX Trainer's order (a permutation, then one seed,
+  per epoch), so epoch permutations match a JAX run whose first-epoch
+  subgraph profile is off (that profile draws one more permutation and
+  is not ported);
 * serving builds the mode's subgraph cache on the first request (the
-  JAX Trainer builds it in its first epoch of that mode), so requests
-  read cached subgraphs unless :meth:`disable_cache` was called;
-* training, the optimizer, the logger and the metrics are not ported
-  yet, nor are samplers other than deterministic ``ppr``.
+  JAX Trainer builds it in its first epoch of that mode);
+* samplers other than deterministic ``ppr`` are not ported.
 """
 from __future__ import annotations
 
 import dataclasses
 import time
-from typing import Any, Dict, List, Tuple
+from typing import Any, Dict, List, Optional, Tuple
 
 import numpy as np
 import torch
@@ -27,13 +36,17 @@ import torch
 from shadow_gnn_torch import MODE2STR, TEST, TRAIN, VALID
 from shadow_gnn_torch.data.graph import DeviceGraph, RawGraph, is_undirected
 from shadow_gnn_torch.nn.layers import init_params
-from shadow_gnn_torch.nn.model import DeepGNN, ModelConfig, predict_fn
+from shadow_gnn_torch.nn.model import DeepGNN, ModelConfig, predict_fn, row_losses
 from shadow_gnn_torch.sampling import cache as cache_mod
 from shadow_gnn_torch.sampling import ppr as ppr_mod
 from shadow_gnn_torch.sampling.batch import SamplerConfig, SubgraphBatch, default_n_pad
 from shadow_gnn_torch.sampling.induction import bucket_cap, plan_ppr_induction
 from shadow_gnn_torch.sampling.samplers import PPRTables, sample_subgraphs
-from shadow_gnn_torch.train.config import decouple_ensemble
+from shadow_gnn_torch.train.config import DATA_METRIC, decouple_ensemble
+from shadow_gnn_torch.train.logger import Logger
+from shadow_gnn_torch.train.metrics import Metrics
+
+CLIP_NORM = 5.0                 # reference models.py:223
 
 
 def resolve_device(device) -> torch.device:
@@ -45,14 +58,79 @@ def resolve_device(device) -> torch.device:
     return dev
 
 
+def weighted_loss_parts(cfg: ModelConfig, logits: torch.Tensor,
+                        labels: torch.Tensor, weights: torch.Tensor):
+    """(numerator, weight sum) of the reference loss with per-row
+    weights (0 on tail-batch padding rows)."""
+    return (row_losses(cfg, logits, labels) * weights).sum(), weights.sum()
+
+
+def weighted_loss_fn(cfg: ModelConfig, logits, labels, weights) -> torch.Tensor:
+    """Reference loss (models.py:156-166) with tail-batch padding masked
+    by per-row weights in {0, 1}."""
+    num, den = weighted_loss_parts(cfg, logits, labels, weights)
+    return num / torch.clamp(den, min=1.0)
+
+
+@torch.no_grad()
+def clip_grad_global_norm_(params, max_norm: float) -> torch.Tensor:
+    """optax.clip_by_global_norm: when the global L2 norm g of all
+    gradients reaches ``max_norm``, scale them by max_norm / g, with no
+    epsilon (torch.nn.utils.clip_grad_norm_ divides by g + 1e-6).
+    Multi-tensor kernels, no host sync.  Returns g."""
+    grads = [p.grad for p in params if p.grad is not None]
+    norm = torch.nn.utils.get_total_norm(grads, 2.0)
+    coef = torch.where(norm >= max_norm, max_norm / norm, torch.ones_like(norm))
+    torch._foreach_mul_(grads, coef)
+    return norm
+
+
+def make_optimizer(params, lr: float) -> torch.optim.Optimizer:
+    """optax.adam(lr) with its defaults (the clip is applied to the
+    gradients first, by :func:`clip_grad_global_norm_`)."""
+    return torch.optim.Adam(params, lr=lr, betas=(0.9, 0.999), eps=1e-8)
+
+
+@dataclasses.dataclass
+class EpochRNG:
+    """One epoch's random streams: dropout masks on the device, dropedge
+    seeds on the host (drawn without a device sync)."""
+
+    dropout: torch.Generator
+    dropedge: torch.Generator
+
+    @classmethod
+    def from_seed(cls, seed: int, device: torch.device) -> "EpochRNG":
+        return cls(torch.Generator(device=device).manual_seed(seed),
+                   torch.Generator().manual_seed(seed ^ 0x5BD1E995))
+
+    def dropedge_seed(self) -> int:
+        return int(torch.randint(0, 2**31 - 1, (), generator=self.dropedge))
+
+
 class Trainer:
     def __init__(self, name_data: str, dir_data: str, raw: RawGraph,
-                 parsed: Dict[str, Any], seed: int = 0, device="cuda",
+                 parsed: Dict[str, Any], metrics: Optional[Metrics] = None,
+                 logger: Optional[Logger] = None, seed: int = 0, device="cuda",
                  packed_adj: bool = False):
+        """``metrics`` defaults to the dataset's metric (DATA_METRIC,
+        else accuracy) and ``logger`` to one that writes no files."""
         self.device = resolve_device(device)
         self.name_data = name_data
         self.dir_data = dir_data
         self.arch = parsed["arch_gnn"]
+        self.params_train = parsed["params_train"]
+        if "retrain_dir" in self.params_train:
+            raise NotImplementedError("retrain_dir is not ported yet")
+        if metrics is None:
+            metrics = Metrics(name_data, self.arch["loss"] == "sigmoid",
+                              DATA_METRIC.get(name_data, "accuracy"),
+                              int(self.params_train["term_window_size"]))
+        self.metrics = metrics
+        self.logger = logger if logger is not None else Logger(
+            metrics, "", no_log=True,
+            term_window_size=int(self.params_train["term_window_size"]),
+            term_window_aggr=self.params_train["term_window_aggr"])
         self.sampler_cfg_train = parsed["config_sampler_train"]
         self.config_data = parsed["config_data"]
         self.task = raw.prediction_task
@@ -62,6 +140,7 @@ class Trainer:
                 or self.arch["use_label"] != "none"):
             raise NotImplementedError("feature/label smoothening is not ported yet")
         self.seed = seed
+        self.rng_np = np.random.default_rng(seed)
         self.batch_size = self.sampler_cfg_train["batch_size"]
         self.is_transductive = raw.is_transductive
         g_full = DeviceGraph.from_csr(raw.indptr_full, raw.indices_full,
@@ -75,7 +154,7 @@ class Trainer:
         self.undirected = is_undirected(raw.indptr_full, raw.indices_full)
         feat_np = np.asarray(raw.feat_full, dtype=np.float32)
         self.dim_feat_raw = feat_np.shape[1]
-        label = raw.label_full
+        self.label_np = label = raw.label_full
         self.entity_set = raw.node_set
         if label.ndim == 1:
             self.num_classes = int(label[~np.isnan(label.astype(np.float64))].max()) + 1
@@ -106,11 +185,18 @@ class Trainer:
             feature_augment_ops=self.arch["feature_augment_ops"],
             num_ensemble=self.num_ensemble,
             prediction_task=self.task,
+            dropout=float(self.params_train["dropout"]),
+            dropedge=float(self.params_train.get("dropedge", 0.0)),
             packed_adj=packed_adj,
         )
         self.model = DeepGNN(self.model_cfg)
         init_params(self.model, torch.Generator().manual_seed(seed))
         self.model.to(self.device).eval()
+        self.optimizer = make_optimizer(self.model.parameters(),
+                                        float(self.params_train["lr"]))
+        # train-metric batch subsampling (reference --eval_train_every);
+        # 1 = use every batch
+        self.eval_train_every = 1
         self._lookup: Dict[int, np.ndarray] = {}
 
     # ------------------------------------------------------------------
@@ -257,6 +343,140 @@ class Trainer:
                                                    self.num_nodes - 1)])
             batches.append(batch)
         return batches, feats
+
+    # ------------------------------------------------------------------
+    # Training
+    def _epoch_arrays(self, mode: int):
+        """Shuffled, percent-sampled, batch-padded root / row / label /
+        weight arrays of one epoch (numpy; the node task)."""
+        b = self.batch_size
+        ent = np.asarray(self.entity_set[mode])
+        perm = self.rng_np.permutation(ent.size)
+        pct = float(self.params_train["percent_per_epoch"][MODE2STR[mode]])
+        if pct < 1.0:
+            perm = perm[:int(np.ceil(pct * perm.size))]
+        roots = ent[perm][:, None]                        # [M, 1]
+        rows = perm[:, None]                              # table rows
+        labels = self.label_np[ent[perm]]
+        m = roots.shape[0]
+        nb = -(-m // b)
+        pad = nb * b - m
+        w = np.concatenate([np.ones(m, np.float32), np.zeros(pad, np.float32)])
+        roots = np.concatenate([roots, np.repeat(roots[:1], pad, 0)])
+        rows = np.concatenate([rows, np.repeat(rows[:1], pad, 0)])
+        labels = np.concatenate([labels, np.repeat(labels[:1], pad, 0)])
+        return nb, roots, rows, labels, w
+
+    def _forward_loss(self, batches: List[SubgraphBatch],
+                      feats: List[torch.Tensor], labels: torch.Tensor,
+                      w: torch.Tensor, rng: Optional[EpochRNG] = None):
+        """(loss, logits) of one batch; in training mode with the
+        epoch's dropout generator and one fresh dropedge seed."""
+        gen, seed = None, 0
+        if self.model.training and rng is not None:
+            gen = rng.dropout
+            if self.model_cfg.dropedge > 0.0:
+                seed = rng.dropedge_seed()
+        logits, _ = self.model(batches[0], feats[0], gen, seed)
+        return weighted_loss_fn(self.model_cfg, logits, labels, w), logits
+
+    def _train_step(self, batches, feats, labels, w, rng: EpochRNG):
+        """Forward, backward, clip and Adam update of one batch."""
+        self.optimizer.zero_grad(set_to_none=True)
+        loss, logits = self._forward_loss(batches, feats, labels, w, rng)
+        loss.backward()
+        clip_grad_global_norm_(self.model.parameters(), CLIP_NORM)
+        self.optimizer.step()
+        return loss.detach(), predict_fn(self.model_cfg, logits.detach())
+
+    @torch.no_grad()
+    def _eval_step(self, batches, feats, labels, w):
+        loss, logits = self._forward_loss(batches, feats, labels, w)
+        return loss, predict_fn(self.model_cfg, logits)
+
+    def _run_batches(self, mode: int, train: bool, nb: int, roots, rows,
+                     labels, w, rng: EpochRNG):
+        """One pass over ``nb`` batches, eagerly, one batch at a time.
+        Returns per-batch losses [nb], predictions [nb * B, C] (numpy)
+        and the induction overflow."""
+        b, dev = self.batch_size, self.device
+        roots_d = torch.as_tensor(roots.astype(np.int64), device=dev)
+        rows_d = torch.as_tensor(rows.astype(np.int64), device=dev)
+        lab_d = torch.as_tensor(labels.astype(np.float32 if labels.ndim > 1
+                                              else np.int64), device=dev)
+        w_d = torch.as_tensor(w, device=dev)
+        self.model.train(train)
+        losses, preds, ovf = [], [], 0
+        for i in range(nb):
+            sl = slice(i * b, (i + 1) * b)
+            with torch.no_grad():
+                batches, feats = self._sample_branch_batches(mode, roots_d[sl],
+                                                             rows_d[sl])
+            ovf += sum(bt.overflow for bt in batches)
+            if train:
+                loss, pred = self._train_step(batches, feats, lab_d[sl], w_d[sl], rng)
+            else:
+                loss, pred = self._eval_step(batches, feats, lab_d[sl], w_d[sl])
+            losses.append(loss)
+            preds.append(pred)
+        self.model.eval()
+        return (torch.stack(losses).cpu().numpy(), torch.cat(preds).cpu().numpy(),
+                ovf)
+
+    def run_epoch(self, epoch: int, mode: int, status: str = "running"):
+        """One TRAIN (with updates) or evaluation pass over the mode's
+        node set; logs and returns its stats."""
+        self._ensure_tables(mode)
+        self._ensure_caches(mode)
+        train = mode == TRAIN and status == "running"
+        nb, roots, rows, labels_np, w_np = self._epoch_arrays(mode)
+        rng = EpochRNG.from_seed(int(self.rng_np.integers(1 << 31)), self.device)
+        t0 = time.time()
+        losses, preds, ovf = self._run_batches(mode, train, nb, roots, rows,
+                                               labels_np, w_np, rng)
+        t1 = time.time()
+        if ovf > 0:
+            print(f"[WARN] induction candidate overflow: {ovf} edges "
+                  f"dropped this epoch (raise cand_cap)")
+        # metrics on the host over valid rows; TRAIN metrics optionally
+        # use only every Nth batch (reference PERIOD_LOG subsampling)
+        valid = w_np > 0
+        if train and self.eval_train_every > 1:
+            sel = np.arange(losses.size) % self.eval_train_every == 0
+            losses = losses[sel]
+            valid = valid & np.repeat(sel, self.batch_size)
+        y_pred = preds[valid]
+        y_true = labels_np[valid]
+        if y_true.ndim == 1:
+            y_true = np.eye(self.num_classes, dtype=np.float32)[
+                y_true.astype(np.int64)]
+        stats = {"loss": float(losses.mean())}
+        stats.update(self.metrics.calc(y_true, y_pred))
+        self.logger.log_epoch(mode, epoch, stats, status=status, time_s=t1 - t0)
+        return stats
+
+    def train(self, log_test_convergence: int = -1):
+        """``end`` epochs of TRAIN then VALID (TEST every
+        ``log_test_convergence`` epochs), best-model selection over
+        VALID, then the final TRAIN / VALID / TEST passes with the best
+        model.  Returns the final stats per mode."""
+        max_epoch = int(self.params_train["end"])
+        for e in range(max_epoch):
+            self.run_epoch(e, TRAIN)
+            self.run_epoch(e, VALID)
+            if log_test_convergence > 0 and e % log_test_convergence == 0:
+                self.run_epoch(e, TEST)
+            self.logger.update_best_model(e, self.model.state_dict(),
+                                          self.optimizer.state_dict())
+        self.logger.validate_result()
+        print("=" * 22 + "\nOptimization Finished!\n" + "=" * 22)
+        best_model, _ = self.logger.restore_model()
+        if best_model is not None:
+            self.model.load_state_dict(best_model)
+        for md in (TRAIN, VALID, TEST):
+            stats = self.run_epoch(max_epoch, md, status="final")
+            self.logger.log_final(md, stats)
+        return self.logger.final_stats
 
     # ------------------------------------------------------------------
     # Online serving

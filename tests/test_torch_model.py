@@ -1,7 +1,9 @@
-"""PyTorch port: norm_feat, SAGEConv and the DeepGNN forward against the
-JAX package's flax modules, under the same weights (carried over with
-``params_from_flax``) and the same numpy inputs.  Tolerance atol 1e-5 /
-rtol 1e-4: the same f32 arithmetic, summed in another order."""
+"""PyTorch port: norm_feat, SAGEConv and DeepGNN (forward, and training
+mode with its gradients) against the JAX package's flax modules, under
+the same weights (carried over with ``params_from_flax``) and the same
+numpy inputs; dropout and dropedge on the port's own generators.
+Tolerance atol 1e-5 / rtol 1e-4 unless stated: the same f32
+arithmetic, summed in another order."""
 import jax
 import jax.numpy as jnp
 import numpy as np
@@ -11,12 +13,14 @@ import torch
 from shadow_gnn_tpu.nn import layers as jlayers
 from shadow_gnn_tpu.nn import model as jmodel
 from shadow_gnn_tpu.sampling.batch import SubgraphBatch as JBatch
+from shadow_gnn_tpu.train.pipeline import weighted_loss_fn as j_wloss
 from shadow_gnn_torch.convert import params_from_flax
 from shadow_gnn_torch.nn import layers as tlayers
 from shadow_gnn_torch.nn import model as tmodel
 from shadow_gnn_torch.ops.normalize import adj_norm_rw
 from shadow_gnn_torch.sampling.batch import SubgraphBatch as TBatch
 from shadow_gnn_torch.sampling.cache import pack_bits
+from shadow_gnn_torch.train.pipeline import weighted_loss_fn as t_wloss
 
 torch.set_num_threads(2)
 TOL = dict(rtol=1e-4, atol=1e-5)
@@ -50,8 +54,11 @@ def _batch_arrays(seed=0):
                 drnl=np.zeros((B, N), np.int32)), feat
 
 
-def _jax_batch(a):
-    return JBatch(**{k: jnp.asarray(v) for k, v in a.items()})
+def _jax_batch(a, packed=False):
+    j = {k: jnp.asarray(v) for k, v in a.items()}
+    if packed:
+        j["adj_bits"] = jnp.asarray(pack_bits(torch.as_tensor(a["adj"])).numpy())
+    return JBatch(**j)
 
 
 def _torch_batch(a, packed=False):
@@ -97,11 +104,140 @@ def test_sage_conv_matches_jax(act):
     np.testing.assert_allclose(got, want, **TOL)
 
 
-def _configs(packed):
+def _configs(packed, **extra):
     kw = dict(dim_feat_smooth=F, dim_label_raw=C, dim_label_smooth=0,
               aggr="sage", num_layers=3, dim=DIM, act="relu",
-              feature_augment=("hops",), packed_adj=packed)
+              feature_augment=("hops",), packed_adj=packed, **extra)
     return jmodel.ModelConfig(dim_feat_raw=F, **kw), tmodel.ModelConfig(**kw)
+
+
+def test_dropout_identity_at_zero():
+    x = torch.randn(4, 8, 16)
+    assert tlayers.dropout(x, 0.0, None) is x
+    gen = torch.Generator().manual_seed(0)
+    conv = tlayers.SAGEConv(16, 8, dropout=0.0).train()
+    ref = tlayers.SAGEConv(16, 8).eval()
+    ref.load_state_dict(conv.state_dict())
+    adj = torch.rand(4, 8, 8)
+    agg = lambda v: torch.bmm(adj, v)   # noqa: E731
+    assert torch.equal(conv(x, agg, gen), ref(x, agg))
+
+
+@pytest.mark.parametrize("p", [0.1, 0.45])
+def test_dropout_kept_fraction_and_scale(p):
+    x = torch.full((64, 32, 50), 2.0)                # 102,400 entries
+    gen = torch.Generator().manual_seed(3)
+    y = tlayers.dropout(x, p, gen)
+    kept = y != 0
+    sigma = (p * (1 - p) / x.numel()) ** 0.5
+    assert abs(kept.float().mean().item() - (1 - p)) < 4 * sigma
+    torch.testing.assert_close(y[kept], torch.full_like(y[kept], 2.0 / (1 - p)))
+    # the mask follows the generator: same state, same mask
+    y2 = tlayers.dropout(x, p, torch.Generator().manual_seed(3))
+    assert torch.equal(y, y2)
+    assert not torch.equal(y, tlayers.dropout(x, p, gen))
+    with pytest.raises(ValueError, match="Generator"):
+        tlayers.dropout(x, p, None)
+
+
+@pytest.mark.parametrize("loss", ["softmax", "sigmoid"])
+def test_losses_match_jax(loss):
+    """loss_fn and weighted_loss_fn (padding rows at weight 0) against
+    the JAX package's, softmax (int and one-hot labels) and sigmoid."""
+    rng = np.random.default_rng(9)
+    logits = (3 * rng.normal(size=(6, C))).astype(np.float32)
+    w = np.array([1, 1, 1, 0, 1, 0], np.float32)
+    jcfg, tcfg = _configs(False, loss=loss)
+    if loss == "sigmoid":
+        label_sets = [(rng.random((6, C)) < 0.4).astype(np.float32)]
+    else:
+        ints = rng.integers(0, C, 6)
+        label_sets = [ints, np.eye(C, dtype=np.float32)[ints]]
+    from shadow_gnn_tpu.nn.model import loss_fn as j_loss
+    for labels in label_sets:
+        tl, tlab = torch.as_tensor(logits), torch.as_tensor(labels)
+        np.testing.assert_allclose(
+            tmodel.loss_fn(tcfg, tl, tlab).item(),
+            float(j_loss(jcfg, jnp.asarray(logits), jnp.asarray(labels))),
+            rtol=1e-6)
+        np.testing.assert_allclose(
+            t_wloss(tcfg, tl, tlab, torch.as_tensor(w)).item(),
+            float(j_wloss(jcfg, jnp.asarray(logits), jnp.asarray(labels),
+                          jnp.asarray(w))), rtol=1e-6)
+
+
+def _grads_np(model):
+    return {k: p.grad.numpy() for k, p in model.named_parameters()}
+
+
+@pytest.mark.parametrize("packed", [False, True])
+def test_deep_gnn_train_mode_matches_jax(packed):
+    """train() mode at dropout 0 / dropedge 0: logits and the gradient of
+    weighted_loss_fn for every parameter equal flax apply(train=True)
+    (JAX's packed path runs the interpret-mode Pallas kernel and its
+    transposed VJP), at rtol 1e-4 / atol 1e-6."""
+    a, feat = _batch_arrays(11)
+    jcfg, tcfg = _configs(packed)
+    jm = jmodel.DeepGNN(jcfg)
+    args = ([_jax_batch(a, packed)], [jnp.asarray(feat)])
+    params = jm.init({"params": jax.random.PRNGKey(1)}, *args,
+                     mode_train=True, train=False)
+    labels = np.random.default_rng(2).integers(0, C, B)
+    w = np.array([1, 1, 0, 1], np.float32)           # a padding row
+
+    def lf(p):
+        logits, _ = jm.apply(p, *args, mode_train=True, train=True)
+        return j_wloss(jcfg, logits, jnp.asarray(labels), jnp.asarray(w)), logits
+
+    (j_loss, j_logits), j_grads = jax.value_and_grad(lf, has_aux=True)(params)
+    tm = tmodel.DeepGNN(tcfg).train()
+    tm.load_state_dict(params_from_flax(_np_tree(params)))
+    logits, _ = tm(_torch_batch(a, packed), torch.as_tensor(feat),
+                   torch.Generator().manual_seed(0), 123)
+    loss = t_wloss(tcfg, logits, torch.as_tensor(labels), torch.as_tensor(w))
+    loss.backward()
+    tol = dict(rtol=1e-4, atol=1e-6)
+    np.testing.assert_allclose(logits.detach().numpy(), np.asarray(j_logits), **tol)
+    np.testing.assert_allclose(loss.item(), float(j_loss), **tol)
+    want = params_from_flax(_np_tree(j_grads))
+    got = _grads_np(tm)
+    assert set(got) == set(want)
+    for k in want:
+        np.testing.assert_allclose(got[k], want[k].numpy(), err_msg=k, **tol)
+
+
+def test_packed_and_dense_paths_agree_under_dropedge():
+    """One dropedge seed gives the packed and the dense aggregation the
+    same mask: equal loss and gradients (dropout on, same generator
+    state)."""
+    a, feat = _batch_arrays(13)
+    _, cfg_dense = _configs(False, dropout=0.3, dropedge=0.4)
+    _, cfg_packed = _configs(True, dropout=0.3, dropedge=0.4)
+    labels = torch.as_tensor(np.random.default_rng(4).integers(0, C, B))
+    w = torch.ones(B)
+    out = []
+    for cfg, batch in ((cfg_dense, _torch_batch(a)),
+                       (cfg_packed, _torch_batch(a, packed=True))):
+        m = tmodel.DeepGNN(cfg)
+        tlayers.init_params(m, torch.Generator().manual_seed(0))
+        m.train()
+        logits, _ = m(batch, torch.as_tensor(feat),
+                      torch.Generator().manual_seed(5), 2024)
+        loss = t_wloss(cfg, logits, labels, w)
+        loss.backward()
+        out.append((loss.item(), _grads_np(m), logits.detach()))
+    (l_d, g_d, lg_d), (l_p, g_p, lg_p) = out
+    np.testing.assert_allclose(l_p, l_d, rtol=1e-6)
+    for k in g_d:
+        np.testing.assert_allclose(g_p[k], g_d[k], rtol=1e-5, atol=1e-6, err_msg=k)
+    # and dropedge did act: another seed gives other logits
+    m = tmodel.DeepGNN(cfg_packed)
+    tlayers.init_params(m, torch.Generator().manual_seed(0))
+    m.train()
+    with torch.no_grad():
+        other, _ = m(_torch_batch(a, packed=True), torch.as_tensor(feat),
+                     torch.Generator().manual_seed(5), 2025)
+    assert not torch.allclose(other, lg_p)
 
 
 def test_deep_gnn_forward_matches_jax():
@@ -147,7 +283,8 @@ def test_unported_branches_raise():
                 dict(act="elu")):
         with pytest.raises(NotImplementedError):
             tmodel.DeepGNN(dataclasses.replace(tcfg, **bad))
-    # training (dropout, dropedge, the backward) comes with the next slice
+    # training mode with dropout needs its generator
     a, feat = _batch_arrays(1)
-    with pytest.raises(NotImplementedError, match="training"):
-        tmodel.DeepGNN(tcfg).train()(_torch_batch(a), torch.as_tensor(feat))
+    m = tmodel.DeepGNN(dataclasses.replace(tcfg, dropout=0.2)).train()
+    with pytest.raises(ValueError, match="Generator"):
+        m(_torch_batch(a), torch.as_tensor(feat))

@@ -1,19 +1,23 @@
-"""PyTorch port: bit packing and the packed aggregation against the JAX
-package (Pallas kernel in interpret mode on the CPU), the kernel
-wrapper's guards and launch arithmetic, and the port's isolation from
-JAX."""
+"""PyTorch port: bit packing, the packed aggregation and its transposed
+backward against the JAX package (Pallas kernel in interpret mode on
+the CPU at dropedge 0; JAX's dense formulas under the port's dropedge
+mask otherwise), the dropedge mask, the kernel wrapper's guards and
+launch arithmetic, and the port's isolation from JAX."""
 import ast
 import os
 import subprocess
 import sys
 
+import jax
 import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
 
+from shadow_gnn_tpu.ops import normalize as jnorm
 from shadow_gnn_tpu.ops import pallas_packed as jpp
 from shadow_gnn_tpu.sampling import cache as jcache
+from shadow_gnn_torch.ops import normalize as tnorm
 from shadow_gnn_torch.ops import packed as tpp
 from shadow_gnn_torch.sampling import cache as tcache
 from shadow_gnn_torch.train.pipeline import resolve_device
@@ -62,22 +66,136 @@ def test_packed_spmm_plain_matches_jax(norm, n):
     assert tpp.packed_spmm.launches == launches
 
 
+def _jax_dense(norm, adj, mask, p):
+    """JAX's dense normalisation under dropedge p, with the port's mask
+    handed in where JAX would draw its own."""
+    fn = {"none": jnorm.adj_gat_drop, "rw": jnorm.adj_norm_rw,
+          "sym": jnorm.adj_norm_sym, "gin": jnorm.adj_gin_rescale}[norm]
+    orig = jnorm.dropedge_mask
+    jnorm.dropedge_mask = lambda rng, a, de: jnp.asarray(mask)
+    try:
+        return fn(jnp.asarray(adj), jax.random.PRNGKey(0), p)
+    finally:
+        jnorm.dropedge_mask = orig
+
+
+@pytest.mark.parametrize("p", [0.0, 0.3])
+@pytest.mark.parametrize("n", [13, 24, 37])
+@pytest.mark.parametrize("norm", ["none", "rw", "sym", "gin"])
+def test_packed_spmm_and_grad_match_jax(norm, n, p):
+    """Forward and x-gradient (the transposed product) of the port's
+    packed_spmm on the CPU against JAX: the interpret-mode Pallas kernel
+    and its custom VJP at p=0; the dense formulas under the port's mask
+    at p>0.  Same f32 sums in another order: atol/rtol 1e-5."""
+    adj, x = _case(n)
+    g = np.random.default_rng(n + 100).normal(size=x.shape).astype(np.float32)
+    bits = np.array(jcache.pack_bits(jnp.asarray(adj)))
+    seed = 1234 + n
+    if p == 0.0:
+        want, vjp = jax.vjp(lambda xx: jpp.packed_spmm(jnp.asarray(bits), xx, 0,
+                                                       norm, 0.0), jnp.asarray(x))
+    else:
+        mask = tnorm.dropedge_mask(seed, adj.shape[0], n, p).numpy()
+        assert 0 < mask.sum() < mask.size
+        a_n = _jax_dense(norm, adj, mask, p)
+        want, vjp = jax.vjp(lambda xx: jnp.einsum("bij,bjf->bif", a_n, xx),
+                            jnp.asarray(x))
+    (want_dx,) = vjp(jnp.asarray(g))
+    tx = torch.as_tensor(x).requires_grad_()
+    out = tpp.packed_spmm(torch.as_tensor(bits), tx, norm, p, seed)
+    out.backward(torch.as_tensor(g))
+    np.testing.assert_allclose(out.detach().numpy(), np.asarray(want),
+                               rtol=1e-5, atol=1e-5)
+    np.testing.assert_allclose(tx.grad.numpy(), np.asarray(want_dx),
+                               rtol=1e-5, atol=1e-5)
+
+
+def test_dropedge_mask_golden_values():
+    """The counter hash is part of the port's definition: the CUDA
+    kernel computes the same words.  Pinned values, and the split
+    int64 products against plain Python integers."""
+    assert [tnorm.mix32(v) for v in (0, 1, 2, 12345, 2**31 - 2)] == [
+        0, 1753845952, 3507691905, 2435775735, 2873130988]
+
+    def mix_ref(v):
+        v ^= v >> 16
+        v = (v * 0x7FEB352D) & 0xFFFFFFFF
+        v ^= v >> 15
+        v = (v * 0x846CA68B) & 0xFFFFFFFF
+        return v ^ (v >> 16)
+
+    words = np.random.default_rng(0).integers(0, 2**32, 4096, dtype=np.uint64)
+    got = tnorm.mix32(torch.as_tensor(words.astype(np.int64))).tolist()
+    assert got == [mix_ref(int(v)) for v in words]
+    # keep(seed=7, b=1, i=2, j=3) at p=0.5, by hand
+    key = mix_ref((mix_ref(7) + 1) & 0xFFFFFFFF)
+    h = mix_ref(key ^ (2 << 16 | 3))
+    assert tnorm.dropedge_mask(7, 2, 4, 0.5)[1, 2, 3].item() == float(
+        h > int(0.5 * (2**32 - 1)))
+    assert tnorm.drop_threshold(0.05) == 214748364
+
+
+@pytest.mark.parametrize("p", [0.05, 0.5])
+def test_dropedge_mask_kept_fraction(p):
+    m = tnorm.dropedge_mask(99, 8, 112, p)         # 100,352 entries
+    sigma = (p * (1 - p) / m.numel()) ** 0.5
+    assert abs(m.mean().item() - (1 - p)) < 4 * sigma
+    assert torch.equal(tnorm.dropedge_mask(99, 8, 112, 0.0), torch.ones_like(m))
+
+
+def test_dropedge_mask_varies_with_seed_and_block():
+    a = tnorm.dropedge_mask(5, 3, 64, 0.3)
+    b = tnorm.dropedge_mask(6, 3, 64, 0.3)
+    assert not torch.equal(a, b)
+    assert not torch.equal(a[0], a[1]) and not torch.equal(a[1], a[2])
+    # block b of a larger batch is the same block: the mask depends on
+    # (seed, b, i, j) only
+    assert torch.equal(tnorm.dropedge_mask(5, 5, 64, 0.3)[:3], a)
+    assert torch.equal(tnorm.dropedge_mask(5, 3, 80, 0.3)[:, :64, :64], a)
+
+
+@pytest.mark.parametrize("norm", ["none", "rw", "sym", "gin"])
+def test_dropedge_mask_same_in_forward_and_backward(norm):
+    """The backward regenerates the forward's mask from the seed: the
+    transposed product is the exact transpose of the forward's matrix."""
+    adj, _ = _case(24, b=4)
+    bits = tcache.pack_bits(torch.as_tensor(adj))
+    eye = torch.eye(24).expand(4, 24, 24).contiguous()
+    w = tpp.packed_spmm(bits, eye, norm, 0.5, 77)           # = W
+    wt = tpp.packed_spmm_t(bits, eye, norm, 0.5, 77)        # = W^T
+    assert torch.equal(wt, w.transpose(1, 2))
+    assert not torch.equal(w, tpp.packed_spmm(bits, eye, norm, 0.5, 78))
+    # autograd's backward is that transposed product under the same seed
+    x = eye.clone().requires_grad_()
+    tpp.packed_spmm(bits, x, norm, 0.5, 77).sum().backward()
+    assert torch.equal(x.grad, tpp.packed_spmm_t(bits, torch.ones_like(eye),
+                                                 norm, 0.5, 77))
+
+
 def test_packed_spmm_wrapper_guards(monkeypatch):
     adj, x = _case(13)
     bits = tcache.pack_bits(torch.as_tensor(adj))
     tx = torch.as_tensor(x)
     with pytest.raises(NotImplementedError):
-        tpp.packed_spmm(bits, tx, "rw", dropedge=0.1)
-    with pytest.raises(NotImplementedError):
-        tpp.packed_spmm(bits, tx, "rw", transpose=True)
-    with pytest.raises(NotImplementedError):
         tpp.packed_spmm(bits, tx, "rw", bf16=True)
     with pytest.raises(ValueError):
         tpp.packed_spmm(bits, tx, "mean")
+    for p in (-0.1, 1.0):
+        with pytest.raises(ValueError, match="dropedge"):
+            tpp.packed_spmm(bits, tx, "rw", dropedge=p)
+        with pytest.raises(ValueError, match="dropedge"):
+            tpp.packed_spmm_t(bits, tx, "rw", dropedge=p)
     # a tensor that is neither on the CPU nor on CUDA never reaches the
-    # plain version
+    # plain version, in either direction
     with pytest.raises(ValueError):
         tpp.packed_spmm(bits, tx.to("meta"), "rw")
+    with pytest.raises(ValueError):
+        tpp.packed_spmm_t(bits, tx.to("meta"), "rw", 0.1, 3)
+    # on the CPU neither direction counts a kernel launch
+    launches = (tpp.packed_spmm.launches, tpp.packed_spmm_t.launches)
+    xg = tx.clone().requires_grad_()
+    tpp.packed_spmm(bits, xg, "rw", 0.1, 3).sum().backward()
+    assert (tpp.packed_spmm.launches, tpp.packed_spmm_t.launches) == launches
     # entry points asked for CUDA on a host without it raise
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     with pytest.raises(RuntimeError, match="CUDA is not available"):
@@ -92,11 +210,20 @@ def test_launch_dims(b, n):
     r = tpp.ROWS_PER_BLOCK
     assert tiles * r >= n > (tiles - 1) * r
     assert grid == b * tiles and threads % 32 == 0 and threads >= r
-    # dinv[n] f32 | scale[r] f32 | cnt[r] i32 | nbr[r*n] u16
-    assert smem == 4 * n + 4 * r + 4 * r + 2 * r * n
+    # rscale[n] f32 | cnt[r] i32 | nbr[r*n] u16
+    assert smem == 4 * n + 4 * r + 2 * r * n
     assert smem <= tpp.MAX_SMEM
+    # the transposed kernel: the same grid, with the bit block in front
+    grid_t, threads_t, smem_t, tiles_t = tpp.launch_dims(b, n, transpose=True)
+    assert (grid_t, threads_t, tiles_t) == (grid, threads, tiles)
+    bit_block = n * -(-n // 8)
+    assert smem_t - smem == -(-bit_block // 16) * 16 >= bit_block
     if (b, n) == (256, 208):        # the serving shape
-        assert (grid, smem) == (3328, 7616)
+        assert (grid, smem) == (3328, 7552)
+    if (b, n) == (64, 37):
+        assert smem_t == smem + 192
+    if n == 1330:                   # beyond the transposed kernel's shared memory
+        assert smem_t > tpp.MAX_SMEM
 
 
 _FORBIDDEN = ("jax", "jaxlib", "flax", "optax", "shadow_gnn_tpu")
