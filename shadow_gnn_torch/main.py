@@ -22,7 +22,7 @@ UNPORTED_FLAGS = (
     "inference_dir", "inference_configs", "is_inf_train", "postproc_configs",
     "postproc_dir", "compute_complexity_only", "inference_budget",
     "platform", "chunk_batches", "device_ppr", "matmul_precision", "prng",
-    "compute_dtype", "feat_dtype", "fused_gat", "data_tarball", "meta_config",
+    "compute_dtype", "feat_dtype", "data_tarball", "meta_config",
     "reload_model_dir", "trace_dir", "distributed", "partition",
     "partition_devices",
 )
@@ -45,6 +45,11 @@ def build_argparser():
     p.add_argument("--packed_adj", action="store_true",
                    help="aggregate cached batches from the packed bits "
                         "(the CUDA packed_spmm kernels on the card)")
+    p.add_argument("--fused_gat", default="auto", nargs="?", const="on",
+                   choices=["auto", "on", "off"],
+                   help="GAT attention through the fused kernels (ops/gat.py), "
+                        "which the port always launches on the card; 'off' "
+                        "(the dense score chain) is not ported")
     p.add_argument("--device", type=str, default="cuda",
                    help="torch device: cuda (default) or cpu")
     p.add_argument("--no_pbar", action="store_true",
@@ -62,6 +67,8 @@ def main(argv=None):
     parser = build_argparser()
     args = parser.parse_args(argv)
     given = [n for n in UNPORTED_FLAGS if getattr(args, n) not in (None, False)]
+    if args.fused_gat == "off":
+        given.append("fused_gat off")
     if given:
         parser.error("not ported to the PyTorch package yet: "
                      + ", ".join(f"--{n}" for n in given)

@@ -1,18 +1,24 @@
 """DeepGNN: the shaDow-GNN model (one ensemble branch).
 
-Per branch: masked node features + hop one-hot augment -> L x SAGE conv
-(node mask after every conv) -> ResPool (center) -> L2 normalise ->
-MLP classifier with ``norm_feat`` on the logits.  The adjacency is
+Per branch: masked node features (label-input columns zeroed at the
+targets in the TRAIN mode) + hop one-hot augment -> L x conv (SAGE or
+GAT; node mask after every conv) -> ResPool -> L2 normalise -> MLP
+classifier with ``norm_feat`` on the logits.  The adjacency is
 normalised and edge-dropped once per batch and reused by every conv.
-On cached batches with ``packed_adj`` the aggregation reads the packed
+SAGE on cached batches with ``packed_adj`` aggregates from the packed
 bits through ``ops/packed.packed_spmm``, whose backward is the
 transposed kernel ``packed_spmm_t``; otherwise it multiplies the dense
-rw-normalised block.  Both draw the same counter-hash dropedge mask
-(``ops/normalize.py``) from one seed per forward.
+rw-normalised block.  GAT takes the dense pair (edge-dropped block,
+structural block) into ``ops/gat.gat_attention``.  Every path draws the
+same counter-hash dropedge mask (``ops/normalize.py``) from one seed
+per forward.
 
 Training follows the module's mode: in ``train()`` mode each conv
-drops out its input (``dropout``) and the aggregation drops edges
-(``dropedge``); in ``eval()`` mode neither.
+drops out its input (``dropout``), so does ResPool, and the aggregation
+drops edges (``dropedge``); in ``eval()`` mode neither.  Zeroing the
+label inputs follows the data mode instead (``mode_train``): it is on
+in TRAIN steps and in evaluation passes over the TRAIN node set, off in
+VALID/TEST passes and in serving.
 """
 from __future__ import annotations
 
@@ -23,7 +29,7 @@ from typing import List, Optional, Tuple
 import torch
 from torch import nn
 
-from shadow_gnn_torch.nn.layers import MLPLayer, SAGEConv, TorchLinear
+from shadow_gnn_torch.nn.layers import GATConv, MLPLayer, SAGEConv, TorchLinear
 from shadow_gnn_torch.nn.respool import ResPool
 from shadow_gnn_torch.ops.normalize import prepare_adj
 from shadow_gnn_torch.ops.packed import packed_spmm
@@ -43,7 +49,7 @@ class ModelConfig:
     dim: int = 256
     act: str = "relu"
     layer_norm: str = "norm_feat"
-    heads: int = 1
+    heads: int = 1                # the parsed config's default is -1
     residue: str = "none"
     pooling: str = "center"
     loss: str = "softmax"
@@ -54,7 +60,8 @@ class ModelConfig:
     prediction_task: str = "node"
     dropout: float = 0.0
     dropedge: float = 0.0
-    # aggregate cached batches from the packed bits (ops/packed.py)
+    # aggregate cached batches from the packed bits (ops/packed.py);
+    # gcn / sage / gin only, as in the JAX package
     packed_adj: bool = False
 
     @property
@@ -69,6 +76,16 @@ class ModelConfig:
     def dim_feat_in(self) -> int:
         return self.dim_feat_smooth
 
+    @property
+    def mulhead(self) -> int:
+        return max(1, self.heads)
+
+    @property
+    def reads_packed_bits(self) -> bool:
+        """Whether cached batches aggregate from the packed bits (then no
+        dense block is unpacked for them)."""
+        return self.packed_adj and self.aggr in ("gcn", "sage", "gin")
+
 
 class DeepGNN(nn.Module):
     def __init__(self, cfg: ModelConfig):
@@ -76,10 +93,8 @@ class DeepGNN(nn.Module):
         unported = []
         if cfg.num_ensemble != 1:
             unported.append(f"{cfg.num_ensemble}-branch ensembles")
-        if cfg.aggr != "sage":
+        if cfg.aggr not in ("sage", "gat"):
             unported.append(f"aggr {cfg.aggr!r}")
-        if cfg.dim_label_smooth > 0:
-            unported.append("label inputs")
         if cfg.layer_norm != "norm_feat":
             unported.append(f"layer norm {cfg.layer_norm!r}")
         if cfg.feature_augment_ops != "sum" and cfg.feature_augment:
@@ -89,13 +104,18 @@ class DeepGNN(nn.Module):
         self.cfg = cfg
         self.aug = nn.ModuleDict({a: TorchLinear(AUG2DIM[a], cfg.dim_feat_in)
                                   for a in sorted(cfg.feature_augment)})
-        dims = [cfg.dim_feat_in] + [cfg.dim] * cfg.num_layers
-        self.convs = nn.ModuleList([SAGEConv(dims[i], dims[i + 1], act=cfg.act,
-                                             dropout=cfg.dropout)
-                                    for i in range(cfg.num_layers)])
-        # center pooling of the node task: the only readout ported (it
-        # has no parameters and no dropout)
-        self.res_pool = ResPool(cfg.residue, cfg.type_pool, cfg.prediction_task)
+        dims = ([cfg.dim_feat_in + cfg.dim_label_smooth]
+                + [cfg.dim] * cfg.num_layers)
+        if cfg.aggr == "gat":
+            convs = [GATConv(dims[i], dims[i + 1], cfg.mulhead, act=cfg.act,
+                             dropout=cfg.dropout) for i in range(cfg.num_layers)]
+        else:
+            convs = [SAGEConv(dims[i], dims[i + 1], act=cfg.act,
+                              dropout=cfg.dropout) for i in range(cfg.num_layers)]
+        self.convs = nn.ModuleList(convs)
+        self.res_pool = ResPool(cfg.dim, cfg.num_layers, cfg.residue,
+                                cfg.type_pool, cfg.dropout, cfg.act,
+                                cfg.prediction_task)
         cls = []
         for i in range(cfg.num_cls_layers):
             last = i == cfg.num_cls_layers - 1
@@ -105,37 +125,56 @@ class DeepGNN(nn.Module):
         self.classifier = nn.ModuleList(cls)
 
     def aggregator(self, batch: SubgraphBatch, seed: int = 0):
-        """x -> A_norm @ x for this batch, prepared once for all convs;
-        edges are dropped in training mode under ``seed``."""
+        """What each conv aggregates through for this batch, prepared once
+        for all convs (edges dropped in training mode under ``seed``):
+        SAGE a callable x -> A_norm @ x, GAT the pair (adj_norm,
+        adj_struct)."""
         de = self.cfg.dropedge if self.training else 0.0
-        if self.cfg.packed_adj and batch.adj_bits is not None:
+        if self.cfg.reads_packed_bits and batch.adj_bits is not None:
             return functools.partial(packed_spmm, batch.adj_bits, norm="rw",
                                      dropedge=de, seed=seed)
         if batch.adj is None:
-            raise ValueError("batch carries no dense adjacency and packed_adj is off")
-        return functools.partial(torch.bmm,
-                                 prepare_adj(self.cfg.aggr, batch.adj, seed, de))
+            raise ValueError("batch carries no dense adjacency and the model "
+                             "does not read packed bits")
+        adjs = prepare_adj(self.cfg.aggr, batch.adj, seed, de)
+        if self.cfg.aggr == "gat":
+            return adjs
+        return functools.partial(torch.bmm, adjs[0])
 
     def forward(self, batch: SubgraphBatch, feat: torch.Tensor,
                 generator: Optional[torch.Generator] = None,
-                dropedge_seed: int = 0
+                dropedge_seed: int = 0, mode_train: bool = False
                 ) -> Tuple[torch.Tensor, List[torch.Tensor]]:
-        """feat: the gathered [B, N, F] node-feature block.  In training
-        mode, ``generator`` (on feat's device) draws the dropout masks and
+        """feat: the gathered [B, N, F] node-feature block (features, then
+        ``dim_label_smooth`` label-input columns).  In training mode,
+        ``generator`` (on feat's device) draws the dropout masks and
         ``dropedge_seed`` (an int in [0, 2**31 - 1), drawn on the host)
-        picks the dropedge mask.  Returns (logits [B, C], [emb [B, dim]])."""
+        picks the dropedge mask.  ``mode_train`` zeroes the label inputs
+        at the targets (models.py:182-183).  Returns (logits [B, C],
+        [emb [B, dim]])."""
         mask = batch.node_mask[..., None].to(feat.dtype)
         x = feat * mask
+        d_lab = self.cfg.dim_label_smooth
+        if d_lab > 0 and mode_train:
+            keep = 1.0 - torch.nn.functional.one_hot(
+                batch.targets, x.shape[1]).sum(1).to(x.dtype)      # [B, N]
+            label_cols = torch.arange(x.shape[-1], device=x.device) >= (
+                x.shape[-1] - d_lab)
+            x = torch.where(label_cols, x * keep[..., None], x)
         if self.aug:
             augs = batch_aug_onehots(batch, self.aug.keys())
             for a, lin in self.aug.items():
-                x = x + lin(augs[a])
+                emb_a = lin(augs[a])                # the feature columns only
+                if d_lab > 0:
+                    emb_a = torch.nn.functional.pad(emb_a, (0, d_lab))
+                x = x + emb_a
         agg = self.aggregator(batch, dropedge_seed)
         xjk = []
         for conv in self.convs:
             x = conv(x, agg, generator) * mask
             xjk.append(x)
-        emb = self.res_pool(xjk, batch.targets).float()
+        emb = self.res_pool(xjk, batch.targets, batch.node_mask,
+                            generator).float()
         emb = emb / torch.clamp(torch.linalg.vector_norm(emb, dim=-1, keepdim=True),
                                 min=1e-12)
         h = emb

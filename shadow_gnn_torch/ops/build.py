@@ -18,7 +18,8 @@ _PKG = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 CSRC = os.path.join(_PKG, "csrc")
 BUILD_DIR = os.path.join(_PKG, "_build")
 # library name -> source file in csrc/
-KERNEL_SOURCES = {"packed_spmm": "packed_spmm.cu"}
+KERNEL_SOURCES = {"packed_spmm": "packed_spmm.cu",
+                  "gat_attention": "gat_attention.cu"}
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
 

@@ -106,21 +106,24 @@ def adj_gin_rescale(adj: torch.Tensor, seed: int = 0,
 
 def adj_drop(adj: torch.Tensor, seed: int = 0,
              dropedge: float = 0.0) -> torch.Tensor:
-    """The raw 0/1 adjacency with dropped edges zeroed (norm "none")."""
+    """The raw 0/1 adjacency with dropped edges zeroed: norm "none", and
+    GAT's ``adj_gat_drop`` (its softmax renormalises downstream)."""
     if dropedge <= 0.0:
         return adj
     return adj * dropedge_mask(seed, adj.shape[0], adj.shape[-1], dropedge,
                                adj.device)
 
 
+_PREPARE = {"gcn": adj_norm_sym, "sage": adj_norm_rw, "gin": adj_gin_rescale,
+            "gat": adj_drop}
+
+
 def prepare_adj(aggr: str, adj: torch.Tensor, seed: int = 0,
-                dropedge: float = 0.0) -> torch.Tensor:
-    """Once-per-batch normalised, edge-dropped adjacency of a conv stack
-    (the sage / gcn / gin branches of the JAX package's prepare_adj)."""
-    if aggr == "gcn":
-        return adj_norm_sym(adj, seed, dropedge)
-    if aggr == "sage":
-        return adj_norm_rw(adj, seed, dropedge)
-    if aggr == "gin":
-        return adj_gin_rescale(adj, seed, dropedge)
-    raise NotImplementedError(f"prepare_adj for aggr {aggr!r} is not ported yet")
+                dropedge: float = 0.0):
+    """Once-per-batch adjacency of a conv stack: (normalised, edge-dropped
+    block, structural block before the drop), as the JAX package's
+    prepare_adj returns them (GAT takes its row max over the structural
+    block)."""
+    if aggr not in _PREPARE:
+        raise NotImplementedError(f"prepare_adj for aggr {aggr!r} is not ported yet")
+    return _PREPARE[aggr](adj, seed, dropedge), adj

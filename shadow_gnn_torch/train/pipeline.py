@@ -4,7 +4,9 @@
 The port of the JAX package's ``train/pipeline.py`` Trainer for the
 node task: per-mode device graphs, per-mode PPR top-k tables (native
 host push + the reference's bin cache), the bit-packed subgraph cache
-of the deterministic PPR sampler, training (:meth:`Trainer.train`:
+of the deterministic PPR sampler, the preprocessing (label inputs and
+feature / label smoothening, ``train/preproc.py``), training
+(:meth:`Trainer.train`:
 epochs of TRAIN and VALID, best-model selection, final passes) and
 point-query serving (:meth:`Trainer.predict_nodes` /
 :meth:`Trainer.embed_nodes`).
@@ -132,13 +134,11 @@ class Trainer:
             term_window_size=int(self.params_train["term_window_size"]),
             term_window_aggr=self.params_train["term_window_aggr"])
         self.sampler_cfg_train = parsed["config_sampler_train"]
+        self.sampler_cfg_preproc = parsed["config_sampler_preproc"]
         self.config_data = parsed["config_data"]
         self.task = raw.prediction_task
         if self.task != "node":
             raise NotImplementedError("the link task is not ported yet")
-        if (self.arch["feature_smoothen"] != "none"
-                or self.arch["use_label"] != "none"):
-            raise NotImplementedError("feature/label smoothening is not ported yet")
         self.seed = seed
         self.rng_np = np.random.default_rng(seed)
         self.batch_size = self.sampler_cfg_train["batch_size"]
@@ -152,8 +152,9 @@ class Trainer:
         self._host_adj = {m: raw.adj(m) for m in (TRAIN, VALID, TEST)}
         self.num_nodes = raw.num_nodes
         self.undirected = is_undirected(raw.indptr_full, raw.indices_full)
-        feat_np = np.asarray(raw.feat_full, dtype=np.float32)
-        self.dim_feat_raw = feat_np.shape[1]
+        self.feat_np = np.asarray(raw.feat_full, dtype=np.float32)
+        self.dim_feat_raw = self.dim_feat_smooth = self.feat_np.shape[1]
+        self.dim_label_smooth = 0
         self.label_np = label = raw.label_full
         self.entity_set = raw.node_set
         if label.ndim == 1:
@@ -161,7 +162,15 @@ class Trainer:
         else:
             self.num_classes = label.shape[1]
         self.num_targets = 1
-        self.feat_tab = torch.as_tensor(feat_np, device=self.device)
+        # preprocessing before the feature table is frozen: widens
+        # feat_np and sets dim_feat_smooth / dim_label_smooth
+        self.preproc_log: Dict[str, float] = {}
+        if (self.arch["feature_smoothen"] != "none"
+                or self.arch["use_label"] != "none"):
+            from shadow_gnn_torch.train.preproc import preprocess_signals
+            (self.feat_np, self.dim_feat_smooth, self.dim_label_smooth,
+             self.preproc_log) = preprocess_signals(self)
+        self.feat_tab = torch.as_tensor(self.feat_np, device=self.device)
         self.branches = self._build_branches()
         self.num_ensemble = len(self.branches)
         self.tables: Dict[int, List[PPRTables]] = {}
@@ -169,14 +178,15 @@ class Trainer:
         self.nocache_modes = set()
         self.cache_budget_bytes = 2 << 30
         self.model_cfg = ModelConfig(
-            dim_feat_smooth=self.dim_feat_raw,
+            dim_feat_smooth=self.dim_feat_smooth,
             dim_label_raw=self.num_classes,
-            dim_label_smooth=0,
+            dim_label_smooth=self.dim_label_smooth,
             aggr=self.arch["aggr"],
             num_layers=self.arch["num_layers"],
             dim=self.arch["dim"],
             act=self.arch["act"],
             layer_norm=self.arch["layer_norm"],
+            heads=int(self.arch["heads"]),
             residue=self.arch["residue"],
             pooling=self.arch["pooling"],
             loss=self.arch["loss"],
@@ -331,11 +341,10 @@ class Trainer:
             cfg = br["cfg"][mode]
             cache = self.caches.get(mode, [None] * self.num_ensemble)[i]
             if cache is not None:
-                # with packed_adj the kernel reads adj_bits and no dense
-                # block is unpacked
+                # a model that reads the packed bits gets no dense block
                 batch = cache_mod.gather_batch(
                     cache, rows[:, 0], cfg.n_pad, self.num_nodes,
-                    unpack=not self.model_cfg.packed_adj)
+                    unpack=not self.model_cfg.reads_packed_bits)
             else:
                 batch = sample_subgraphs(cfg, self.graph[mode], roots, rows,
                                          self.tables[mode][i])
@@ -369,19 +378,22 @@ class Trainer:
 
     def _forward_loss(self, batches: List[SubgraphBatch],
                       feats: List[torch.Tensor], labels: torch.Tensor,
-                      w: torch.Tensor, rng: Optional[EpochRNG] = None):
+                      w: torch.Tensor, rng: Optional[EpochRNG] = None,
+                      mode_train: bool = True):
         """(loss, logits) of one batch; in training mode with the
-        epoch's dropout generator and one fresh dropedge seed."""
+        epoch's dropout generator and one fresh dropedge seed.
+        ``mode_train``: the batch is of the TRAIN node set (its label
+        inputs are zeroed at the targets)."""
         gen, seed = None, 0
         if self.model.training and rng is not None:
             gen = rng.dropout
             if self.model_cfg.dropedge > 0.0:
                 seed = rng.dropedge_seed()
-        logits, _ = self.model(batches[0], feats[0], gen, seed)
+        logits, _ = self.model(batches[0], feats[0], gen, seed, mode_train)
         return weighted_loss_fn(self.model_cfg, logits, labels, w), logits
 
     def _train_step(self, batches, feats, labels, w, rng: EpochRNG):
-        """Forward, backward, clip and Adam update of one batch."""
+        """Forward, backward, clip and Adam update of one TRAIN batch."""
         self.optimizer.zero_grad(set_to_none=True)
         loss, logits = self._forward_loss(batches, feats, labels, w, rng)
         loss.backward()
@@ -390,8 +402,9 @@ class Trainer:
         return loss.detach(), predict_fn(self.model_cfg, logits.detach())
 
     @torch.no_grad()
-    def _eval_step(self, batches, feats, labels, w):
-        loss, logits = self._forward_loss(batches, feats, labels, w)
+    def _eval_step(self, batches, feats, labels, w, mode_train: bool = False):
+        loss, logits = self._forward_loss(batches, feats, labels, w,
+                                          mode_train=mode_train)
         return loss, predict_fn(self.model_cfg, logits)
 
     def _run_batches(self, mode: int, train: bool, nb: int, roots, rows,
@@ -416,7 +429,8 @@ class Trainer:
             if train:
                 loss, pred = self._train_step(batches, feats, lab_d[sl], w_d[sl], rng)
             else:
-                loss, pred = self._eval_step(batches, feats, lab_d[sl], w_d[sl])
+                loss, pred = self._eval_step(batches, feats, lab_d[sl], w_d[sl],
+                                             mode_train=mode == TRAIN)
             losses.append(loss)
             preds.append(pred)
         self.model.eval()

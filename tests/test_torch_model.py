@@ -1,4 +1,5 @@
-"""PyTorch port: norm_feat, SAGEConv and DeepGNN (forward, and training
+"""PyTorch port: norm_feat, the activations, SAGEConv, GATConv, the
+masked pools, ResPool and DeepGNN (SAGE and GAT; forward, and training
 mode with its gradients) against the JAX package's flax modules, under
 the same weights (carried over with ``params_from_flax``) and the same
 numpy inputs; dropout and dropedge on the port's own generators.
@@ -12,11 +13,15 @@ import torch
 
 from shadow_gnn_tpu.nn import layers as jlayers
 from shadow_gnn_tpu.nn import model as jmodel
+from shadow_gnn_tpu.nn import respool as jrespool
+from shadow_gnn_tpu.ops import segment as jsegment
 from shadow_gnn_tpu.sampling.batch import SubgraphBatch as JBatch
 from shadow_gnn_tpu.train.pipeline import weighted_loss_fn as j_wloss
 from shadow_gnn_torch.convert import params_from_flax
 from shadow_gnn_torch.nn import layers as tlayers
 from shadow_gnn_torch.nn import model as tmodel
+from shadow_gnn_torch.nn import respool as trespool
+from shadow_gnn_torch.ops import segment as tsegment
 from shadow_gnn_torch.ops.normalize import adj_norm_rw
 from shadow_gnn_torch.sampling.batch import SubgraphBatch as TBatch
 from shadow_gnn_torch.sampling.cache import pack_bits
@@ -278,9 +283,9 @@ def test_packed_path_equals_dense_path():
 def test_unported_branches_raise():
     _, tcfg = _configs(False)
     import dataclasses
-    for bad in (dict(aggr="gat"), dict(num_ensemble=2), dict(pooling="mean"),
-                dict(dim_label_smooth=3), dict(layer_norm="pairnorm"),
-                dict(act="elu")):
+    for bad in (dict(aggr="gcn"), dict(aggr="gatscat"), dict(num_ensemble=2),
+                dict(pooling="sort-5"), dict(layer_norm="pairnorm"),
+                dict(act="softplus")):
         with pytest.raises(NotImplementedError):
             tmodel.DeepGNN(dataclasses.replace(tcfg, **bad))
     # training mode with dropout needs its generator
@@ -288,3 +293,201 @@ def test_unported_branches_raise():
     m = tmodel.DeepGNN(dataclasses.replace(tcfg, dropout=0.2)).train()
     with pytest.raises(ValueError, match="Generator"):
         m(_torch_batch(a), torch.as_tensor(feat))
+
+
+def _perturbed(params, seed=4):
+    """Parameters moved off their initial values (norm scales 1, offsets
+    0, PReLU slopes 0.25), so that each one matters."""
+    return jax.tree_util.tree_map(
+        lambda p: p + 0.1 * jax.random.normal(jax.random.PRNGKey(seed), p.shape),
+        params)
+
+
+def _strip(sd, prefix):
+    return {k[len(prefix):]: v for k, v in sd.items() if k.startswith(prefix)}
+
+
+@pytest.mark.parametrize("name", ["prelu", "prelu+", "elu", "tanh", "leakyrelu",
+                                  "relu", "I"])
+def test_act_matches_jax(name):
+    """Act forward and its gradients (input and PReLU slope)."""
+    rng = np.random.default_rng(3)
+    x = rng.normal(size=(4, 6, DIM)).astype(np.float32)
+    cot = rng.normal(size=x.shape).astype(np.float32)
+    act = jlayers.Act(name, dim_out=DIM)
+    params = _perturbed(act.init(jax.random.PRNGKey(0), jnp.asarray(x)))
+
+    def lf(p, x):
+        return (act.apply(p, x) * cot).sum()
+
+    want = np.asarray(act.apply(params, jnp.asarray(x)))
+    gp, gx = jax.grad(lf, argnums=(0, 1))(params, jnp.asarray(x))
+    tact = tlayers.Act(name, DIM)
+    if name.startswith("prelu"):
+        tact.load_state_dict({"prelu_alpha": torch.as_tensor(
+            np.array(params["params"]["prelu_alpha"]))})
+    tx = torch.tensor(x, requires_grad=True)
+    got = tact(tx)
+    (got * torch.as_tensor(cot)).sum().backward()
+    np.testing.assert_allclose(got.detach().numpy(), want, **TOL)
+    np.testing.assert_allclose(tx.grad.numpy(), np.asarray(gx), **TOL)
+    if name.startswith("prelu"):
+        np.testing.assert_allclose(tact.prelu_alpha.grad.numpy(),
+                                   np.asarray(gp["params"]["prelu_alpha"]), **TOL)
+        assert tact.prelu_alpha.shape == ((DIM,) if name == "prelu+" else (1,))
+    else:
+        assert not list(tact.parameters())
+
+
+@pytest.mark.parametrize("act", ["prelu", "prelu+", "relu"])
+def test_gat_conv_matches_jax(act):
+    """GATConv (the dense branch of the JAX layer) under the same weights:
+    the output and the gradient of every parameter and of the input, at
+    dropedge-zeroed adjacency with padded tail nodes."""
+    heads = 2
+    a, feat = _batch_arrays(6)
+    adj = a["adj"].copy()
+    np.einsum("bii->bi", adj)[:] = a["node_mask"]          # self edges
+    adj_norm = adj * (np.random.default_rng(8).random(adj.shape) < 0.7)
+    cot = np.random.default_rng(9).normal(size=(B, N, DIM)).astype(np.float32)
+    conv = jlayers.GATConv(dim_out=DIM, mulhead=heads, act=act, norm="norm_feat")
+    args = (jnp.asarray(feat), jnp.asarray(adj_norm), jnp.asarray(adj),
+            jnp.asarray(a["node_mask"]))
+    params = _perturbed(conv.init(jax.random.PRNGKey(3), *args, train=False))
+
+    def lf(p, x):
+        return (conv.apply(p, x, *args[1:], train=False) * cot).sum()
+
+    want = np.asarray(conv.apply(params, *args, train=False))
+    gp, gx = jax.grad(lf, argnums=(0, 1))(params, args[0])
+    sd = params_from_flax({"conv_0_0": _np_tree(params)["params"]})
+    tconv = tlayers.GATConv(F, DIM, heads, act=act)
+    tconv.load_state_dict(_strip(sd, "convs.0."))
+    tx = torch.tensor(feat, requires_grad=True)
+    got = tconv(tx, (torch.as_tensor(adj_norm), torch.as_tensor(adj)))
+    (got * torch.as_tensor(cot)).sum().backward()
+    np.testing.assert_allclose(got.detach().numpy(), want, **TOL)
+    np.testing.assert_allclose(tx.grad.numpy(), np.asarray(gx), **TOL)
+    want_g = _strip(params_from_flax({"conv_0_0": _np_tree(gp)["params"]}), "convs.0.")
+    for k, p in tconv.named_parameters():
+        np.testing.assert_allclose(p.grad.numpy(), want_g[k].numpy(), err_msg=k, **TOL)
+
+
+@pytest.mark.parametrize("pool", ["sum", "mean", "max"])
+def test_masked_pools_match_jax(pool):
+    """Forward and input gradient; block 3 has no valid row (pools to 0),
+    and the max pool ties on two rows of block 0 (amax splits its
+    gradient as JAX's max does)."""
+    rng = np.random.default_rng(2)
+    x = rng.normal(size=(4, 7, 5)).astype(np.float32)
+    x[0, 2] = x[0, 4]
+    mask = rng.random((4, 7)) < 0.6
+    mask[0, [2, 4]] = True
+    mask[3] = False
+    cot = rng.normal(size=(4, 5)).astype(np.float32)
+    jfn = getattr(jsegment, f"masked_{pool}_pool")
+    want = np.asarray(jfn(jnp.asarray(x), jnp.asarray(mask)))
+    gx = jax.grad(lambda v: (jfn(v, jnp.asarray(mask)) * cot).sum())(jnp.asarray(x))
+    tx = torch.tensor(x, requires_grad=True)
+    got = getattr(tsegment, f"masked_{pool}_pool")(tx, torch.as_tensor(mask))
+    (got * torch.as_tensor(cot)).sum().backward()
+    np.testing.assert_allclose(got.detach().numpy(), want, **TOL)
+    np.testing.assert_allclose(tx.grad.numpy(), np.asarray(gx), **TOL)
+    assert not got[3].detach().any()
+
+
+@pytest.mark.parametrize("residue", ["none", "sum", "max", "concat"])
+@pytest.mark.parametrize("pool", ["center", "mean", "max", "sum"])
+def test_respool_matches_jax(residue, pool):
+    """ResPool over every residue x pooling: output and the gradients of
+    its parameters and inputs (prelu activation)."""
+    a, _ = _batch_arrays(12)
+    rng = np.random.default_rng(13)
+    layers = [rng.normal(size=(B, N, DIM)).astype(np.float32) for _ in range(3)]
+    rp = jrespool.ResPool(dim_hid=DIM, num_layers=3, type_res=residue,
+                          type_pool=pool, dropout=0.0, act="prelu")
+    targets, mask = jnp.asarray(a["targets"]), jnp.asarray(a["node_mask"])
+    jl = [jnp.asarray(x) for x in layers]
+    params = rp.init(jax.random.PRNGKey(2), jl, targets, mask, train=False)
+    params = _perturbed(params) if params else params
+    want = np.asarray(rp.apply(params, jl, targets, mask, train=False))
+    cot = rng.normal(size=want.shape).astype(np.float32)
+    gp, gl = jax.grad(lambda p, f: (rp.apply(p, f, targets, mask, train=False)
+                                    * cot).sum(), argnums=(0, 1))(params, jl)
+    trp = trespool.ResPool(DIM, 3, residue, pool, 0.0, "prelu")
+    sd = params_from_flax({"res_pool_0": _np_tree(params).get("params", {})})
+    trp.load_state_dict(_strip(sd, "res_pool."))
+    tl = [torch.tensor(x, requires_grad=True) for x in layers]
+    got = trp(tl, torch.as_tensor(a["targets"]).long(), torch.as_tensor(a["node_mask"]))
+    (got * torch.as_tensor(cot)).sum().backward()
+    np.testing.assert_allclose(got.detach().numpy(), want, **TOL)
+    for k in range(3):
+        # with no residue only the last layer is read
+        g = tl[k].grad if tl[k].grad is not None else torch.zeros(B, N, DIM)
+        np.testing.assert_allclose(g.numpy(), np.asarray(gl[k]),
+                                   err_msg=f"layer {k}", **TOL)
+    want_g = _strip(params_from_flax({"res_pool_0": _np_tree(gp).get("params", {})}),
+                    "res_pool.")
+    assert set(want_g) == {k for k, _ in trp.named_parameters()}
+    for k, p in trp.named_parameters():
+        np.testing.assert_allclose(p.grad.numpy(), want_g[k].numpy(), err_msg=k, **TOL)
+
+
+D_LAB = 6
+
+
+def _gat_configs(fused):
+    kw = dict(dim_feat_smooth=F, dim_label_raw=C, dim_label_smooth=D_LAB,
+              aggr="gat", num_layers=2, dim=DIM, heads=2, act="prelu",
+              residue="max", pooling="max", feature_augment=("hops",))
+    return (jmodel.ModelConfig(dim_feat_raw=F, fused_gat=fused, **kw),
+            tmodel.ModelConfig(**kw))
+
+
+@pytest.mark.parametrize("fused", [False, True])
+def test_gat_model_matches_jax(fused):
+    """A whole GAT-2 model (2 heads, prelu, max residue and max pooling,
+    label-input columns, hop augment) under params_from_flax, against
+    flax apply with the dense score chain (fused_gat=False) and with the
+    Pallas kernel in interpret mode (fused_gat=True, the head-major
+    chain): serving logits and embeddings (mode_train False), and in
+    training mode at dropout / dropedge 0 (mode_train True) the loss and
+    every gradient."""
+    a, feat = _batch_arrays(5)
+    adj = a["adj"].copy()
+    np.einsum("bii->bi", adj)[:] = a["node_mask"]          # GAT's self edges
+    a["adj"] = adj
+    lab = np.random.default_rng(6).random((B, N, D_LAB)).astype(np.float32)
+    feat = np.concatenate([feat, lab], -1)
+    jcfg, tcfg = _gat_configs(fused)
+    jm = jmodel.DeepGNN(jcfg)
+    args = ([_jax_batch(a)], [jnp.asarray(feat)])
+    params = _perturbed(jm.init({"params": jax.random.PRNGKey(0)}, *args,
+                                mode_train=True, train=False))
+    tm = tmodel.DeepGNN(tcfg)
+    tm.load_state_dict(params_from_flax(_np_tree(params)))
+    want_logits, want_emb = jm.apply(params, *args, mode_train=False, train=False)
+    with torch.no_grad():
+        logits, emb = tm.eval()(_torch_batch(a), torch.as_tensor(feat))
+    np.testing.assert_allclose(logits.numpy(), np.asarray(want_logits), **TOL)
+    np.testing.assert_allclose(emb[0].numpy(), np.asarray(want_emb[0]), **TOL)
+
+    labels = np.random.default_rng(2).integers(0, C, B)
+    w = np.array([1, 1, 0, 1], np.float32)
+
+    def lf(p):
+        lg, _ = jm.apply(p, *args, mode_train=True, train=True)
+        return j_wloss(jcfg, lg, jnp.asarray(labels), jnp.asarray(w))
+
+    j_loss, j_grads = jax.value_and_grad(lf)(params)
+    logits, _ = tm.train()(_torch_batch(a), torch.as_tensor(feat),
+                           torch.Generator().manual_seed(0), 0, True)
+    loss = t_wloss(tcfg, logits, torch.as_tensor(labels), torch.as_tensor(w))
+    loss.backward()
+    np.testing.assert_allclose(loss.item(), float(j_loss), rtol=1e-5)
+    want = params_from_flax(_np_tree(j_grads))
+    got = _grads_np(tm)
+    assert set(got) == set(want)
+    for k in want:
+        np.testing.assert_allclose(got[k], want[k].numpy(), err_msg=k,
+                                   rtol=1e-4, atol=1e-6)

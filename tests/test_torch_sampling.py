@@ -1,6 +1,7 @@
-"""PyTorch port: PPR tables, the PPR sampler, row induction, the
-induction plan and the bit-packed cache, held EXACTLY against the JAX
-package on the same graph and the same inputs."""
+"""PyTorch port: PPR tables, the PPR sampler, row induction (with and
+without the self edges GAT forces), the induction plan and the
+bit-packed cache, held EXACTLY against the JAX package on the same graph
+and the same inputs."""
 import dataclasses
 
 import jax.numpy as jnp
@@ -41,19 +42,30 @@ CFG = {
 GRAPH = dict(num_nodes=600, avg_deg=8, num_feat=16, num_classes=5, seed=3)
 
 
-@pytest.fixture(scope="module")
-def trainers(tmp_path_factory):
-    d = tmp_path_factory.mktemp("torch_sampling")
+def _trainers(cfg):
     m = Metrics("toy", False, "accuracy", 1)
-    jtr = JTrainer("toy", "", j_make(**GRAPH), j_parse(CFG), m,
-                   Logger(m, str(d / "log"), no_log=True), seed=0,
+    jtr = JTrainer("toy", "", j_make(**GRAPH), j_parse(cfg), m,
+                   Logger(m, "", no_log=True), seed=0,
                    use_device_ppr=False, packed_adj=True)
-    ttr = TTrainer("toy", "", t_make(**GRAPH), t_parse(CFG), seed=0,
+    ttr = TTrainer("toy", "", t_make(**GRAPH), t_parse(cfg), seed=0,
                    device="cpu", packed_adj=True)
     for tr in (jtr, ttr):
         tr._ensure_tables(TEST)
         tr._ensure_caches(TEST)
     return jtr, ttr
+
+
+@pytest.fixture(scope="module")
+def trainers():
+    return _trainers(CFG)
+
+
+@pytest.fixture(scope="module")
+def self_edge_trainers():
+    """The same sampler with self edges added at induction, as parse_config
+    forces for gcn / gat / gatscat (hop augment on, so hops are induced)."""
+    cfg = {**CFG, "sampler": [{**CFG["sampler"][0], "add_self_edge": [True]}]}
+    return _trainers(cfg)
 
 
 def test_synthetic_graph_identical():
@@ -116,6 +128,32 @@ def test_sample_nodes_ppr_and_induce_exact(trainers):
                                       np.asarray(getattr(jb, f)), err_msg=f)
     assert tb.overflow == int(jb.overflow) == 0
     assert tb.adj.sum() > 0 and (tb.hop.numpy() > 0).any()
+
+
+def test_self_edge_induction_and_cache_exact(self_edge_trainers):
+    """add_self_edge=True: adjacency (a 1 on every valid diagonal entry),
+    hops and the packed cache byte-equal to JAX."""
+    jtr, ttr = self_edge_trainers
+    assert ttr.branches[0]["cfg"][TEST].add_self_edge
+    roots, rows = _roots(jtr)
+    jc, tc = jtr.branches[0]["cfg"][TEST], ttr.branches[0]["cfg"][TEST]
+    jn, js = j_sample(jc, jtr.graph[TEST], jnp.asarray(roots, jnp.int32),
+                      jnp.asarray(rows, jnp.int32), jtr.tables[TEST][0])
+    tr_ = torch.as_tensor(roots)
+    tn, ts = t_sample(tc, ttr.graph[TEST], tr_, torch.as_tensor(rows),
+                      ttr.tables[TEST][0])
+    jb = j_induce(jtr.graph[TEST], jn, js, jnp.asarray(roots, jnp.int32), jc)
+    tb = t_induce(ttr.graph[TEST], tn, ts, tr_, tc)
+    for f in ("adj", "targets", "hop", "node_mask", "size"):
+        np.testing.assert_array_equal(getattr(tb, f).numpy(),
+                                      np.asarray(getattr(jb, f)), err_msg=f)
+    diag = torch.diagonal(tb.adj, dim1=1, dim2=2)
+    assert torch.equal(diag, tb.node_mask.float())
+    jcache, tcache_ = jtr.caches[TEST][0], ttr.caches[TEST][0]
+    for f in dataclasses.fields(tcache_):
+        np.testing.assert_array_equal(getattr(tcache_, f.name).numpy(),
+                                      np.asarray(getattr(jcache, f.name)),
+                                      err_msg=f.name)
 
 
 def test_cache_arrays_exact(trainers):

@@ -5,7 +5,11 @@ mode) and the port's Trainer (device="cpu", packed_adj) get the same
 graph, the same seed and the same weights (``params_from_flax``) at
 dropout 0 and dropedge 0; one TRAIN epoch's per-batch losses and the
 VALID stats after it must agree (rtol 1e-4; accuracy exactly), and the
-port's clip + Adam must equal optax's (atol 1e-7).  On its own: the
+port's clip + Adam must equal optax's (atol 1e-7).  The same for a GAT-2
+model of the products leaderboard kind (heads, prelu, max residue and
+pooling, ppr-smoothened label inputs), which also serves
+(``predict_nodes`` atol 1e-5 / rtol 1e-4); and the products GAT-5 yml
+builds the JAX Trainer's parameter shapes.  On its own: the
 port's ``train()`` learns the toy graph, writes the CSV files and a
 checkpoint that reloads, and the CLI trains end to end."""
 import os
@@ -19,7 +23,7 @@ import optax
 import pytest
 import torch
 
-from shadow_gnn_tpu import TRAIN as J_TRAIN, VALID as J_VALID
+from shadow_gnn_tpu import TEST as J_TEST, TRAIN as J_TRAIN, VALID as J_VALID
 from shadow_gnn_tpu.data import make_synthetic_dataset as j_make
 from shadow_gnn_tpu.train.config import parse_config as j_parse
 from shadow_gnn_tpu.train.logger import Logger as JLogger
@@ -29,6 +33,7 @@ from shadow_gnn_torch import TEST, TRAIN, VALID
 from shadow_gnn_torch.convert import params_from_flax
 from shadow_gnn_torch.data import make_synthetic_dataset as t_make
 from shadow_gnn_torch.data import save_shadow_format
+from shadow_gnn_torch.ops.gat import gat_attention, gat_attention_bwd
 from shadow_gnn_torch.ops.packed import packed_spmm, packed_spmm_t
 from shadow_gnn_torch.train.config import parse_config as t_parse
 from shadow_gnn_torch.train.logger import Logger
@@ -63,17 +68,30 @@ BASE_CONFIG = {
 }
 
 
-@pytest.fixture(scope="module")
-def one_epoch():
+# the products GAT-5 leaderboard model's kind at test size
+GAT_CFG = {
+    "data": {"to_undirected": False, "transductive": True},
+    "architecture": {"dim": 32, "aggr": "gat", "heads": 2, "loss": "softmax",
+                     "num_layers": 2, "act": "prelu", "feature_augment": "none",
+                     "use_label": "no_valid", "label_smoothen": "ppr--concat-0.8",
+                     "residue": "max", "pooling": "max"},
+    "hyperparameter": {"end": 1, "lr": 1e-3, "dropout": 0.0, "dropedge": 0.0,
+                       "batch_size": 32},
+    "sampler": [{"method": "full", "phase": "preprocess"},
+                {"method": "ppr", "phase": "train", "k": [16], "epsilon": [1e-5]}],
+}
+
+
+def _run_one_epoch(cfg):
     """One TRAIN epoch, then one VALID epoch, on both trainers."""
     m = JMetrics("toy", False, "accuracy", 1)
-    jtr = JTrainer("toy", "", j_make(**GRAPH), j_parse(CFG), m,
+    jtr = JTrainer("toy", "", j_make(**GRAPH), j_parse(cfg), m,
                    JLogger(m, "", no_log=True), seed=0, use_device_ppr=False,
                    packed_adj=True)
     # the JAX Trainer's first-epoch subgraph profile draws an extra
     # permutation from rng_np; the port has no profiler
     jtr.profiler.enabled = False
-    ttr = Trainer("toy", "", t_make(**GRAPH), t_parse(CFG), seed=0,
+    ttr = Trainer("toy", "", t_make(**GRAPH), t_parse(cfg), seed=0,
                   device="cpu", packed_adj=True)
     ttr.model.load_state_dict(params_from_flax(
         jax.tree_util.tree_map(np.asarray, jtr.params)))
@@ -92,14 +110,28 @@ def one_epoch():
     ttr._ensure_caches(TRAIN)
     t_nb, t_roots, t_rows, t_lab, t_w = ttr._epoch_arrays(TRAIN)
     t_rng = EpochRNG.from_seed(int(ttr.rng_np.integers(1 << 31)), ttr.device)
-    fwd, bwd = packed_spmm.calls, packed_spmm_t.launches
+    counts = (packed_spmm.calls, packed_spmm_t.launches, gat_attention.launches,
+              gat_attention_bwd.launches)
     t_losses, _, ovf = ttr._run_batches(TRAIN, True, t_nb, t_roots, t_rows,
                                         t_lab, t_w, t_rng)
     return dict(jtr=jtr, ttr=ttr, nb=(nb, t_nb),
                 roots=(np.asarray(roots).reshape(-1), t_roots.reshape(-1)),
                 losses=(np.asarray(j_losses), t_losses), ovf=ovf,
-                calls=packed_spmm.calls - fwd, launches_t=packed_spmm_t.launches - bwd,
+                calls=packed_spmm.calls - counts[0],
+                launches=(packed_spmm_t.launches - counts[1],
+                          gat_attention.launches - counts[2],
+                          gat_attention_bwd.launches - counts[3]),
                 valid=(jtr.run_epoch(0, J_VALID), ttr.run_epoch(0, VALID)))
+
+
+@pytest.fixture(scope="module")
+def one_epoch():
+    return _run_one_epoch(CFG)
+
+
+@pytest.fixture(scope="module")
+def gat_epoch():
+    return _run_one_epoch(GAT_CFG)
 
 
 def test_train_epoch_losses_match_jax(one_epoch):
@@ -112,7 +144,64 @@ def test_train_epoch_losses_match_jax(one_epoch):
     np.testing.assert_allclose(t_losses, j_losses, rtol=1e-4)
     # every step aggregated 3 times through the packed product; on the
     # CPU nothing counts as a kernel launch
-    assert one_epoch["calls"] == 3 * 12 and one_epoch["launches_t"] == 0
+    assert one_epoch["calls"] == 3 * 12 and one_epoch["launches"] == (0, 0, 0)
+
+
+def test_gat_train_epoch_losses_match_jax(gat_epoch):
+    """The GAT-2 trainer: the same preprocessed feature table (features
+    and ppr-smoothened label inputs), the same epoch permutation, the
+    per-batch losses of one TRAIN epoch at rtol 1e-4.  With packed_adj
+    the GAT model still gets the dense block (it reads no packed bits)."""
+    jtr, ttr = gat_epoch["jtr"], gat_epoch["ttr"]
+    np.testing.assert_array_equal(ttr.feat_np, jtr.feat_np)
+    assert (ttr.dim_feat_smooth, ttr.dim_label_smooth) == (16, 10)
+    assert ttr.preproc_log["label_smoothen_steps"] > 1
+    assert ttr.branches[0]["cfg"][TRAIN].add_self_edge
+    j_nb, t_nb = gat_epoch["nb"]
+    assert j_nb == t_nb == 12
+    np.testing.assert_array_equal(*gat_epoch["roots"])
+    j_losses, t_losses = gat_epoch["losses"]
+    assert gat_epoch["ovf"] == 0 and gat_epoch["calls"] == 0
+    np.testing.assert_allclose(t_losses, j_losses, rtol=1e-4)
+    assert gat_epoch["launches"] == (0, 0, 0)
+
+
+def test_gat_valid_stats_and_serving_match_jax(gat_epoch):
+    j_stats, t_stats = gat_epoch["valid"]
+    assert t_stats["accuracy"] == j_stats["accuracy"]
+    np.testing.assert_allclose(t_stats["loss"], j_stats["loss"], rtol=1e-4)
+    jtr, ttr = gat_epoch["jtr"], gat_epoch["ttr"]
+    ids = np.asarray(jtr.entity_set[J_TEST])[[3 * i + 1 for i in range(9)]]
+    np.testing.assert_allclose(ttr.predict_nodes(ids, mode=TEST),
+                               jtr.predict_nodes(ids, mode=J_TEST),
+                               rtol=1e-4, atol=1e-5)
+    emb = ttr.embed_nodes(ids[:4], mode=TEST)
+    np.testing.assert_allclose(emb[0], jtr.embed_nodes(ids[:4], mode=J_TEST)[0],
+                               rtol=1e-4, atol=1e-5)
+
+
+def test_products_gat5_config_builds_at_full_width():
+    """configs/products_gat_5_ppr_leaderboard.yml as written: the port's
+    Trainer (device="cpu", a small graph) has the JAX Trainer's parameter
+    names and shapes (dim 512, 4 heads of 128, 5 layers, max readout);
+    nothing runs a step at that width."""
+    path = os.path.join(ROOT, "configs", "products_gat_5_ppr_leaderboard.yml")
+    m = JMetrics("toy", False, "accuracy", 1)
+    jtr = JTrainer("toy", "", j_make(**GRAPH), j_parse(path), m,
+                   JLogger(m, "", no_log=True), seed=0, use_device_ppr=False)
+    ttr = Trainer("toy", "", t_make(**GRAPH), t_parse(path), seed=0, device="cpu")
+    want = {k: tuple(v.shape) for k, v in params_from_flax(
+        jax.tree_util.tree_map(np.asarray, jtr.params)).items()}
+    got = {k: tuple(v.shape) for k, v in ttr.model.state_dict().items()}
+    assert got == want
+    assert got["convs.4.attention"] == (2, 4, 128)
+    assert got["convs.0.lin_self.weight"] == (512, 16 + 2 * 5)
+    assert got["res_pool.lin.weight"] == (512, 1024)
+    cfg = ttr.model_cfg
+    assert (cfg.aggr, cfg.mulhead, cfg.num_layers, cfg.act, cfg.residue,
+            cfg.pooling) == ("gat", 4, 5, "prelu", "max", "max")
+    assert (cfg.dropout, cfg.dropedge, ttr.batch_size) == (0.4, 0.1, 128)
+    assert ttr.branches[0]["cfg"][TRAIN].n_pad == 152
 
 
 def test_valid_stats_match_jax_after_training(one_epoch):
@@ -233,8 +322,10 @@ def test_cli_end_to_end(tmp_path):
     assert len(finished) == 1
     assert (finished[0] / "final.csv").is_file()
     assert (finished[0] / "config.yml").is_file()
-    # a flag of an unported part is refused by name
-    r = subprocess.run(common + ["--device", "cpu", "--partition", "dp"],
-                       capture_output=True, text=True, env=env, cwd=ROOT,
-                       timeout=300)
-    assert r.returncode == 2 and "--partition" in r.stderr
+    # a flag of an unported part is refused by name, so is the dense GAT
+    # score chain
+    for flag in (["--partition", "dp"], ["--fused_gat", "off"]):
+        r = subprocess.run(common + ["--device", "cpu"] + flag,
+                           capture_output=True, text=True, env=env, cwd=ROOT,
+                           timeout=300)
+        assert r.returncode == 2 and flag[0] in r.stderr
