@@ -20,7 +20,16 @@ Phases, each fatal on failure (an uncaught exception, non-zero exit):
              empty row, a fully dropped row, a row whose max lies on a
              dropped edge and padded tail rows; max |kernel - plain| must
              stay below 1e-4 of max |plain| (d att_self, 0 up to
-             rounding, below 1e-4 of the column sums' scale);
+             rounding, below 1e-4 of the column sums' scale).  Then the
+             bf16-precision product (``ops/precision.py``, a cuBLAS bf16
+             GEMM with f32 output) against the f32 product of the rounded
+             operands (1e-5 of max), and the bf16 levels at the same
+             cases: B1c, the bf16 mode of both packed directions, also at
+             dropedge 0.5 in the transposed direction, with the weights'
+             flipped roundings counted (``phase_kernels_bf16``); B2b/B3b
+             at both levels with f32 and bf16 values, dv held with a
+             counted slack for the roundings of P that a denominator
+             summed in another order can flip (``phase_kernels_gat_bf16``);
 3. serve   — the flagship SAGE-3 PPR-200 model at full width (dim 256,
              500 features, 7 classes; ``configs/flickr_sage_3_ppr.yml``)
              on the flickr-scale synthetic graph (89,250 nodes, avg deg
@@ -59,7 +68,13 @@ Phases, each fatal on failure (an uncaught exception, non-zero exit):
              the forward with dropedge 0.05 and the transposed kernel;
              beside the least time the card could take (bytes over 3.35
              TB/s, operations over 67 TFLOP/s f32);
-7. gat     — the products GAT-5 leaderboard model at full width
+7. bf16    — phases 3-6 again for a flagship trainer built with
+             ``matmul_precision="bfloat16"``: every request, TRAIN step
+             and evaluation batch through B1c (3 forward launches; 3
+             transposed per step), the first step held against the plain
+             versions as in phase 4, B1c timed beside ``torch.bmm`` on
+             the bf16 operands with an f32 output;
+8. gat     — the products GAT-5 leaderboard model at full width
              (``configs/products_gat_5_ppr_leaderboard.yml``: dim 512, 4
              heads, 5 layers, prelu, max residue and pooling, ppr-
              smoothened label inputs, PPR k=150, batch 128, dropout 0.4,
@@ -82,12 +97,19 @@ Phases, each fatal on failure (an uncaught exception, non-zero exit):
              then B2 and B3 timed on cached TRAIN blocks (B=128, N=152,
              H=4, dh=128) beside their bound, plain versions and
              ``scaled_dot_product_attention``;
-8. profile (``--profile`` only) — torch.profiler over cached requests
+9. gat bf16 — the same with ``matmul_precision="bfloat16"`` (serving,
+             first step, ``train()``: 5 B2b and 5 B3b launches per TRAIN
+             step, 5 B2b per evaluation batch and request; B2b/B3b timed
+             beside SDPA on bf16 operands), then with
+             ``compute_dtype="bfloat16"`` and ``feat_dtype="bfloat16"``
+             as well (a bf16 feature table, the dense path): serving, the
+             first step and 1 epoch;
+10. profile (``--profile`` only) — torch.profiler over cached requests
              (flagship 1 and 256 ids, GAT 128 ids) and over 5 TRAIN steps
-             of each model: device-busy time per request or step
-             (kernels only), its share of the unprofiled p50 request or
-             median step, and the kernels and host operations that take
-             the most time.
+             of each model, f32 and at bf16 precision: device-busy time
+             per request or step (kernels only), its share of the
+             unprofiled p50 request or median step, and the kernels and
+             host operations that take the most time.
 
 The last three lines of standard output are the card's name and power
 limit (nvidia-smi), one JSON object describing every kernel, and
@@ -108,6 +130,15 @@ EMBED_SIZE = 64
 REPEATS = 20
 WARMUP = 5
 TOL_PROBS = 1e-4                # abs, on probabilities and unit embeddings
+# At bf16 precision every linear rounds its operands to bf16: a last-bit
+# difference between the kernel's and the plain version's sums (or the
+# dense path's) flips some operand's rounding, which moves it by 2^-8 of
+# itself and its products by up to that; B3b's dv rounds P = e / D, whose
+# D the two versions sum in other orders (``phase_kernels_gat_bf16``
+# counts such roundings).  End-to-end agreement there is held at
+# (probabilities abs, step loss rel, gradients of their max), the last
+# one bf16 step of the largest gradient:
+TOLS_BF16 = (1e-3, 1e-4, 2.0 ** -8)
 TRAIN_NODES, VALID_NODES, TEST_NODES = 4096, 1024, 4096
 EPOCHS = 2
 DROPEDGE = 0.05                 # configs/flickr_sage_3_ppr.yml
@@ -168,15 +199,52 @@ class _Swap:
             setattr(m, name, fn)
 
 
-def _plain_versions():
+class _Launches:
+    """One kernel level's launch count, read and set as ``.launches``: the
+    counter ``attr`` of the wrapper ``fn`` (``launches`` at the f32 level,
+    ``launches_bf16`` at the bf16 levels), named ``name``."""
+
+    def __init__(self, fn, attr, name):
+        self.fn, self.attr, self.__name__ = fn, attr, name
+
+    @property
+    def launches(self):
+        return getattr(self.fn, self.attr)
+
+    @launches.setter
+    def launches(self, value):
+        setattr(self.fn, self.attr, value)
+
+
+def _bf16_counts():
+    """The launch counts of B1c (forward, transposed) and B2b, B3b."""
+    from shadow_gnn_torch.ops.gat import gat_attention, gat_attention_bwd
+    from shadow_gnn_torch.ops.packed import packed_spmm, packed_spmm_t
+    return [_Launches(fn, "launches_bf16", f"{fn.__name__}_bf16")
+            for fn in (packed_spmm, packed_spmm_t, gat_attention, gat_attention_bwd)]
+
+
+def _plain_versions(rounded=False):
     """The model aggregates through the plain PyTorch versions instead of
-    the kernels (``packed_spmm_plain``, and ``gat_attention_plain`` with
-    autograd's backward)."""
+    the kernels: ``packed_spmm_plain`` and ``gat_attention_plain`` with
+    autograd's backward.  ``rounded`` (a model at the bf16 levels): the
+    plain forwards and the plain backwards, which round their operands as
+    the backward kernels do and autograd would not, take the kernels'
+    place inside the port's autograd functions."""
     from shadow_gnn_torch.nn import layers, model
-    from shadow_gnn_torch.ops.gat import gat_attention_plain
-    from shadow_gnn_torch.ops.packed import packed_spmm_plain
-    return _Swap((model, "packed_spmm", packed_spmm_plain),
-                 (layers, "gat_attention", gat_attention_plain))
+    from shadow_gnn_torch.ops import gat, packed
+    if rounded:
+        return _Swap((packed, "_aggregate", packed.packed_spmm_plain),
+                     (gat, "_forward", gat.gat_attention_plain),
+                     (gat, "gat_attention_bwd", gat.gat_attention_bwd_plain))
+    return _Swap((model, "packed_spmm", packed.packed_spmm_plain),
+                 (layers, "gat_attention", gat.gat_attention_plain))
+
+
+def _rounded(tr):
+    """Whether the trainer's model runs the kernels' bf16 levels."""
+    cfg = tr.model_cfg
+    return "bfloat16" in (cfg.matmul_precision, cfg.compute_dtype)
 
 
 def _plain_backwards():
@@ -185,8 +253,8 @@ def _plain_backwards():
     from shadow_gnn_torch.ops import gat, packed
     return _Swap(
         (gat, "gat_attention_bwd", gat.gat_attention_bwd_plain),
-        (packed, "packed_spmm_t", lambda bits, g, norm, dropedge, seed:
-            packed.packed_spmm_plain(bits, g, norm, dropedge, seed, transpose=True)))
+        (packed, "packed_spmm_t", lambda bits, g, norm, dropedge, seed, bf16:
+            packed.packed_spmm_plain(bits, g, norm, dropedge, seed, True, bf16)))
 
 
 def phase_build():
@@ -337,6 +405,195 @@ def phase_kernels_gat():
     return worst
 
 
+def _rel_err(got, want):
+    """(max |got - want|, that over max |want|)."""
+    err = (got.float() - want.float()).abs().max().item()
+    return err, err / max(want.float().abs().max().item(), 1e-30)
+
+
+def phase_precision():
+    """The bf16-precision product (``ops/precision.py``) on the card: a
+    cuBLAS bf16 GEMM with f32 output, forward and both gradients, against
+    the f32 product of the rounded operands (its CPU form), at the
+    flagship's and the GAT's linear shapes and the dense aggregation's."""
+    import torch
+    from shadow_gnn_torch.ops.precision import bf16_matmul, round_bf16
+    gen = torch.Generator(device="cuda").manual_seed(6)
+    for a_shape, b_shape in (((64 * 208, 500), (500, 256)),
+                             ((128 * 152, 512), (512, 512)),
+                             ((64, 208, 208), (64, 208, 256))):
+        a = torch.randn(a_shape, device="cuda", generator=gen).requires_grad_()
+        b = torch.randn(b_shape, device="cuda", generator=gen).requires_grad_()
+        g = torch.randn(a_shape[:-1] + b_shape[-1:], device="cuda", generator=gen)
+        got = torch.autograd.grad(bf16_matmul(a, b), (a, b), g)
+        out = bf16_matmul(a, b).detach()
+        ar, br, gr = (round_bf16(t.detach()) for t in (a, b, g))
+        want = (torch.matmul(ar, br), torch.matmul(gr, br.transpose(-1, -2)),
+                torch.matmul(ar.transpose(-1, -2), gr))
+        rels = [_rel_err(x, y)[1] for x, y in zip((out,) + got, want)]
+        print(f"[precision] bf16_matmul {tuple(a_shape)} @ {tuple(b_shape)}: "
+              f"out, da, db rel {', '.join(f'{r:.2e}' for r in rels)} against the "
+              f"f32 product of the rounded operands")
+        if not max(rels) <= 1e-5:
+            raise AssertionError(f"bf16_matmul differs from the rounded f32 "
+                                 f"product by {max(rels)}")
+
+
+def phase_kernels_bf16():
+    """B1c, both directions, against ``packed_spmm_plain(bf16=True)``: all
+    norms, N 24/37/208, F 256/500, dropedge 0/0.05/0.5.  The kernel's
+    rounded weights are read off its product with the identity (exact:
+    one nonzero term per sum); a weight whose bf16 rounding differs from
+    the plain block's is a flip, counted and bounded (1e-3 of the
+    entries); the product is held at 1e-4 of max against the kernel's own
+    weights, and against the plain version wherever no weight flipped.
+    Returns the worst max |kernel - plain| of each direction."""
+    import torch
+    from shadow_gnn_torch.ops.packed import (NORMS, packed_spmm,
+                                             packed_spmm_plain, packed_spmm_t)
+    from shadow_gnn_torch.ops.precision import round_bf16
+    from shadow_gnn_torch.sampling.cache import pack_bits
+    gen = torch.Generator(device="cuda").manual_seed(5)
+    worst = {"packed_spmm_bf16": 0.0, "packed_spmm_t_bf16": 0.0}
+    flips = beyond = entries = 0
+    for n in (24, 37, 208):
+        b = 256 if n == 208 else 64
+        adj = (torch.rand(b, n, n, device="cuda", generator=gen) < 0.05).float()
+        if n == 208:
+            adj = torch.maximum(adj, adj.transpose(1, 2))
+        adj[:, n // 3] = 0.0
+        bits = pack_bits(adj)
+        eye = torch.eye(n, device="cuda").expand(b, n, n).contiguous()
+        xs = {f: torch.randn(b, n, f, device="cuda", generator=gen) for f in (256, 500)}
+        for norm in NORMS:
+            for p in (0.0, DROPEDGE, 0.5):
+                seed = 1000 * n + 7
+                for t in (False, True):
+                    name = "packed_spmm_t_bf16" if t else "packed_spmm_bf16"
+                    fn = packed_spmm_t if t else packed_spmm
+                    w_k = fn(bits, eye, norm, p, seed, bf16=True)
+                    w_p = packed_spmm_plain(bits, eye, norm, p, seed, t, True)
+                    n_flip = int((w_k != w_p).sum())
+                    nnz = int((w_p != 0).sum())
+                    for f, x in xs.items():
+                        got = fn(bits, x, norm, p, seed, bf16=True)
+                        want = packed_spmm_plain(bits, x, norm, p, seed, t, True)
+                        own = torch.bmm(w_k, round_bf16(x))
+                        torch.cuda.synchronize()
+                        err, rel = _rel_err(got, want)
+                        _, rel_own = _rel_err(got, own)
+                        n_beyond = int(((got - want).abs()
+                                        > 1e-5 * want.abs().max()).sum())
+                        print(f"[kernels] {name:18s} B={b} N={n} F={f} {norm:4s} "
+                              f"p={p:<4} max abs {err:.3e} rel {rel:.3e} (own "
+                              f"weights {rel_own:.3e}); flipped weights {n_flip} "
+                              f"of {nnz}; beyond 1e-5 of max {n_beyond}")
+                        if not (rel_own <= 1e-4 and n_flip <= 1e-3 * nnz
+                                and (n_flip or rel <= 1e-4)):
+                            raise AssertionError(
+                                f"{name} {norm} N={n} F={f} p={p}: rel {rel}, own "
+                                f"{rel_own}, {n_flip} flips of {nnz}")
+                        worst[name] = max(worst[name], err)
+                        flips, beyond, entries = (flips + n_flip, beyond + n_beyond,
+                                                  entries + got.numel())
+    print(f"[kernels] B1c worst abs {worst}; flipped weights {flips}, entries "
+          f"beyond 1e-5 of max {beyond} of {entries}")
+    return worst
+
+
+def _flip_size(p):
+    """Where the bf16 rounding of ``p`` (f32) would change if ``p`` moved by
+    2^-18 of itself, as a sum taken in another order can move it: the size
+    of that change (one bf16 step); 0 elsewhere."""
+    from shadow_gnn_torch.ops.precision import round_bf16
+    w = 2.0 ** -18
+    return (round_bf16(p * (1 + w)) - round_bf16(p * (1 - w))).abs()
+
+
+def _bf16_step(x):
+    """The spacing of bf16 values at each nonzero entry of ``x``."""
+    import torch
+    return torch.ldexp(torch.ones_like(x), torch.frexp(x)[1] - 8) * (x != 0)
+
+
+def phase_kernels_gat_bf16():
+    """B2b and B3b at both levels (``bf16``; ``bf16`` + ``bf16_scores``)
+    with f32 and bf16 values, against their plain versions on the cases
+    of :func:`phase_kernels_gat`.  Forward, d att_self and d att_neigh at
+    1e-4 of max (as the f32 level).  dv rounds P = e / D, whose
+    denominator the kernel and the plain version sum in other orders: it
+    is held at 1e-4 of max plus, per entry, the sum of |g| over the P
+    whose rounding such a move would flip (counted), plus one bf16 step
+    of dv itself for bf16 values (dv comes back in their dtype).  Returns
+    the worst max |kernel - plain| of each direction."""
+    import torch
+    from shadow_gnn_torch.ops import gat
+    from shadow_gnn_torch.ops.precision import round_bf16
+    gen = torch.Generator(device="cuda").manual_seed(8)
+    worst = {"gat_attention_bf16": 0.0, "gat_attention_bwd_bf16": 0.0}
+    n_cases = flips = 0
+    for n in (16, 152, 408):
+        b = {16: 32, 152: 128, 408: 16}[n]
+        for h in (1, 4):
+            for dh in (8, 128, 200):
+                for drop in (0.0, 0.1):
+                    case = _gat_case(b, n, h, dh, drop, gen)
+                    for level, vdt in ((1, torch.float32), (2, torch.float32),
+                                       (1, torch.bfloat16), (2, torch.bfloat16)):
+                        a_s, a_n, v, adj_norm, adj, g = case
+                        v = v.to(vdt)
+                        kw = dict(bf16=True, bf16_scores=level == 2)
+                        with torch.no_grad():
+                            got = gat.gat_attention(a_s, a_n, v, adj_norm, adj, **kw)
+                        want = gat.gat_attention_plain(a_s, a_n, v, adj_norm, adj, **kw)
+                        got_b = gat.gat_attention_bwd(a_s, a_n, v, adj_norm, adj,
+                                                      want, g, **kw)
+                        want_b = gat.gat_attention_bwd_plain(a_s, a_n, v, adj_norm,
+                                                             adj, want, g, **kw)
+                        torch.cuda.synchronize()
+                        err, rel = _rel_err(got, want)
+                        scale = max(want_b[1].abs().max().item(),
+                                    want_b[2].float().abs().max().item(), 1e-30)
+                        das_err = (got_b[0] - want_b[0]).abs().max().item()
+                        dan_err, dan_rel = _rel_err(got_b[1], want_b[1])
+                        e, dn = gat._scores(a_s, a_n, adj_norm, adj, level == 2)
+                        size = _flip_size(e.float() / dn)
+                        n_flip = int((size > 0).sum())
+                        slack = torch.einsum("bhij,bihd->bjhd", size,
+                                             round_bf16(g).abs())
+                        dv_k, dv_p = got_b[2].float(), want_b[2].float()
+                        if vdt == torch.bfloat16:
+                            slack = slack + _bf16_step(dv_p)
+                        dv_diff = (dv_k - dv_p).abs()
+                        dv_max = dv_p.abs().max().item()
+                        dv_out = int((dv_diff > 1e-4 * dv_max + slack).sum())
+                        dv_beyond = int((dv_diff > 1e-4 * dv_max).sum())
+                        print(f"[kernels] gat bf16 level {level} v {str(vdt)[6:]} "
+                              f"B={b} N={n} H={h} dh={dh} drop={drop}: forward rel "
+                              f"{rel:.3e}; das {das_err / scale:.2e} of scale, dan "
+                              f"{dan_rel:.2e}, dv max abs {dv_diff.max().item():.3e}"
+                              f" ({dv_beyond} beyond 1e-4 of max, {dv_out} beyond "
+                              f"that plus the flip slack; {n_flip} P entries whose "
+                              f"rounding can flip)")
+                        if not (rel <= 1e-4 and das_err / scale <= 1e-4
+                                and dan_rel <= 1e-4 and dv_out == 0):
+                            raise AssertionError(f"gat bf16 kernels level {level} "
+                                                 f"N={n} H={h} dh={dh} drop={drop}")
+                        if bool(got[:, [n // 3, n // 2, n - 1]].abs().max() != 0):
+                            raise AssertionError("an empty, all-dropped or padded "
+                                                 "row did not aggregate to 0")
+                        worst["gat_attention_bf16"] = max(worst["gat_attention_bf16"],
+                                                          err)
+                        worst["gat_attention_bwd_bf16"] = max(
+                            worst["gat_attention_bwd_bf16"], das_err, dan_err,
+                            dv_diff.max().item())
+                        n_cases += 1
+                        flips += n_flip
+    print(f"[kernels] gat bf16 worst over {n_cases} cases: {worst}; P entries "
+          f"whose rounding can flip {flips}")
+    return worst
+
+
 def _cut_splits(tr, cuts):
     """Cut each mode's node set to its first ``keep`` nodes once the
     trainer is built: the preprocessing saw every node of every split
@@ -346,16 +603,41 @@ def _cut_splits(tr, cuts):
         tr.entity_set[mode] = tr.entity_set[mode][:keep]
 
 
-def _flagship_trainer():
+def _synthetic_graph(tag, **kw):
+    """A synthetic graph, made once for the trainers of one model."""
+    from shadow_gnn_torch.data import make_synthetic_dataset
+    t0 = time.perf_counter()
+    g = make_synthetic_dataset(**kw)
+    print(f"{tag} synthetic graph {time.perf_counter() - t0:.1f}s")
+    return g
+
+
+def _own_splits(g):
+    """``g`` with its own copy of the node sets, which ``_cut_splits``
+    cuts in place."""
+    import dataclasses
+    return dataclasses.replace(g, node_set=dict(g.node_set))
+
+
+def _flickr_graph():
+    return _synthetic_graph("[serve]", num_nodes=89_250, avg_deg=10.0,
+                            num_feat=500, num_classes=7, seed=0, power_law=False)
+
+
+def _products_graph():
+    return _synthetic_graph("[gat]", num_nodes=250_000, avg_deg=15, num_feat=100,
+                            num_classes=47, seed=0, power_law=False)
+
+
+def _flagship_trainer(g, **precision):
+    """The flagship SAGE-3 trainer on the graph ``g``; ``precision``: the
+    Trainer's ``matmul_precision`` / ``compute_dtype`` / ``feat_dtype``."""
     import torch
     from shadow_gnn_torch import TEST, TRAIN, VALID
-    from shadow_gnn_torch.data import make_synthetic_dataset
     from shadow_gnn_torch.train.config import parse_config
     from shadow_gnn_torch.train.pipeline import Trainer
 
     t0 = time.perf_counter()
-    g = make_synthetic_dataset(num_nodes=89_250, avg_deg=10.0, num_feat=500,
-                               num_classes=7, seed=0, power_law=False)
     # configs/flickr_sage_3_ppr.yml, written out (the card machine may
     # lack a yml parser); the synthetic graph has no inductive split
     cfg = {
@@ -370,29 +652,24 @@ def _flagship_trainer():
         "sampler": [{"method": "ppr", "phase": "train", "k": [200],
                      "epsilon": [1e-6]}],
     }
-    tr = Trainer("flickr_synth", "", g, parse_config(cfg), seed=0,
-                 device="cuda", packed_adj=True)
+    tr = Trainer("flickr_synth", "", _own_splits(g), parse_config(cfg), seed=0,
+                 device="cuda", packed_adj=True, **precision)
     _cut_splits(tr, ((TRAIN, TRAIN_NODES), (VALID, VALID_NODES), (TEST, TEST_NODES)))
     torch.cuda.synchronize()
-    print(f"[serve] graph + trainer {time.perf_counter() - t0:.1f}s")
+    print(f"[serve] trainer {time.perf_counter() - t0:.1f}s {precision}")
     return tr
 
 
-def _gat_trainer():
-    """The products GAT-5 leaderboard model at full width on a
-    products-width synthetic graph; the preprocessing (ppr label
+def _gat_trainer(g, epochs=EPOCHS, **precision):
+    """The products GAT-5 leaderboard model at full width on the
+    products-width synthetic graph ``g``; the preprocessing (ppr label
     smoothening of every TRAIN label) runs on the card while the trainer
-    is built, before the splits are cut."""
+    is built, before the splits are cut.  ``precision``: the Trainer's
+    ``matmul_precision`` / ``compute_dtype`` / ``feat_dtype``."""
     import torch
     from shadow_gnn_torch import TEST, TRAIN, VALID
-    from shadow_gnn_torch.data import make_synthetic_dataset
     from shadow_gnn_torch.train.config import parse_config
     from shadow_gnn_torch.train.pipeline import Trainer
-
-    t0 = time.perf_counter()
-    g = make_synthetic_dataset(num_nodes=250_000, avg_deg=15, num_feat=100,
-                               num_classes=47, seed=0, power_law=False)
-    t_graph = time.perf_counter() - t0
     # configs/products_gat_5_ppr_leaderboard.yml, written out; `end` cut
     cfg = {
         "data": {"transductive": True},
@@ -401,18 +678,19 @@ def _gat_trainer():
                          "feature_smoothen": "none", "use_label": "no_valid",
                          "label_smoothen": "ppr--concat-0.8", "residue": "max",
                          "pooling": "max"},
-        "hyperparameter": {"end": EPOCHS, "lr": 0.001, "dropout": 0.4,
+        "hyperparameter": {"end": epochs, "lr": 0.001, "dropout": 0.4,
                            "dropedge": GAT_DROPEDGE, "batch_size": 128},
         "sampler": [{"method": "full", "phase": "preprocess"},
                     {"method": "ppr", "phase": "train", "k": [150],
                      "epsilon": [1e-5]}],
     }
     t0 = time.perf_counter()
-    tr = Trainer("products_synth", "", g, parse_config(cfg), seed=0, device="cuda")
+    tr = Trainer("products_synth", "", _own_splits(g), parse_config(cfg), seed=0,
+                 device="cuda", **precision)
     _cut_splits(tr, ((TRAIN, GAT_TRAIN), (VALID, GAT_VALID), (TEST, GAT_TEST)))
     torch.cuda.synchronize()
     log = tr.preproc_log
-    print(f"[gat] graph {t_graph:.1f}s, trainer {time.perf_counter() - t0:.1f}s; "
+    print(f"[gat] {precision} trainer {time.perf_counter() - t0:.1f}s; "
           f"preprocessing: label smoothening {log['label_smoothen_s']:.2f}s, "
           f"{log['label_smoothen_steps']} iterations; features "
           f"{tr.dim_feat_smooth} + label inputs {tr.dim_label_smooth}")
@@ -442,6 +720,12 @@ def _max_diff(fn, reqs, want):
     import numpy as np
     return max(float(np.abs(np.asarray(fn(reqs[s][0])) - want[s]).max())
                for s in want)
+
+
+def _tols(tr):
+    """(probabilities abs, step loss rel, gradients of their max) for the
+    trainer's model: ``TOLS_BF16`` at the bf16 levels."""
+    return TOLS_BF16 if _rounded(tr) else (TOL_PROBS, 1e-5, 1e-4)
 
 
 def phase_serve(tr, sizes, fwd, tag):
@@ -507,13 +791,13 @@ def phase_serve(tr, sizes, fwd, tag):
                              f"launches, got {launches}")
 
     # the same requests through the plain versions on the card
-    with _plain_versions():
+    with _plain_versions(_rounded(tr)):
         d_plain = _max_diff(lambda ids: tr.predict_nodes(ids, TEST), reqs, probs)
         d_plain_emb = float(np.abs(
             tr.embed_nodes(reqs[EMBED_SIZE][0], TEST)[0] - emb).max())
     print(f"{tag} max |kernel - plain|: probabilities {d_plain:.3e}, "
           f"embeddings {d_plain_emb:.3e}")
-    if not max(d_plain, d_plain_emb) <= TOL_PROBS:
+    if not max(d_plain, d_plain_emb) <= _tols(tr)[0]:
         raise AssertionError(f"kernel and plain serving differ by "
                              f"{max(d_plain, d_plain_emb)}")
     return reqs, {s: _median(lat[s]) for s in lat}
@@ -607,7 +891,7 @@ def _first_step(tr, fwd, bwd, rng_seed):
     got = (fwd.launches - before[0], bwd.launches - before[1])
     if got != (n_layers, n_layers):
         raise AssertionError(f"a kernel step launched {got} (forward, backward)")
-    with _plain_versions():
+    with _plain_versions(_rounded(tr)):
         loss_p, grads_p, kinks_p = one_step()
     with _plain_backwards():
         loss_b, grads_b, _ = one_step()
@@ -633,7 +917,8 @@ def _first_step_agreement(tr, fwd, bwd, tag):
     gradients are held instead on a witness: the same model with a
     smooth activation (elu) and no max readout (residue none, center
     pooling), its weights drawn from seed 0, at the first of three
-    dropout seeds whose step crosses no kink."""
+    dropout seeds whose step crosses no kink.  A model at the bf16 levels
+    is held at ``TOLS_BF16`` instead."""
     if _check_step(tr, fwd, bwd, tag, 7):
         return
     with _smooth_witness(tr):
@@ -659,8 +944,10 @@ def _check_step(tr, fwd, bwd, tag, rng_seed):
           f"{err_b:.2e} ({name_b}); kinks the two forwards cross: "
           + (", ".join(f"{kind} {n} of {total}"
                        for kind, (n, total) in r["crossed"].items()) or "none"))
-    if not (rel_loss <= 1e-5 and abs(r["loss_b"] - r["loss_k"]) <= 1e-6 * abs(r["loss_k"])
-            and err_b <= 1e-4 and (n_crossed or err_p <= 1e-4)):
+    _, tol_loss, tol_grad = _tols(tr)
+    if not (rel_loss <= tol_loss
+            and abs(r["loss_b"] - r["loss_k"]) <= 1e-6 * abs(r["loss_k"])
+            and err_b <= tol_grad and (n_crossed or err_p <= tol_grad)):
         raise AssertionError("kernel and plain training steps differ")
     return n_crossed == 0
 
@@ -749,10 +1036,11 @@ def phase_train(tr, reqs, fwd, bwd, tag):
            for m in (TRAIN, VALID, TEST)}
     nb = nbs[TRAIN]
     # VALID after every epoch, then the final TRAIN, VALID and TEST passes
-    n_eval = EPOCHS * nbs[VALID] + sum(nbs.values())
-    if len(steps) != EPOCHS * nb or len(evals) != n_eval:
+    n_epochs = int(tr.params_train["end"])
+    n_eval = n_epochs * nbs[VALID] + sum(nbs.values())
+    if len(steps) != n_epochs * nb or len(evals) != n_eval:
         raise AssertionError(f"{len(steps)} train steps and {len(evals)} eval "
-                             f"batches, want {EPOCHS * nb} and {n_eval}")
+                             f"batches, want {n_epochs * nb} and {n_eval}")
     want = {fwd.__name__: n_layers * (len(steps) + len(evals)),
             bwd.__name__: n_layers * len(steps)}
     if launches != want:
@@ -766,6 +1054,7 @@ def phase_train(tr, reqs, fwd, bwd, tag):
         raise AssertionError("training moved no parameter")
 
     step_ms = [a.elapsed_time(b) for a, b in steps]
+    late_ms = step_ms[nb:] or step_ms       # epoch 1 on; all of a 1-epoch run
     for epoch, mode, status, secs, stats in epochs:
         if mode == TRAIN and status == "running":
             acc = {k: v for k, v in stats.items() if k != "loss"}
@@ -774,7 +1063,7 @@ def phase_train(tr, reqs, fwd, bwd, tag):
                   + f", {secs:.2f}s, {nb * tr.batch_size / secs:.0f} subgraphs/s")
     print(f"{tag} {len(steps)} TRAIN steps, {len(evals)} eval batches in "
           f"{wall:.2f}s; step (CUDA events) median {_median(step_ms):.3f} ms, "
-          f"epoch-1 median {_median(step_ms[nb:]):.3f} ms, max "
+          f"epoch-1 median {_median(late_ms):.3f} ms, max "
           f"{max(step_ms):.3f} ms; peak device memory {peak / 2**30:.2f} GiB")
     print(f"{tag} launches over train(): {fwd.__name__} {launches[fwd.__name__]}"
           f" ({n_layers} per step and per eval batch), {bwd.__name__} "
@@ -788,7 +1077,7 @@ def phase_train(tr, reqs, fwd, bwd, tag):
     if fwd.launches != before + n_layers:
         raise AssertionError(f"predict_nodes after training did not launch "
                              f"{fwd.__name__} {n_layers} times")
-    return launches, _median(step_ms[nb:])
+    return launches, _median(late_ms)
 
 
 def phase_uncached(tr, reqs, sizes, fwd, per_request, tag):
@@ -817,7 +1106,7 @@ def phase_uncached(tr, reqs, sizes, fwd, per_request, tag):
     print(f"{tag} uncached predict_nodes {big} ids: p50 {_median(lat):.2f} ms over "
           f"{len(lat)} requests ({per_request} {fwd.__name__} launches each); max "
           f"|cached - uncached|: probabilities {d:.3e}, embeddings {d_emb:.3e}")
-    if not max(d, d_emb) <= TOL_PROBS:
+    if not max(d, d_emb) <= _tols(tr)[0]:
         raise AssertionError(f"cached and uncached serving differ by "
                              f"{max(d, d_emb)}")
 
@@ -828,8 +1117,19 @@ def _bound(byts, ops):
     return max(bytes_ms, ops_ms), "bytes" if bytes_ms >= ops_ms else "operations"
 
 
-def phase_time(bits_all):
-    """packed_spmm on the cached TEST bits at every serving batch."""
+def _library_bmm(adj, x, bf16):
+    """The library yardstick: torch.bmm of the normalised block and x, on
+    their bf16 roundings with an f32 output at the bf16 mode."""
+    import torch
+    if bf16:
+        adj, x = adj.bfloat16(), x.bfloat16()
+        return lambda: torch.bmm(adj, x, out_dtype=torch.float32)
+    return lambda: torch.bmm(adj, x)
+
+
+def phase_time(bits_all, bf16=False):
+    """packed_spmm on the cached TEST bits at every serving batch
+    (``bf16``: its bf16 mode, B1c)."""
     import torch
     from shadow_gnn_torch.ops.normalize import adj_norm_rw
     from shadow_gnn_torch.ops.packed import packed_spmm, packed_spmm_plain
@@ -842,21 +1142,23 @@ def phase_time(bits_all):
         nnz = int((adj_n > 0).sum())
         for f in (500, 256):
             x = torch.randn(b, n, f, device="cuda", generator=gen)
-            ms = _time_ms(lambda: packed_spmm(bits, x, "rw"))
-            plain_ms = _time_ms(lambda: packed_spmm_plain(bits, x, "rw"))
-            library_ms = _time_ms(lambda: torch.bmm(adj_n, x))
+            ms = _time_ms(lambda: packed_spmm(bits, x, "rw", bf16=bf16))
+            plain_ms = _time_ms(lambda: packed_spmm_plain(bits, x, "rw", bf16=bf16))
+            library_ms = _time_ms(_library_bmm(adj_n, x, bf16))
             byts = b * (n * nbytes + 2 * n * f * 4)
             ops = nnz * f + b * n * f           # gather-adds + the 1/deg scale
             bound_ms, bound_by = _bound(byts, ops)
-            print(f"[time] packed_spmm rw B={b} N={n} F={f} nnz={nnz}: kernel "
+            print(f"[time] packed_spmm{'_bf16' if bf16 else ''} rw B={b} N={n} "
+                  f"F={f} nnz={nnz}: kernel "
                   f"{ms:.4f} ms, plain {plain_ms:.4f} ms, torch.bmm "
                   f"{library_ms:.4f} ms, bound {bound_ms:.4f} ms ({bound_by}: "
                   f"{byts / 1e6:.1f} MB, {ops / 1e9:.3f} GFLOP)")
 
 
-def phase_time_train(bits, launches, max_abs_err):
+def phase_time_train(bits, launches, max_abs_err, bf16=False):
     """Both kernels at the training batch (B=64) on the cached TRAIN
-    bits, rw norm, dropedge 0.05; the JSON rows come from F=500."""
+    bits, rw norm, dropedge 0.05 (``bf16``: their bf16 mode, B1c); the
+    JSON rows come from F=500."""
     import torch
     from shadow_gnn_torch.ops.normalize import adj_norm_rw
     from shadow_gnn_torch.ops.packed import (packed_spmm, packed_spmm_plain,
@@ -873,10 +1175,11 @@ def phase_time_train(bits, launches, max_abs_err):
         x = torch.randn(b, n, f, device="cuda", generator=gen)
         for name, fn, lib, t in (("packed_spmm", packed_spmm, adj_n, False),
                                  ("packed_spmm_t", packed_spmm_t, adj_t, True)):
-            ms = _time_ms(lambda: fn(bits, x, "rw", DROPEDGE, seed))
+            ms = _time_ms(lambda: fn(bits, x, "rw", DROPEDGE, seed, bf16=bf16))
             plain_ms = _time_ms(lambda: packed_spmm_plain(bits, x, "rw", DROPEDGE,
-                                                          seed, transpose=t))
-            library_ms = _time_ms(lambda: torch.bmm(lib, x))
+                                                          seed, t, bf16))
+            library_ms = _time_ms(_library_bmm(lib, x, bf16))
+            name += "_bf16" if bf16 else ""
             byts = b * (n * nbytes + 2 * n * f * 4)
             # forward: gather-adds + the 1/deg scale; transposed: a
             # multiply-add per surviving entry
@@ -891,7 +1194,8 @@ def phase_time_train(bits, launches, max_abs_err):
                     "name": name, "route": "cuda",
                     "source": "shadow_gnn_torch/csrc/packed_spmm.cu",
                     "replaces": "shadow_gnn_tpu/ops/pallas_packed.py:"
-                                + ("153" if t else "83"),
+                                + {(0, 0): "83", (1, 0): "153", (0, 1): "90",
+                                   (1, 1): "155"}[t, bf16],
                     "launches": launches[name], "max_abs_err": max_abs_err[name],
                     "ms": ms, "plain_ms": plain_ms, "bound_ms": bound_ms,
                     "bound_by": bound_by, "library_ms": library_ms})
@@ -936,11 +1240,13 @@ def _profile(label, fn, n, wall_ms):
               f"{cnt / n:5.1f}x  {name[:90]}")
 
 
-def phase_time_gat(tr, launches, max_abs_err):
+def phase_time_gat(tr, launches, max_abs_err, bf16=False):
     """B2 and B3 at the training shape (B=128, N=152, H=4, dh=128) on the
     cached TRAIN blocks, dropedge 0.1, beside their bound, their plain
     versions and scaled_dot_product_attention (forward; its backward as
-    forward + backward less forward).  Returns the two JSON rows."""
+    forward + backward less forward).  ``bf16``: B2b and B3b at the
+    level the bf16-precision model runs (``bf16`` + ``bf16_scores``, f32
+    values), SDPA on bf16 operands.  Returns the two JSON rows."""
     import torch
     from shadow_gnn_torch import TRAIN
     from shadow_gnn_torch.ops.gat import (gat_attention, gat_attention_bwd,
@@ -961,7 +1267,8 @@ def phase_time_gat(tr, launches, max_abs_err):
     v = torch.randn(b, n, h, dh, device="cuda", generator=gen)
     g = torch.randn(b, n, h, dh, device="cuda", generator=gen)
     args = (a_s, a_n, v, adj_n, adj)
-    out = gat_attention_plain(*args)
+    lv = dict(bf16=bf16, bf16_scores=bf16)
+    out = gat_attention_plain(*args, **lv)
 
     # the library yardstick: q = [a_s, 1, 0...], k = [1, a_n, 0...], so
     # q.k = a_s[i] + a_n[j], softmax over the kept edges
@@ -972,6 +1279,8 @@ def phase_time_gat(tr, launches, max_abs_err):
     vh = v.permute(0, 2, 1, 3).contiguous()
     gh = g.permute(0, 2, 1, 3).contiguous()
     mask = (adj_n > 0)[:, None]
+    if bf16:
+        q, k, vh, gh = (t.bfloat16() for t in (q, k, vh, gh))
     qkv = [t.requires_grad_() for t in (q, k, vh)]
     sdpa = torch.nn.functional.scaled_dot_product_attention
 
@@ -983,10 +1292,10 @@ def phase_time_gat(tr, launches, max_abs_err):
         return torch.autograd.grad(sdpa(*qkv, attn_mask=mask, scale=1.0), qkv, gh)
 
     with torch.no_grad():
-        fwd_ms = _time_ms(lambda: gat_attention(*args))
-        fwd_plain = _time_ms(lambda: gat_attention_plain(*args))
-        bwd_ms = _time_ms(lambda: gat_attention_bwd(*args, out, g))
-        bwd_plain = _time_ms(lambda: gat_attention_bwd_plain(*args, out, g))
+        fwd_ms = _time_ms(lambda: gat_attention(*args, **lv))
+        fwd_plain = _time_ms(lambda: gat_attention_plain(*args, **lv))
+        bwd_ms = _time_ms(lambda: gat_attention_bwd(*args, out, g, **lv))
+        bwd_plain = _time_ms(lambda: gat_attention_bwd_plain(*args, out, g, **lv))
         lib_fwd = _time_ms(sdpa_fwd)
     lib_fwd_bwd = _time_ms(sdpa_fwd_bwd)
     lib_bwd = lib_fwd_bwd - lib_fwd
@@ -1001,12 +1310,14 @@ def phase_time_gat(tr, launches, max_abs_err):
         ("gat_attention_bwd", bwd_ms, bwd_plain, lib_bwd, "_bwd_kernel",
          4 * att + 4 * blk + 2 * adjb,
          h * (5 * nnz_s + (4 * dh + 4) * nnz_k) + 2 * b * n * h * dh))
-    line = {"_fwd_kernel": 85, "_bwd_kernel": 101}
+    line = ({"_fwd_kernel": 93, "_bwd_kernel": 112} if bf16
+            else {"_fwd_kernel": 85, "_bwd_kernel": 101})
     rows = []
     for name, ms, plain_ms, lib_ms, tpu_fn, byts, ops in cases:
+        name += "_bf16" if bf16 else ""
         bound_ms, bound_by = _bound(byts, ops)
         note = f" (fwd+bwd {lib_fwd_bwd:.4f} less fwd)" if tpu_fn == "_bwd_kernel" else ""
-        print(f"[time] {name:17s} B={b} N={n} H={h} dh={dh} p={GAT_DROPEDGE} "
+        print(f"[time] {name:22s} B={b} N={n} H={h} dh={dh} p={GAT_DROPEDGE} "
               f"nnz={nnz_s} kept={nnz_k}: kernel {ms:.4f} ms, plain "
               f"{plain_ms:.4f} ms, scaled_dot_product_attention {lib_ms:.4f} ms"
               f"{note}, bound {bound_ms:.4f} ms ({bound_by}: {byts / 1e6:.1f} MB, "
@@ -1059,12 +1370,17 @@ def main():
     phase_build()
     max_abs_err = phase_kernels()
     max_abs_err.update(phase_kernels_gat())
+    phase_precision()
+    max_abs_err.update(phase_kernels_bf16())
+    max_abs_err.update(phase_kernels_gat_bf16())
     from shadow_gnn_torch import TEST, TRAIN
     from shadow_gnn_torch.ops.gat import gat_attention, gat_attention_bwd
     from shadow_gnn_torch.ops.packed import packed_spmm, packed_spmm_t
+    b1c, b1c_t, b2b, b3b = _bf16_counts()
 
     # the flagship SAGE-3: serving, training, uncached serving
-    tr = _flagship_trainer()
+    flickr = _flickr_graph()
+    tr = _flagship_trainer(flickr)
     reqs, p50 = phase_serve(tr, SERVE_SIZES, packed_spmm, "[serve]")
     serve_bits = tr.caches[TEST][0].adj_bits[:256]
     if profile:
@@ -1081,8 +1397,25 @@ def main():
     del tr, reqs, serve_bits
     torch.cuda.empty_cache()
 
+    # the flagship at --matmul_precision bfloat16: B1c
+    tr = _flagship_trainer(flickr, matmul_precision="bfloat16")
+    reqs, p50 = phase_serve(tr, SERVE_SIZES, b1c, "[serve bf16]")
+    if profile:
+        phase_profile(tr, reqs, p50, (1, 256), "flagship bf16")
+    train_launches, step_ms = phase_train(tr, reqs, b1c, b1c_t, "[train bf16]")
+    if profile:
+        phase_profile_train(tr, step_ms, "flagship bf16")
+    serve_bits = tr.caches[TEST][0].adj_bits[:256]
+    phase_uncached(tr, reqs, SERVE_SIZES, b1c, 0, "[uncached bf16]")
+    phase_time(serve_bits, bf16=True)
+    rows += phase_time_train(tr.caches[TRAIN][0].adj_bits[:tr.batch_size].contiguous(),
+                             train_launches, max_abs_err, bf16=True)
+    del tr, reqs, serve_bits, flickr
+    torch.cuda.empty_cache()
+
     # the products GAT-5: serving, training, uncached serving, B2/B3 times
-    tr = _gat_trainer()
+    products = _products_graph()
+    tr = _gat_trainer(products)
     reqs, p50 = phase_serve(tr, GAT_SIZES, gat_attention, "[gat]")
     if profile:
         phase_profile(tr, reqs, p50, (128,), "gat")
@@ -1093,6 +1426,32 @@ def main():
     phase_uncached(tr, reqs, GAT_SIZES, gat_attention, tr.model_cfg.num_layers,
                    "[gat]")
     rows += phase_time_gat(tr, gat_launches, max_abs_err)
+    del tr, reqs
+    torch.cuda.empty_cache()
+
+    # the products GAT-5 at --matmul_precision bfloat16: B2b/B3b
+    tr = _gat_trainer(products, matmul_precision="bfloat16")
+    reqs, p50 = phase_serve(tr, GAT_SIZES, b2b, "[gat bf16]")
+    if profile:
+        phase_profile(tr, reqs, p50, (128,), "gat bf16")
+    gat_launches, step_ms = phase_train(tr, reqs, b2b, b3b, "[gat bf16]")
+    if profile:
+        phase_profile_train(tr, step_ms, "gat bf16")
+    rows += phase_time_gat(tr, gat_launches, max_abs_err, bf16=True)
+    del tr, reqs
+    torch.cuda.empty_cache()
+
+    # ... and with --compute_dtype bfloat16 --feat_dtype bfloat16 too
+    # (scripts/gat_bench.py's bf16 run): a bf16 feature table and block,
+    # no packed path; the label-input select promotes the block back to
+    # f32, as JAX's does, so B2b/B3b get f32 values; serve and 1 epoch
+    tr = _gat_trainer(products, epochs=1, matmul_precision="bfloat16",
+                      compute_dtype="bfloat16", feat_dtype="bfloat16")
+    if tr.feat_tab.dtype != torch.bfloat16:
+        raise AssertionError("the feature table is not bf16")
+    reqs, _ = phase_serve(tr, GAT_SIZES, b2b, "[gat bf16 act]")
+    phase_train(tr, reqs, b2b, b3b, "[gat bf16 act]")
+    del tr, reqs
     print(f"[chip_smoke] all phases passed in {time.perf_counter() - t_all:.1f}s")
     smi = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],

@@ -14,7 +14,16 @@
 //
 // Replaces the TPU kernels of shadow_gnn_tpu/ops/pallas_gat.py:
 // gat_attention_hm -> _fwd_kernel (the forward) and _bwd_hm -> _bwd_kernel
-// (the backward), at their default f32 level.
+// (the backward), at each of their three levels (template kLevel):
+//   0  f32 (B2, B3);
+//   1  bf16 (B2b, B3b): the operands of the products are rounded to bf16 and
+//      accumulated in f32: e and v in the forward; g and v in g.v, and P and
+//      g in dv, in the backward.  D, r = g.out and ds = P (g.v - r) stay f32
+//      with the unrounded P, as in _fwd_kernel / _bwd_kernel (:93-124);
+//   2  bf16 + bf16_scores: also e = bf16(exp(bf16(s - rm))) * adjn (_scores,
+//      :75-78), D the f32 sum of those rounded e.
+// s - rm is formed in f32 before its rounding; exp is the expf of level 0,
+// and adjn is 0/1, so the product with it is exact.
 //
 // What bounds it: a call must read the two adjacency blocks, the score
 // terms and v once (and, backward, out and g) and write out (backward:
@@ -46,6 +55,7 @@
 //   and D, and sums dv and da_n in registers: no atomics, deterministic.
 // Rows are read by whole warps and no [N, N] tile is held: shared memory
 // grows with N (about 80 bytes per row), so N up to ~2900 fits.
+#include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <math.h>
 #include <stdint.h>
@@ -66,6 +76,22 @@ __device__ __forceinline__ float warp_sum(float v) {
 #pragma unroll
   for (int o = 16; o > 0; o >>= 1) v += __shfl_xor_sync(kFull, v, o);
   return v;
+}
+
+__device__ __forceinline__ float bf16r(float v) {
+  return __bfloat162float(__float2bfloat16_rn(v));
+}
+
+// an operand of a product: rounded to bf16 at levels 1 and 2
+template <int kLevel>
+__device__ __forceinline__ float operand(float v) {
+  return kLevel > 0 ? bf16r(v) : v;
+}
+
+// e before the adjn factor, from x = s - rm
+template <int kLevel>
+__device__ __forceinline__ float edge_exp(float x) {
+  return kLevel == 2 ? bf16r(expf(bf16r(x))) : expf(x);
 }
 
 __device__ __forceinline__ size_t vrow(int b, int n, int h, int dh, int i, int hh) {
@@ -97,6 +123,7 @@ __device__ __forceinline__ int row_list(const float* __restrict__ adjs_row,
 
 // The scores of row i, head hh over its list: e[k] into pe, returns
 // (rm, D) with rm = 0 for an empty row and D clipped at 1e-10.
+template <int kLevel>
 __device__ __forceinline__ float2 row_scores(float as, const float* __restrict__ an,
                                              const uint16_t* lst, const float* w,
                                              int deg, float* pe) {
@@ -107,7 +134,7 @@ __device__ __forceinline__ float2 row_scores(float as, const float* __restrict__
   if (!isfinite(m)) m = 0.0f;
   float dsum = 0.0f;
   for (int k = lane; k < deg; k += 32) {
-    const float e = expf((as + an[lst[k]]) - m) * w[k];
+    const float e = edge_exp<kLevel>((as + an[lst[k]]) - m) * w[k];
     pe[k] = e;
     dsum += e;
   }
@@ -133,7 +160,7 @@ struct RowSmem {
 
 // kBwd = false: the forward (writes out).  kBwd = true: the backward's row
 // pass (reads out and g; writes da_s and the row statistics rm, D, r).
-template <bool kBwd>
+template <bool kBwd, int kLevel>
 __global__ void gat_rows_kernel(const float* __restrict__ a_s,
                                 const float* __restrict__ a_n,
                                 const float* __restrict__ v,
@@ -171,21 +198,21 @@ __global__ void gat_rows_kernel(const float* __restrict__ a_s,
     const int deg = sm.cnt[r];
     const uint16_t* lst = sm.nbr + (size_t)r * n;
     const size_t bh = ((size_t)b * h + hh) * n;
-    const float2 st = row_scores(a_s[bh + i], a_n + bh, lst, sm.wv + (size_t)r * n,
-                                 deg, pe);
+    const float2 st = row_scores<kLevel>(a_s[bh + i], a_n + bh, lst,
+                                         sm.wv + (size_t)r * n, deg, pe);
     const float den = st.y;
     if (!kBwd) {
       float acc[kMaxChunks];
 #pragma unroll
       for (int c = 0; c < kMaxChunks; ++c) acc[c] = 0.0f;
       for (int k = 0; k < deg; ++k) {
-        const float e = pe[k];
-        if (e == 0.0f) continue;           // dropped edge: adds nothing
+        if (pe[k] == 0.0f) continue;       // dropped edge: adds nothing
+        const float e = operand<kLevel>(pe[k]);
         const float* vr = v + vrow(b, n, h, dh, lst[k], hh);
 #pragma unroll
         for (int c = 0; c < kMaxChunks; ++c) {
           const int d = c * 32 + lane;
-          if (d < dh) acc[c] += e * vr[d];
+          if (d < dh) acc[c] += e * operand<kLevel>(vr[d]);
         }
       }
       float* orow = out + vrow(b, n, h, dh, i, hh);
@@ -204,6 +231,7 @@ __global__ void gat_rows_kernel(const float* __restrict__ a_s,
         const int d = c * 32 + lane;
         gi[c] = d < dh ? grow[d] : 0.0f;
         if (d < dh) ri += gi[c] * orow[d];
+        gi[c] = operand<kLevel>(gi[c]);    // r is taken from the unrounded g
       }
       ri = warp_sum(ri);
       float ds_sum = 0.0f;
@@ -216,7 +244,7 @@ __global__ void gat_rows_kernel(const float* __restrict__ a_s,
 #pragma unroll
         for (int c = 0; c < kMaxChunks; ++c) {
           const int d = c * 32 + lane;
-          if (d < dh) gv += gi[c] * vr[d];
+          if (d < dh) gv += gi[c] * operand<kLevel>(vr[d]);
         }
         gv = warp_sum(gv);
         ds_sum += p * (gv - ri);
@@ -235,6 +263,7 @@ __global__ void gat_rows_kernel(const float* __restrict__ a_s,
 
 // The backward's column sums: da_n and dv, one block per (b, tile of 32
 // columns).  shared memory: colbits[32 * words] u32, words = ceil(n / 32).
+template <int kLevel>
 __global__ void gat_cols_kernel(const float* __restrict__ a_s,
                                 const float* __restrict__ a_n,
                                 const float* __restrict__ v,
@@ -281,7 +310,7 @@ __global__ void gat_cols_kernel(const float* __restrict__ a_s,
 #pragma unroll
     for (int k = 0; k < kMaxChunks; ++k) {
       const int d = k * 32 + lane;
-      vj[k] = d < dh ? vr[d] : 0.0f;
+      vj[k] = d < dh ? operand<kLevel>(vr[d]) : 0.0f;
       acc[k] = 0.0f;
     }
     float dan_sum = 0.0f;
@@ -291,7 +320,7 @@ __global__ void gat_cols_kernel(const float* __restrict__ a_s,
         const int i = q * 32 + __ffs(word) - 1;
         word &= word - 1u;
         // e exactly as the row pass formed it
-        const float e = expf((a_s[bh + i] + an) - stats[bh + i])
+        const float e = edge_exp<kLevel>((a_s[bh + i] + an) - stats[bh + i])
                         * adjn_b[(size_t)i * n + j];
         if (e == 0.0f) continue;
         const float p = e / stats[plane + bh + i];
@@ -301,12 +330,13 @@ __global__ void gat_cols_kernel(const float* __restrict__ a_s,
 #pragma unroll
         for (int k = 0; k < kMaxChunks; ++k) {
           const int d = k * 32 + lane;
-          gi[k] = d < dh ? grow[d] : 0.0f;
+          gi[k] = d < dh ? operand<kLevel>(grow[d]) : 0.0f;
           gv += gi[k] * vj[k];
         }
         gv = warp_sum(gv);
+        const float pd = operand<kLevel>(p);
 #pragma unroll
-        for (int k = 0; k < kMaxChunks; ++k) acc[k] += p * gi[k];
+        for (int k = 0; k < kMaxChunks; ++k) acc[k] += pd * gi[k];
         dan_sum += p * (gv - stats[2 * plane + bh + i]);
       }
     }
@@ -327,26 +357,76 @@ int set_smem(K kernel, int smem_bytes) {
                                    smem_bytes);
 }
 
-}  // namespace
-
-extern "C" {
-
-// Grids, blocks and dynamic shared memory come from the caller
-// (shadow_gnn_torch/ops/gat.py:launch_dims).  Each launches on `stream`
-// and returns cudaGetLastError() after its launches (0 = launched).
-
-int gat_attention_forward(const void* a_s, const void* a_n, const void* v,
-                          const void* adjn, const void* adjs, void* out, int bsz,
-                          int n, int h, int dh, int rows_per_block, int tiles,
-                          int grid, int threads, int smem_bytes, void* stream) {
-  int e = set_smem(gat_rows_kernel<false>, smem_bytes);
+template <int kLevel>
+int forward_level(const void* a_s, const void* a_n, const void* v, const void* adjn,
+                  const void* adjs, void* out, int bsz, int n, int h, int dh,
+                  int rows_per_block, int tiles, int grid, int threads,
+                  int smem_bytes, void* stream) {
+  int e = set_smem(gat_rows_kernel<false, kLevel>, smem_bytes);
   if (e != 0) return e;
-  gat_rows_kernel<false><<<grid, threads, smem_bytes, (cudaStream_t)stream>>>(
+  gat_rows_kernel<false, kLevel><<<grid, threads, smem_bytes, (cudaStream_t)stream>>>(
       static_cast<const float*>(a_s), static_cast<const float*>(a_n),
       static_cast<const float*>(v), static_cast<const float*>(adjn),
       static_cast<const float*>(adjs), nullptr, nullptr, static_cast<float*>(out),
       nullptr, nullptr, bsz, n, h, dh, rows_per_block, tiles);
   return (int)cudaGetLastError();
+}
+
+template <int kLevel>
+int backward_level(const void* a_s, const void* a_n, const void* v,
+                   const void* adjn, const void* adjs, const void* out,
+                   const void* g, void* das, void* dan, void* dv, void* stats,
+                   int bsz, int n, int h, int dh, int rows_per_block, int tiles,
+                   int grid, int threads, int smem_bytes, int col_tiles,
+                   int col_grid, int col_smem_bytes, void* stream) {
+  int e = set_smem(gat_rows_kernel<true, kLevel>, smem_bytes);
+  if (e != 0) return e;
+  e = set_smem(gat_cols_kernel<kLevel>, col_smem_bytes);
+  if (e != 0) return e;
+  const cudaStream_t s = (cudaStream_t)stream;
+  gat_rows_kernel<true, kLevel><<<grid, threads, smem_bytes, s>>>(
+      static_cast<const float*>(a_s), static_cast<const float*>(a_n),
+      static_cast<const float*>(v), static_cast<const float*>(adjn),
+      static_cast<const float*>(adjs), static_cast<const float*>(out),
+      static_cast<const float*>(g), nullptr, static_cast<float*>(das),
+      static_cast<float*>(stats), bsz, n, h, dh, rows_per_block, tiles);
+  e = (int)cudaGetLastError();
+  if (e != 0) return e;
+  gat_cols_kernel<kLevel><<<col_grid, threads, col_smem_bytes, s>>>(
+      static_cast<const float*>(a_s), static_cast<const float*>(a_n),
+      static_cast<const float*>(v), static_cast<const float*>(adjn),
+      static_cast<const float*>(adjs), static_cast<const float*>(g),
+      static_cast<const float*>(stats), static_cast<float*>(dan),
+      static_cast<float*>(dv), bsz, n, h, dh, col_tiles);
+  return (int)cudaGetLastError();
+}
+
+}  // namespace
+
+extern "C" {
+
+// Grids, blocks and dynamic shared memory come from the caller
+// (shadow_gnn_torch/ops/gat.py:launch_dims); `level` is kLevel (0, 1, 2).
+// Each launches on `stream` and returns cudaGetLastError() after its
+// launches (0 = launched; cudaErrorInvalidValue for an unknown level).
+
+int gat_attention_forward(const void* a_s, const void* a_n, const void* v,
+                          const void* adjn, const void* adjs, void* out, int bsz,
+                          int n, int h, int dh, int rows_per_block, int tiles,
+                          int grid, int threads, int smem_bytes, int level,
+                          void* stream) {
+  switch (level) {
+    case 0: return forward_level<0>(a_s, a_n, v, adjn, adjs, out, bsz, n, h, dh,
+                                    rows_per_block, tiles, grid, threads,
+                                    smem_bytes, stream);
+    case 1: return forward_level<1>(a_s, a_n, v, adjn, adjs, out, bsz, n, h, dh,
+                                    rows_per_block, tiles, grid, threads,
+                                    smem_bytes, stream);
+    case 2: return forward_level<2>(a_s, a_n, v, adjn, adjs, out, bsz, n, h, dh,
+                                    rows_per_block, tiles, grid, threads,
+                                    smem_bytes, stream);
+    default: return (int)cudaErrorInvalidValue;
+  }
 }
 
 // The row pass (da_s and the row statistics into `stats` [3, B, H, N]),
@@ -357,27 +437,22 @@ int gat_attention_backward(const void* a_s, const void* a_n, const void* v,
                            void* stats, int bsz, int n, int h, int dh,
                            int rows_per_block, int tiles, int grid, int threads,
                            int smem_bytes, int col_tiles, int col_grid,
-                           int col_smem_bytes, void* stream) {
-  int e = set_smem(gat_rows_kernel<true>, smem_bytes);
-  if (e != 0) return e;
-  e = set_smem(gat_cols_kernel, col_smem_bytes);
-  if (e != 0) return e;
-  const cudaStream_t s = (cudaStream_t)stream;
-  gat_rows_kernel<true><<<grid, threads, smem_bytes, s>>>(
-      static_cast<const float*>(a_s), static_cast<const float*>(a_n),
-      static_cast<const float*>(v), static_cast<const float*>(adjn),
-      static_cast<const float*>(adjs), static_cast<const float*>(out),
-      static_cast<const float*>(g), nullptr, static_cast<float*>(das),
-      static_cast<float*>(stats), bsz, n, h, dh, rows_per_block, tiles);
-  e = (int)cudaGetLastError();
-  if (e != 0) return e;
-  gat_cols_kernel<<<col_grid, threads, col_smem_bytes, s>>>(
-      static_cast<const float*>(a_s), static_cast<const float*>(a_n),
-      static_cast<const float*>(v), static_cast<const float*>(adjn),
-      static_cast<const float*>(adjs), static_cast<const float*>(g),
-      static_cast<const float*>(stats), static_cast<float*>(dan),
-      static_cast<float*>(dv), bsz, n, h, dh, col_tiles);
-  return (int)cudaGetLastError();
+                           int col_smem_bytes, int level, void* stream) {
+  switch (level) {
+    case 0: return backward_level<0>(a_s, a_n, v, adjn, adjs, out, g, das, dan, dv,
+                                     stats, bsz, n, h, dh, rows_per_block, tiles,
+                                     grid, threads, smem_bytes, col_tiles,
+                                     col_grid, col_smem_bytes, stream);
+    case 1: return backward_level<1>(a_s, a_n, v, adjn, adjs, out, g, das, dan, dv,
+                                     stats, bsz, n, h, dh, rows_per_block, tiles,
+                                     grid, threads, smem_bytes, col_tiles,
+                                     col_grid, col_smem_bytes, stream);
+    case 2: return backward_level<2>(a_s, a_n, v, adjn, adjs, out, g, das, dan, dv,
+                                     stats, bsz, n, h, dh, rows_per_block, tiles,
+                                     grid, threads, smem_bytes, col_tiles,
+                                     col_grid, col_smem_bytes, stream);
+    default: return (int)cudaErrorInvalidValue;
+  }
 }
 
 }  // extern "C"

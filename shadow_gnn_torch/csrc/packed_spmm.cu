@@ -8,7 +8,10 @@
 //
 // Replaces the TPU kernel shadow_gnn_tpu/ops/pallas_packed.py:_kernel,
 // called from packed_spmm -> _call with transpose=False (the forward) and
-// from packed_spmm._bwd -> _call with transpose=True (the backward).
+// from packed_spmm._bwd -> _call with transpose=True (the backward), in
+// both of its modes: f32, and bf16=True (the normalised entries of W and
+// x / g rounded to bf16, products accumulated in f32; pallas_packed.py
+// :90-94, the --matmul_precision bfloat16 trade).
 //
 // Bit layout (sampling/cache.py, "tiled"): column j of row i is bit
 // (j / BYTES) of byte (j % BYTES).  Columns >= N are never read.
@@ -40,6 +43,15 @@
 // needs beyond the tile (sym, and every norm of the transposed kernel,
 // whose column sums run over all rows) are computed by one pass of warps
 // over all N rows of the block.
+//
+// bf16 mode (kB): JAX rounds each normalised entry W[i,j] to bf16, so the
+// factored sums above stay exact only where W's rows are constant: rw and
+// gin store the rounded scale bf16(rscale[i]) (every entry of row i is
+// that value); sym's entries bf16(r_i * r_j) are rounded one by one, with
+// nothing factored out.  x / g are rounded per load with
+// __float2bfloat16_rn; a product of two bf16 values is exact in f32, and
+// the sums run in f32.  The bytes read stay f32.
+#include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
 
@@ -95,6 +107,16 @@ __device__ __forceinline__ int2 walk(const uint8_t* blk, int n, int nbytes, int 
   return make_int2(kept, raw);
 }
 
+__device__ __forceinline__ float bf16r(float v) {
+  return __bfloat162float(__float2bfloat16_rn(v));
+}
+
+// an operand of the product: rounded to bf16 in bf16 mode
+template <bool kB>
+__device__ __forceinline__ float operand(float v) {
+  return kB ? bf16r(v) : v;
+}
+
 __device__ __forceinline__ float row_scale(int norm, int deg, int deg0) {
   const float d = fmaxf((float)deg, 1.0f);
   if (norm == kRw) return 1.0f / d;
@@ -103,9 +125,17 @@ __device__ __forceinline__ float row_scale(int norm, int deg, int deg0) {
   return 1.0f;
 }
 
+// the scale kept in shared memory: rounded in bf16 mode, except sym's
+// r_i, which enters every entry r_i * r_j before the rounding
+template <bool kB>
+__device__ __forceinline__ float kept_scale(int norm, int deg, int deg0) {
+  const float s = row_scale(norm, deg, deg0);
+  return kB && norm != kSym ? bf16r(s) : s;
+}
+
 // shared memory: [kT: bit block, rounded up to 16 B] | rscale[n] f32 |
 //                cnt[rows] i32 | nbr[rows*n] u16
-template <bool kT>
+template <bool kT, bool kB>
 __global__ void packed_spmm_kernel(const uint8_t* __restrict__ bits,
                                    const float* __restrict__ x,
                                    float* __restrict__ out, int n, int nbytes,
@@ -138,28 +168,31 @@ __global__ void packed_spmm_kernel(const uint8_t* __restrict__ bits,
   if (all_rows) {
     for (int i = warp; i < n; i += nwarps) {
       const int2 c = walk(blk, n, nbytes, i, false, sym, d, nullptr);
-      if (lane == 0) rscale[i] = row_scale(norm, c.x, c.y);
+      if (lane == 0) rscale[i] = kept_scale<kB>(norm, c.x, c.y);
     }
   }
   for (int r = warp; r < rows; r += nwarps) {
     const int2 c = walk(blk, n, nbytes, row0 + r, kT, sym, d, nbr + r * n);
     if (lane == 0) {
       cnt[r] = c.x;
-      if (!kT && !sym) rscale[row0 + r] = row_scale(norm, c.x, c.y);
+      if (!kT && !sym) rscale[row0 + r] = kept_scale<kB>(norm, c.x, c.y);
     }
   }
   __syncthreads();
 
   // forward:    out[i] = rscale[i] * sum_j (sym ? rscale[j] : 1) * x[j]
   // transposed: out[j] = (sym ? rscale[j] : 1) * sum_i rscale[i] * g[i]
-  const bool weighted = kT ? norm != kNone : sym;
+  // bf16 sym:   out[k] = sum_m bf16(rscale[k] * rscale[m]) * bf16(x[m])
+  const bool pair = kB && sym;
+  const bool weighted = pair || (kT ? norm != kNone : sym);
   const float* x_b = x + (size_t)b * n * f;
   float* out_b = out + (size_t)b * n * f;
   for (int r = 0; r < rows; ++r) {
     const int deg = cnt[r];
     const uint16_t* lst = nbr + r * n;
     const int row = row0 + r;
-    const float s = kT ? (sym ? rscale[row] : 1.0f) : rscale[row];
+    const float rrow = pair ? rscale[row] : 0.0f;
+    const float s = pair ? 1.0f : kT ? (sym ? rscale[row] : 1.0f) : rscale[row];
     float* out_row = out_b + (size_t)row * f;
     for (int col = threadIdx.x; col < f; col += blockDim.x) {
       float acc = 0.0f;
@@ -167,33 +200,47 @@ __global__ void packed_spmm_kernel(const uint8_t* __restrict__ bits,
 #pragma unroll 4
         for (int k = 0; k < deg; ++k) {
           const int m = lst[k];
-          acc += rscale[m] * x_b[(size_t)m * f + col];
+          const float w = pair ? bf16r(rrow * rscale[m]) : rscale[m];
+          acc += w * operand<kB>(x_b[(size_t)m * f + col]);
         }
       } else {
 #pragma unroll 4
-        for (int k = 0; k < deg; ++k) acc += x_b[(size_t)lst[k] * f + col];
+        for (int k = 0; k < deg; ++k) acc += operand<kB>(x_b[(size_t)lst[k] * f + col]);
       }
       out_row[col] = acc * s;
     }
   }
 }
 
-template <bool kT>
-int launch(const void* bits, const void* x, void* out, int n, int nbytes, int f,
-           int norm, int drop_on, uint32_t seed, uint32_t thresh,
-           int rows_per_block, int tiles, int grid, int threads, int smem_bytes,
-           void* stream) {
+template <bool kT, bool kB>
+int launch_mode(const void* bits, const void* x, void* out, int n, int nbytes,
+                int f, int norm, int drop_on, uint32_t seed, uint32_t thresh,
+                int rows_per_block, int tiles, int grid, int threads,
+                int smem_bytes, void* stream) {
   if (smem_bytes > 48 * 1024) {
     const cudaError_t e = cudaFuncSetAttribute(
-        packed_spmm_kernel<kT>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+        packed_spmm_kernel<kT, kB>, cudaFuncAttributeMaxDynamicSharedMemorySize,
         smem_bytes);
     if (e != cudaSuccess) return (int)e;
   }
-  packed_spmm_kernel<kT><<<grid, threads, smem_bytes, (cudaStream_t)stream>>>(
+  packed_spmm_kernel<kT, kB><<<grid, threads, smem_bytes, (cudaStream_t)stream>>>(
       static_cast<const uint8_t*>(bits), static_cast<const float*>(x),
       static_cast<float*>(out), n, nbytes, f, norm, drop_on, seed, thresh,
       rows_per_block, tiles);
   return (int)cudaGetLastError();
+}
+
+template <bool kT>
+int launch(const void* bits, const void* x, void* out, int n, int nbytes, int f,
+           int norm, int drop_on, uint32_t seed, uint32_t thresh, int bf16,
+           int rows_per_block, int tiles, int grid, int threads, int smem_bytes,
+           void* stream) {
+  return bf16 ? launch_mode<kT, true>(bits, x, out, n, nbytes, f, norm, drop_on,
+                                      seed, thresh, rows_per_block, tiles, grid,
+                                      threads, smem_bytes, stream)
+              : launch_mode<kT, false>(bits, x, out, n, nbytes, f, norm, drop_on,
+                                       seed, thresh, rows_per_block, tiles, grid,
+                                       threads, smem_bytes, stream);
 }
 
 }  // namespace
@@ -201,23 +248,26 @@ int launch(const void* bits, const void* x, void* out, int n, int nbytes, int f,
 extern "C" {
 
 // Both launch on `stream`; grid, block and dynamic shared memory come
-// from the caller (shadow_gnn_torch/ops/packed.py:launch_dims).  Each
-// returns cudaGetLastError() after the launch (0 = launched).
+// from the caller (shadow_gnn_torch/ops/packed.py:launch_dims); bf16 != 0
+// selects the bf16 mode.  Each returns cudaGetLastError() after the
+// launch (0 = launched).
 int packed_spmm_forward(const void* bits, const void* x, void* out, int n,
                         int nbytes, int f, int norm, int drop_on, uint32_t seed,
-                        uint32_t thresh, int rows_per_block, int tiles, int grid,
-                        int threads, int smem_bytes, void* stream) {
+                        uint32_t thresh, int bf16, int rows_per_block, int tiles,
+                        int grid, int threads, int smem_bytes, void* stream) {
   return launch<false>(bits, x, out, n, nbytes, f, norm, drop_on, seed, thresh,
-                       rows_per_block, tiles, grid, threads, smem_bytes, stream);
+                       bf16, rows_per_block, tiles, grid, threads, smem_bytes,
+                       stream);
 }
 
 int packed_spmm_transposed(const void* bits, const void* g, void* out, int n,
                            int nbytes, int f, int norm, int drop_on,
-                           uint32_t seed, uint32_t thresh, int rows_per_block,
-                           int tiles, int grid, int threads, int smem_bytes,
-                           void* stream) {
+                           uint32_t seed, uint32_t thresh, int bf16,
+                           int rows_per_block, int tiles, int grid, int threads,
+                           int smem_bytes, void* stream) {
   return launch<true>(bits, g, out, n, nbytes, f, norm, drop_on, seed, thresh,
-                      rows_per_block, tiles, grid, threads, smem_bytes, stream);
+                      bf16, rows_per_block, tiles, grid, threads, smem_bytes,
+                      stream);
 }
 
 }  // extern "C"

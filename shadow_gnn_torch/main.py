@@ -4,10 +4,12 @@
         --dataset flickr --data_dir ./data --log_dir ./logs --seed 1 --packed_adj
 
 The train path of ``shadow_gnn_tpu/main.py``, with its flags of that
-path, plus ``--device`` (default ``cuda``; ``cpu`` runs the plain
-PyTorch versions of the kernels).  The JAX CLI's other flags are
-accepted by name and refused with an error, because the parts they
-select are not ported yet.
+path (the precision trade ``--matmul_precision bfloat16``,
+``--compute_dtype bfloat16``, ``--feat_dtype bfloat16`` among them),
+plus ``--device`` (default ``cuda``; ``cpu`` runs the plain PyTorch
+versions of the kernels).  The JAX CLI's other flags, and
+``--matmul_precision tensorfloat32``, are accepted by name and refused
+with an error, because the parts they select are not ported yet.
 """
 from __future__ import annotations
 
@@ -21,8 +23,8 @@ import traceback
 UNPORTED_FLAGS = (
     "inference_dir", "inference_configs", "is_inf_train", "postproc_configs",
     "postproc_dir", "compute_complexity_only", "inference_budget",
-    "platform", "chunk_batches", "device_ppr", "matmul_precision", "prng",
-    "compute_dtype", "feat_dtype", "data_tarball", "meta_config",
+    "platform", "chunk_batches", "device_ppr", "prng",
+    "data_tarball", "meta_config",
     "reload_model_dir", "trace_dir", "distributed", "partition",
     "partition_devices",
 )
@@ -50,6 +52,18 @@ def build_argparser():
                    help="GAT attention through the fused kernels (ops/gat.py), "
                         "which the port always launches on the card; 'off' "
                         "(the dense score chain) is not ported")
+    p.add_argument("--matmul_precision", type=str, default=None,
+                   choices=["bfloat16", "tensorfloat32", "float32"],
+                   help="precision of the f32 products: bfloat16 rounds their "
+                        "operands to bf16 and sums in f32 (tensorfloat32 is "
+                        "not ported)")
+    p.add_argument("--compute_dtype", type=str, default="float32",
+                   choices=["float32", "bfloat16"],
+                   help="activation dtype (params/logits stay f32)")
+    p.add_argument("--feat_dtype", type=str, default="float32",
+                   choices=["float32", "bfloat16"],
+                   help="device feature-table storage dtype; bfloat16 rounds "
+                        "the features once at upload")
     p.add_argument("--device", type=str, default="cuda",
                    help="torch device: cuda (default) or cpu")
     p.add_argument("--no_pbar", action="store_true",
@@ -69,6 +83,8 @@ def main(argv=None):
     given = [n for n in UNPORTED_FLAGS if getattr(args, n) not in (None, False)]
     if args.fused_gat == "off":
         given.append("fused_gat off")
+    if args.matmul_precision == "tensorfloat32":
+        given.append("matmul_precision tensorfloat32")
     if given:
         parser.error("not ported to the PyTorch package yet: "
                      + ", ".join(f"--{n}" for n in given)
@@ -106,7 +122,9 @@ def main(argv=None):
     raw = load_data(args.data_dir, args.dataset, parsed["config_data"])
     trainer = Trainer(args.dataset, args.data_dir, raw, parsed, metrics, logger,
                       seed=max(args.seed, 0), device=args.device,
-                      packed_adj=args.packed_adj)
+                      packed_adj=args.packed_adj,
+                      matmul_precision=args.matmul_precision,
+                      compute_dtype=args.compute_dtype, feat_dtype=args.feat_dtype)
     trainer.eval_train_every = max(1, args.eval_train_every)
     print(f"TOTAL NUM OF PARAMS = "
           f"{sum(p.numel() for p in trainer.model.parameters())}")

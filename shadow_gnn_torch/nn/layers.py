@@ -18,7 +18,14 @@ reference ``shaDow/layers.py``):
   linears of a conv, as the flax module ``Act_0`` does;
 * dropout (``_ConvBase._dropout``) — in training, once on each layer's
   input: ``where(keep, x / (1 - p), 0)`` with ``keep`` drawn from an
-  explicit ``torch.Generator``.
+  explicit ``torch.Generator``;
+* dtypes — a linear casts its f32 weights to its input's dtype
+  (``TorchLinear``, layers.py:148), so bf16 activations give bf16
+  outputs; elsewhere PyTorch's type promotion follows JAX's (a bf16
+  block times an f32 parameter, such as PReLU's slope, is f32);
+* ``precision="bfloat16"`` (``--matmul_precision bfloat16``) — each f32
+  product (the linears, GAT's attention-vector contraction) rounds its
+  operands to bf16 and sums in f32 (``ops/precision.py``).
 
 SAGE aggregates through a callable ``agg(x) -> A @ x``: a dense
 ``torch.bmm`` on the uncached path, or the packed kernel
@@ -36,10 +43,31 @@ import torch
 from torch import nn
 
 from shadow_gnn_torch.ops.gat import gat_attention
+from shadow_gnn_torch.ops.precision import bf16_head_dot, bf16_matmul
 
-# JAX ``TorchLinear`` reproduces torch's nn.Linear (weight [out, in],
-# U(-1/sqrt(fan_in), 1/sqrt(fan_in)) init for weight and bias).
-TorchLinear = nn.Linear
+PRECISIONS = ("float32", "bfloat16")
+
+
+class TorchLinear(nn.Linear):
+    """torch's nn.Linear (weight [out, in], U(-1/sqrt(fan_in),
+    1/sqrt(fan_in)) init for weight and bias), which the JAX
+    ``TorchLinear`` reproduces, used as that one is: the parameters are
+    cast to the input's dtype, the bias added after the product; an f32
+    input at ``precision="bfloat16"`` takes the bf16-precision product."""
+
+    def __init__(self, dim_in: int, dim_out: int, precision: str = "float32"):
+        super().__init__(dim_in, dim_out)
+        self.precision = precision
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        if x.dtype == torch.float32 and self.precision == "float32":
+            return nn.functional.linear(x, self.weight, self.bias)
+        if x.dtype == torch.float32:
+            y = bf16_matmul(x.reshape(-1, x.shape[-1]), self.weight.t())
+            y = y.reshape(x.shape[:-1] + (-1,))
+        else:
+            y = nn.functional.linear(x, self.weight.to(x.dtype))
+        return y + self.bias.to(y.dtype)
 
 
 def glorot_bound(shape) -> float:
@@ -126,12 +154,12 @@ def norm_feat(feat: torch.Tensor, scale: torch.Tensor,
 
 class SAGEConv(nn.Module):
     def __init__(self, dim_in: int, dim_out: int, act: str = "relu",
-                 dropout: float = 0.0):
+                 dropout: float = 0.0, precision: str = "float32"):
         super().__init__()
         self.act = Act(act, dim_out)
         self.dropout = dropout
-        self.lin_self = TorchLinear(dim_in, dim_out)
-        self.lin_neigh = TorchLinear(dim_in, dim_out)
+        self.lin_self = TorchLinear(dim_in, dim_out, precision)
+        self.lin_neigh = TorchLinear(dim_in, dim_out, precision)
         self.scale = nn.Parameter(torch.ones(2, dim_out))
         self.offset = nn.Parameter(torch.zeros(2, dim_out))
 
@@ -152,15 +180,16 @@ class GATConv(nn.Module):
     linears' outputs is ``head * dh + d``."""
 
     def __init__(self, dim_in: int, dim_out: int, heads: int, act: str = "relu",
-                 dropout: float = 0.0):
+                 dropout: float = 0.0, precision: str = "float32"):
         super().__init__()
         if dim_out % heads:
             raise ValueError(f"dim {dim_out} is not a multiple of {heads} heads")
         self.heads = heads
         self.act = Act(act, dim_out)
         self.dropout = dropout
-        self.lin_self = TorchLinear(dim_in, dim_out)
-        self.lin_neigh = TorchLinear(dim_in, dim_out)
+        self.precision = precision
+        self.lin_self = TorchLinear(dim_in, dim_out, precision)
+        self.lin_neigh = TorchLinear(dim_in, dim_out, precision)
         shape = (2, heads, dim_out // heads)
         self.attention = nn.Parameter(torch.empty(shape))
         nn.init.uniform_(self.attention, -glorot_bound(shape), glorot_bound(shape))
@@ -169,8 +198,11 @@ class GATConv(nn.Module):
 
     def forward(self, feat: torch.Tensor, adjs: Tuple[torch.Tensor, torch.Tensor],
                 generator: Optional[torch.Generator] = None) -> torch.Tensor:
-        """adjs: (adj_norm, adj_struct) [B, N, N]; one dropout draw on the
-        input (training mode only), no dropout on the attention."""
+        """adjs: (adj_norm, adj_struct) [B, N, N] f32; one dropout draw on
+        the input (training mode only), no dropout on the attention.  The
+        attention runs at its bf16 levels (both) under bf16 precision or
+        on bf16 values, as layers.py:501-508 decides; its f32 output is
+        cast back to the input's dtype."""
         adj_norm, adj_struct = adjs
         if self.training:
             feat = dropout(feat, self.dropout, generator)
@@ -178,10 +210,13 @@ class GATConv(nn.Module):
         shape = (b, n, self.heads, -1)
         h_self = self.act(self.lin_self(feat)).view(shape)
         h_neigh = self.act(self.lin_neigh(feat)).view(shape)
-        att = [torch.nn.functional.leaky_relu(
-            torch.einsum("bnhd,hd->bhn", x, self.attention[k]), 0.2)
-            for k, x in enumerate((h_self, h_neigh))]
-        aggr = gat_attention(att[0], att[1], h_neigh, adj_norm, adj_struct)
+        dot = (bf16_head_dot if self.precision == "bfloat16"
+               else lambda x, a: torch.einsum("bnhd,hd->bhn", x, a))
+        att = [torch.nn.functional.leaky_relu(dot(x.float(), self.attention[k]), 0.2)
+               for k, x in enumerate((h_self, h_neigh))]
+        bf16 = self.precision == "bfloat16" or h_neigh.dtype == torch.bfloat16
+        aggr = gat_attention(att[0], att[1], h_neigh, adj_norm, adj_struct,
+                             bf16, bf16).to(feat.dtype)
         aggr = norm_feat(aggr, self.scale[0], self.offset[0])
         h_self = norm_feat(h_self, self.scale[1], self.offset[1])
         return (h_self + aggr).reshape(b, n, -1) / 2.0
@@ -191,11 +226,11 @@ class MLPLayer(nn.Module):
     """MLP layer (the classifier stack): linear -> act -> norm."""
 
     def __init__(self, dim_in: int, dim_out: int, act: str = "relu",
-                 dropout: float = 0.0):
+                 dropout: float = 0.0, precision: str = "float32"):
         super().__init__()
         self.act = Act(act, dim_out)
         self.dropout = dropout
-        self.lin = TorchLinear(dim_in, dim_out)
+        self.lin = TorchLinear(dim_in, dim_out, precision)
         self.scale = nn.Parameter(torch.ones(dim_out))
         self.offset = nn.Parameter(torch.zeros(dim_out))
 

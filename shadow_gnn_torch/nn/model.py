@@ -13,6 +13,18 @@ structural block) into ``ops/gat.gat_attention``.  Every path draws the
 same counter-hash dropedge mask (``ops/normalize.py``) from one seed
 per forward.
 
+Precision (``ModelConfig.matmul_precision`` / ``compute_dtype``, the
+JAX package's ``--matmul_precision`` / ``--compute_dtype``):
+``matmul_precision="bfloat16"`` runs every f32 product at bf16 precision
+(``ops/precision.py``; the packed aggregation in its bf16 mode, GAT's
+attention at its bf16 levels).  ``compute_dtype="bfloat16"`` casts the
+feature block to bf16 (parameters stay f32 and are cast at use) and the
+dense adjacency too, and takes the dense path (no packed bits); type
+promotion then decides each later dtype, as in JAX: the label-input
+select and the hop-augment add return the block to f32, a bf16 block
+times an f32 parameter is f32.  The embedding's L2 normalisation and
+the logits are f32.
+
 Training follows the module's mode: in ``train()`` mode each conv
 drops out its input (``dropout``), so does ResPool, and the aggregation
 drops edges (``dropedge``); in ``eval()`` mode neither.  Zeroing the
@@ -29,10 +41,12 @@ from typing import List, Optional, Tuple
 import torch
 from torch import nn
 
-from shadow_gnn_torch.nn.layers import GATConv, MLPLayer, SAGEConv, TorchLinear
+from shadow_gnn_torch.nn.layers import (PRECISIONS, GATConv, MLPLayer, SAGEConv,
+                                        TorchLinear)
 from shadow_gnn_torch.nn.respool import ResPool
 from shadow_gnn_torch.ops.normalize import prepare_adj
 from shadow_gnn_torch.ops.packed import packed_spmm
+from shadow_gnn_torch.ops.precision import bf16_matmul
 from shadow_gnn_torch.sampling.batch import AUG2DIM, SubgraphBatch, batch_aug_onehots
 
 
@@ -63,6 +77,10 @@ class ModelConfig:
     # aggregate cached batches from the packed bits (ops/packed.py);
     # gcn / sage / gin only, as in the JAX package
     packed_adj: bool = False
+    # products: "float32" or "bfloat16" (bf16 operands, f32 sums)
+    matmul_precision: str = "float32"
+    # activation dtype: "float32" or "bfloat16" (params / logits stay f32)
+    compute_dtype: str = "float32"
 
     @property
     def type_pool(self) -> str:
@@ -81,10 +99,17 @@ class ModelConfig:
         return max(1, self.heads)
 
     @property
+    def dtype(self) -> torch.dtype:
+        """The activation dtype."""
+        return torch.bfloat16 if self.compute_dtype == "bfloat16" else torch.float32
+
+    @property
     def reads_packed_bits(self) -> bool:
         """Whether cached batches aggregate from the packed bits (then no
-        dense block is unpacked for them)."""
-        return self.packed_adj and self.aggr in ("gcn", "sage", "gin")
+        dense block is unpacked for them): a bf16 compute dtype takes the
+        dense path (shadow_gnn_tpu/nn/model.py:139)."""
+        return (self.packed_adj and self.aggr in ("gcn", "sage", "gin")
+                and self.compute_dtype == "float32")
 
 
 class DeepGNN(nn.Module):
@@ -99,29 +124,39 @@ class DeepGNN(nn.Module):
             unported.append(f"layer norm {cfg.layer_norm!r}")
         if cfg.feature_augment_ops != "sum" and cfg.feature_augment:
             unported.append(f"feature_augment_ops {cfg.feature_augment_ops!r}")
+        if cfg.matmul_precision == "tensorfloat32":
+            unported.append("matmul_precision 'tensorfloat32'")
         if unported:
             raise NotImplementedError("not ported yet: " + ", ".join(unported))
+        if cfg.matmul_precision not in PRECISIONS:
+            raise ValueError(f"unknown matmul_precision {cfg.matmul_precision!r}")
+        if cfg.compute_dtype not in ("float32", "bfloat16"):
+            raise ValueError(f"unknown compute_dtype {cfg.compute_dtype!r}")
         self.cfg = cfg
-        self.aug = nn.ModuleDict({a: TorchLinear(AUG2DIM[a], cfg.dim_feat_in)
+        prec = cfg.matmul_precision
+        self.aug = nn.ModuleDict({a: TorchLinear(AUG2DIM[a], cfg.dim_feat_in, prec)
                                   for a in sorted(cfg.feature_augment)})
         dims = ([cfg.dim_feat_in + cfg.dim_label_smooth]
                 + [cfg.dim] * cfg.num_layers)
         if cfg.aggr == "gat":
             convs = [GATConv(dims[i], dims[i + 1], cfg.mulhead, act=cfg.act,
-                             dropout=cfg.dropout) for i in range(cfg.num_layers)]
+                             dropout=cfg.dropout, precision=prec)
+                     for i in range(cfg.num_layers)]
         else:
             convs = [SAGEConv(dims[i], dims[i + 1], act=cfg.act,
-                              dropout=cfg.dropout) for i in range(cfg.num_layers)]
+                              dropout=cfg.dropout, precision=prec)
+                     for i in range(cfg.num_layers)]
         self.convs = nn.ModuleList(convs)
         self.res_pool = ResPool(cfg.dim, cfg.num_layers, cfg.residue,
                                 cfg.type_pool, cfg.dropout, cfg.act,
-                                cfg.prediction_task)
+                                cfg.prediction_task, prec)
         cls = []
         for i in range(cfg.num_cls_layers):
             last = i == cfg.num_cls_layers - 1
             cls.append(MLPLayer(cfg.dim, cfg.dim_label_raw if last else cfg.dim,
                                 act="I" if last else cfg.act,
-                                dropout=0.0 if last else cfg.dropout))
+                                dropout=0.0 if last else cfg.dropout,
+                                precision=prec))
         self.classifier = nn.ModuleList(cls)
 
     def aggregator(self, batch: SubgraphBatch, seed: int = 0):
@@ -129,17 +164,21 @@ class DeepGNN(nn.Module):
         for all convs (edges dropped in training mode under ``seed``):
         SAGE a callable x -> A_norm @ x, GAT the pair (adj_norm,
         adj_struct)."""
-        de = self.cfg.dropedge if self.training else 0.0
-        if self.cfg.reads_packed_bits and batch.adj_bits is not None:
+        cfg = self.cfg
+        de = cfg.dropedge if self.training else 0.0
+        bf16 = cfg.matmul_precision == "bfloat16"
+        if cfg.reads_packed_bits and batch.adj_bits is not None:
             return functools.partial(packed_spmm, batch.adj_bits, norm="rw",
-                                     dropedge=de, seed=seed)
+                                     dropedge=de, seed=seed, bf16=bf16)
         if batch.adj is None:
             raise ValueError("batch carries no dense adjacency and the model "
                              "does not read packed bits")
-        adjs = prepare_adj(self.cfg.aggr, batch.adj, seed, de)
-        if self.cfg.aggr == "gat":
+        adjs = prepare_adj(cfg.aggr, batch.adj, seed, de)
+        if cfg.aggr == "gat":
+            # 0/1 blocks: JAX's cast to the compute dtype and back to f32
+            # for the kernel leaves them as they are
             return adjs
-        return functools.partial(torch.bmm, adjs[0])
+        return functools.partial(_dense_aggregate, adjs[0].to(cfg.dtype), bf16)
 
     def forward(self, batch: SubgraphBatch, feat: torch.Tensor,
                 generator: Optional[torch.Generator] = None,
@@ -152,15 +191,19 @@ class DeepGNN(nn.Module):
         picks the dropedge mask.  ``mode_train`` zeroes the label inputs
         at the targets (models.py:182-183).  Returns (logits [B, C],
         [emb [B, dim]])."""
-        mask = batch.node_mask[..., None].to(feat.dtype)
-        x = feat * mask
+        mask = batch.node_mask[..., None]
+        x = (feat * mask.to(feat.dtype)).to(self.cfg.dtype)
         d_lab = self.cfg.dim_label_smooth
         if d_lab > 0 and mode_train:
             keep = 1.0 - torch.nn.functional.one_hot(
-                batch.targets, x.shape[1]).sum(1).to(x.dtype)      # [B, N]
+                batch.targets, x.shape[1]).sum(1).float()          # [B, N]
             label_cols = torch.arange(x.shape[-1], device=x.device) >= (
                 x.shape[-1] - d_lab)
             x = torch.where(label_cols, x * keep[..., None], x)
+        elif d_lab > 0:
+            # JAX selects in every mode, with an f32 ``keep``: a bf16
+            # block comes out f32
+            x = x.float()
         if self.aug:
             augs = batch_aug_onehots(batch, self.aug.keys())
             for a, lin in self.aug.items():
@@ -181,6 +224,16 @@ class DeepGNN(nn.Module):
         for layer in self.classifier:
             h = layer(h, generator)
         return h.float(), [emb]
+
+
+def _dense_aggregate(adj: torch.Tensor, bf16: bool, x: torch.Tensor) -> torch.Tensor:
+    """adj @ x as JAX's einsum takes it (layers.py:419-420): both operands
+    promoted to one dtype, an f32 product at bf16 precision when
+    ``bf16``."""
+    dt = torch.promote_types(adj.dtype, x.dtype)
+    if bf16 and dt == torch.float32:
+        return bf16_matmul(adj, x)
+    return torch.bmm(adj.to(dt), x.to(dt))
 
 
 def row_losses(cfg: ModelConfig, logits: torch.Tensor,

@@ -8,7 +8,9 @@ parameters (the JAX ResPool returns before its MLP).  Every other
 readout concatenates the targets' rows with the pooled block (or, for
 center, takes the targets' residue alone) and runs the trailing Dropout
 -> Linear(dim) -> act (its own ``Act``) -> ``norm_feat``.  Sort pooling
-and the link task raise at construction.
+and the link task raise at construction.  Blocks keep their dtype (a
+bf16 block pools in bf16, the mean's count too, as the JAX pools do);
+the linear takes ``precision`` (``nn/layers.py``).
 """
 from __future__ import annotations
 
@@ -46,7 +48,7 @@ def _gather_targets(feat: torch.Tensor, targets: torch.Tensor) -> torch.Tensor:
 class ResPool(nn.Module):
     def __init__(self, dim_hid: int, num_layers: int, type_res: str,
                  type_pool: str, dropout: float = 0.0, act: str = "relu",
-                 prediction_task: str = "node"):
+                 prediction_task: str = "node", precision: str = "float32"):
         super().__init__()
         if prediction_task != "node":
             raise NotImplementedError("ResPool for the link task is not ported yet")
@@ -61,7 +63,7 @@ class ResPool(nn.Module):
             width = dim_hid * (num_layers if type_res in ("cat", "concat") else 1)
             dim_in = width if type_pool == "center" else 2 * width
             self.act = Act(act, dim_hid)
-            self.lin = TorchLinear(dim_in, dim_hid)
+            self.lin = TorchLinear(dim_in, dim_hid, precision)
             self.scale = nn.Parameter(torch.ones(dim_hid))
             self.offset = nn.Parameter(torch.zeros(dim_hid))
 

@@ -16,15 +16,29 @@ without one), so dropped edges (``adj_norm == 0``) still set the max.
   [B, H, N, N] chain), which the tests hold against the JAX package and
   ``chip_smoke.py`` holds the kernels against on the card.
 
+Two levels below f32 (the ``--matmul_precision bfloat16`` trade, B2b
+and B3b; ``pallas_gat.py:_scores``, ``_fwd_kernel``, ``_bwd_kernel``):
+
+* ``bf16``: the operands of the products are rounded to bf16 and summed
+  in f32 (e and v forward; g and v in g.v, P and g in dv backward);
+  D, r = g.out and ds = P (g.v - r) stay f32 with the unrounded P;
+* ``bf16_scores`` (needs ``bf16``): also ``e = bf16(exp(bf16(S - rm))) *
+  adj_norm``, with D the f32 sum of the rounded e.
+
+Values may be bf16 (the model's bf16 activations): they are widened to
+f32 on the way into the kernels (exactly) and ``dv`` comes back in
+their dtype.
+
 Counterpart of ``shadow_gnn_tpu/ops/pallas_gat.py`` (``gat_attention``
-with its custom VJP, node-major values).  Its ``bf16`` and
-``bf16_scores`` levels are not ported yet.
+with its custom VJP, node-major values, every level).
 """
 from __future__ import annotations
 
 import ctypes
 
 import torch
+
+from shadow_gnn_torch.ops.precision import round_bf16
 
 ROWS_PER_BLOCK = 8      # output rows per block of the rows kernels
 COLS_PER_BLOCK = 32     # columns per block of the backward's column kernel
@@ -51,41 +65,61 @@ def launch_dims(b: int, n: int):
     return b * tiles, THREADS, smem, tiles, b * col_tiles, col_smem, col_tiles
 
 
-def _scores(a_s, a_n, adj_norm, adj_struct):
+def _levels(bf16: bool, bf16_scores: bool) -> int:
+    """The kernels' level: 0 f32, 1 bf16, 2 bf16 + bf16_scores."""
+    if bf16_scores and not bf16:
+        raise ValueError("gat_attention: bf16_scores requires bf16")
+    return int(bf16) + int(bf16_scores)
+
+
+def _scores(a_s, a_n, adj_norm, adj_struct, bf16_scores=False):
     """Head-major (e [B, H, N, N], clipped denominator [B, H, N, 1]): the
-    shared score math of both directions (``pallas_gat.py:_scores``)."""
+    shared score math of both directions (``pallas_gat.py:_scores``);
+    ``bf16_scores`` rounds S - rm and its exp to bf16."""
     s = a_s[..., :, None] + a_n[..., None, :]
     s_m = torch.where(adj_struct[:, None] > 0, s, float("-inf"))
     rm = s_m.amax(-1, keepdim=True)
     rm = torch.where(torch.isfinite(rm), rm, 0.0)
-    e = torch.exp(s_m - rm) * adj_norm[:, None]
+    if bf16_scores:
+        e = round_bf16(torch.exp(round_bf16(s_m - rm))) * adj_norm[:, None]
+    else:
+        e = torch.exp(s_m - rm) * adj_norm[:, None]
     return e, torch.clamp(e.sum(-1, keepdim=True), min=1e-10)
 
 
-def gat_attention_plain(att_self, att_neigh, values, adj_norm, adj_struct):
-    """Plain PyTorch version of the forward (differentiable by autograd).
+def gat_attention_plain(att_self, att_neigh, values, adj_norm, adj_struct,
+                        bf16=False, bf16_scores=False):
+    """Plain PyTorch version of the forward (differentiable by autograd,
+    which does not round as the levels' backward does).
 
     att_self, att_neigh [B, H, N]; values [B, N, H, dh]; adj_norm,
     adj_struct [B, N, N] -> [B, N, H, dh] f32."""
-    e, dn = _scores(att_self, att_neigh, adj_norm, adj_struct)
-    out = torch.matmul(e, values.permute(0, 2, 1, 3)) / dn
+    _levels(bf16, bf16_scores)
+    e, dn = _scores(att_self, att_neigh, adj_norm, adj_struct, bf16_scores)
+    v = values.float().permute(0, 2, 1, 3)
+    if bf16:
+        e, v = round_bf16(e), round_bf16(v)
+    out = torch.matmul(e, v) / dn
     return out.permute(0, 2, 1, 3)
 
 
 def gat_attention_bwd_plain(att_self, att_neigh, values, adj_norm, adj_struct,
-                            out, g):
+                            out, g, bf16=False, bf16_scores=False):
     """Plain PyTorch version of the backward (``pallas_gat.py:_bwd_kernel``):
     P = e / D, dv = P^T g, ds = P * (g v^T - rowsum(g * out)),
-    d att_self = rowsum(ds), d att_neigh = colsum(ds).  ``out`` and ``g``
-    are node-major like ``values``.  Returns (das, dan [B, H, N],
-    dv [B, N, H, dh])."""
-    e, dn = _scores(att_self, att_neigh, adj_norm, adj_struct)
+    d att_self = rowsum(ds), d att_neigh = colsum(ds); ``bf16`` rounds the
+    operands of P^T g and g v^T.  ``out`` and ``g`` are node-major like
+    ``values``.  Returns (das, dan [B, H, N], dv [B, N, H, dh] in the
+    values' dtype)."""
+    _levels(bf16, bf16_scores)
+    e, dn = _scores(att_self, att_neigh, adj_norm, adj_struct, bf16_scores)
     p = e / dn
-    v, gh, oh = (t.permute(0, 2, 1, 3) for t in (values, g, out))
-    dv = torch.matmul(p.transpose(-1, -2), gh)
-    gv = torch.matmul(gh, v.transpose(-1, -2))
+    v, gh, oh = (t.float().permute(0, 2, 1, 3) for t in (values, g, out))
+    pd, gd, vd = (round_bf16(t) for t in (p, gh, v)) if bf16 else (p, gh, v)
+    dv = torch.matmul(pd.transpose(-1, -2), gd)
+    gv = torch.matmul(gd, vd.transpose(-1, -2))
     ds = p * (gv - (gh * oh).sum(-1, keepdim=True))
-    return ds.sum(-1), ds.sum(-2), dv.permute(0, 2, 1, 3)
+    return ds.sum(-1), ds.sum(-2), dv.permute(0, 2, 1, 3).to(values.dtype)
 
 
 def _lib_fn(name: str, n_ptr: int, n_int: int):
@@ -111,7 +145,8 @@ def check_limits(b: int, n: int, dh: int):
 
 def _check_cuda(args):
     """Device, type and shapes of a kernel call on (att_self, att_neigh,
-    values, adj_norm, adj_struct, [out, g]); returns (B, N, H, dh)."""
+    values, adj_norm, adj_struct, [out, g]), the values already widened
+    to f32; returns (B, N, H, dh)."""
     b, h, n = args[0].shape
     dh = args[2].shape[-1]
     want = [(b, h, n)] * 2 + [(b, n, h, dh)] + [(b, n, n)] * 2 + [(b, n, h, dh)] * 2
@@ -130,12 +165,21 @@ def _check_cuda(args):
     return b, n, h, dh
 
 
-def _forward(a_s, a_n, v, adj_norm, adj_struct):
-    """B2 on CUDA tensors, the plain version on CPU tensors."""
+def _count(fn, level: int):
+    if level:
+        fn.launches_bf16 += 1
+    else:
+        fn.launches += 1
+
+
+def _forward(a_s, a_n, v, adj_norm, adj_struct, bf16=False, bf16_scores=False):
+    """B2 (B2b at the bf16 levels) on CUDA tensors, the plain version on
+    CPU tensors."""
+    level = _levels(bf16, bf16_scores)
     args = (a_s, a_n, v, adj_norm, adj_struct)
     if all(t.device.type == "cpu" for t in args):
-        return gat_attention_plain(*args)
-    args = tuple(t.contiguous() for t in args)
+        return gat_attention_plain(*args, bf16, bf16_scores)
+    args = tuple(t.contiguous() for t in (a_s, a_n, v.float(), adj_norm, adj_struct))
     b, n, h, dh = _check_cuda(args)
     out = torch.empty_like(args[2])
     if out.numel() == 0:
@@ -143,58 +187,63 @@ def _forward(a_s, a_n, v, adj_norm, adj_struct):
     grid, threads, smem, tiles, _, _, _ = launch_dims(b, n)
     with torch.cuda.device(out.device):
         stream = torch.cuda.current_stream().cuda_stream
-        rc = _lib_fn("gat_attention_forward", 6, 9)(
+        rc = _lib_fn("gat_attention_forward", 6, 10)(
             *(t.data_ptr() for t in args), out.data_ptr(), b, n, h, dh,
-            ROWS_PER_BLOCK, tiles, grid, threads, smem, stream)
+            ROWS_PER_BLOCK, tiles, grid, threads, smem, level, stream)
     if rc != 0:
         raise RuntimeError(f"gat_attention forward kernel launch failed: CUDA error {rc}")
-    gat_attention.launches += 1
+    _count(gat_attention, level)
     return out
 
 
-def gat_attention_bwd(att_self, att_neigh, values, adj_norm, adj_struct, out, g):
+def gat_attention_bwd(att_self, att_neigh, values, adj_norm, adj_struct, out, g,
+                      bf16=False, bf16_scores=False):
     """The backward of :func:`gat_attention`: (das, dan [B, H, N],
-    dv [B, N, H, dh]).  B3 on CUDA tensors (one row-pass and one
-    column-pass kernel, counted as one launch in
-    ``gat_attention_bwd.launches``), the plain version on CPU tensors."""
+    dv [B, N, H, dh] in the values' dtype).  B3 (B3b at the bf16 levels)
+    on CUDA tensors: one row-pass and one column-pass kernel, counted as
+    one launch in ``gat_attention_bwd.launches`` (``launches_bf16``).
+    The plain version on CPU tensors."""
+    level = _levels(bf16, bf16_scores)
     args = (att_self, att_neigh, values, adj_norm, adj_struct, out, g)
     if all(t.device.type == "cpu" for t in args):
-        return gat_attention_bwd_plain(*args)
-    args = tuple(t.contiguous() for t in args)
+        return gat_attention_bwd_plain(*args, bf16, bf16_scores)
+    args = tuple(t.contiguous() for t in (att_self, att_neigh, values.float(),
+                                          adj_norm, adj_struct, out, g.float()))
     b, n, h, dh = _check_cuda(args)
     das = torch.empty_like(args[0])
     dan = torch.empty_like(args[0])
     dv = torch.empty_like(args[2])
     if dv.numel() == 0:
-        return das.zero_(), dan.zero_(), dv
+        return das.zero_(), dan.zero_(), dv.to(values.dtype)
     stats = torch.empty((3,) + tuple(args[0].shape), device=dv.device)
     grid, threads, smem, tiles, col_grid, col_smem, col_tiles = launch_dims(b, n)
     with torch.cuda.device(dv.device):
         stream = torch.cuda.current_stream().cuda_stream
-        rc = _lib_fn("gat_attention_backward", 11, 12)(
+        rc = _lib_fn("gat_attention_backward", 11, 13)(
             *(t.data_ptr() for t in args), das.data_ptr(), dan.data_ptr(),
             dv.data_ptr(), stats.data_ptr(), b, n, h, dh, ROWS_PER_BLOCK, tiles,
-            grid, threads, smem, col_tiles, col_grid, col_smem, stream)
+            grid, threads, smem, col_tiles, col_grid, col_smem, level, stream)
     if rc != 0:
         raise RuntimeError(f"gat_attention backward kernel launch failed: CUDA error {rc}")
-    gat_attention_bwd.launches += 1
-    return das, dan, dv
+    _count(gat_attention_bwd, level)
+    return das, dan, dv.to(values.dtype)
 
 
 class _GatAttention(torch.autograd.Function):
-    """B2 forward, B3 backward (``gat_attention_hm``'s custom VJP).  The
-    adjacency blocks are data: they get no gradient."""
+    """B2 forward, B3 backward (``gat_attention_hm``'s custom VJP), at the
+    level given.  The adjacency blocks are data: they get no gradient."""
 
     @staticmethod
-    def forward(ctx, a_s, a_n, v, adj_norm, adj_struct):
-        out = _forward(a_s, a_n, v, adj_norm, adj_struct)
+    def forward(ctx, a_s, a_n, v, adj_norm, adj_struct, bf16, bf16_scores):
+        out = _forward(a_s, a_n, v, adj_norm, adj_struct, bf16, bf16_scores)
         ctx.save_for_backward(a_s, a_n, v, adj_norm, adj_struct, out)
+        ctx.levels = (bf16, bf16_scores)
         return out
 
     @staticmethod
     def backward(ctx, g):
-        das, dan, dv = gat_attention_bwd(*ctx.saved_tensors, g)
-        return das, dan, dv, None, None
+        das, dan, dv = gat_attention_bwd(*ctx.saved_tensors, g, *ctx.levels)
+        return das, dan, dv, None, None, None, None
 
 
 def gat_attention(att_self: torch.Tensor, att_neigh: torch.Tensor,
@@ -204,16 +253,16 @@ def gat_attention(att_self: torch.Tensor, att_neigh: torch.Tensor,
     """Masked-softmax attention aggregation.
 
     att_self, att_neigh [B, H, N] f32 per-node score terms; values
-    [B, N, H, dh] f32; adj_norm [B, N, N] f32 (the structural block with
-    dropped edges zeroed); adj_struct [B, N, N] f32 0/1.  Returns the
-    aggregated [B, N, H, dh] f32 block.  Differentiable in att_self,
-    att_neigh and values.  ``gat_attention.launches`` counts the forward
-    kernel's launches."""
-    if bf16 or bf16_scores:
-        raise NotImplementedError("gat_attention: the bf16 and bf16_scores "
-                                  "levels are not ported yet")
-    return _GatAttention.apply(att_self, att_neigh, values, adj_norm, adj_struct)
+    [B, N, H, dh] f32 or bf16; adj_norm [B, N, N] f32 (the structural
+    block with dropped edges zeroed); adj_struct [B, N, N] f32 0/1.
+    Returns the aggregated [B, N, H, dh] f32 block.  Differentiable in
+    att_self, att_neigh and values.  ``bf16`` / ``bf16_scores`` pick the
+    level (module docstring).  ``gat_attention.launches`` and
+    ``gat_attention.launches_bf16`` count the forward kernel's launches
+    at the f32 and the bf16 levels."""
+    return _GatAttention.apply(att_self, att_neigh, values, adj_norm, adj_struct,
+                               bool(bf16), bool(bf16_scores))
 
 
-gat_attention.launches = 0
-gat_attention_bwd.launches = 0
+gat_attention.launches = gat_attention.launches_bf16 = 0
+gat_attention_bwd.launches = gat_attention_bwd.launches_bf16 = 0

@@ -15,8 +15,13 @@ under the same dropedge mask, regenerated from ``seed``
   which the tests hold against the JAX package and ``chip_smoke.py``
   holds the kernels against on the card.
 
+``bf16=True`` (the ``--matmul_precision bfloat16`` trade, B1c) rounds
+each normalised entry of the block and each entry of ``x`` (or ``g``)
+to bf16 and sums the products in f32, in both directions; the output
+stays f32.
+
 Counterpart of ``shadow_gnn_tpu/ops/pallas_packed.py`` (``packed_spmm``
-with its custom VJP); its ``bf16`` mode is not ported yet.
+with its custom VJP, both modes).
 """
 from __future__ import annotations
 
@@ -27,6 +32,7 @@ import torch
 from shadow_gnn_torch.ops.normalize import (adj_drop, adj_gin_rescale,
                                             adj_norm_rw, adj_norm_sym,
                                             drop_threshold)
+from shadow_gnn_torch.ops.precision import round_bf16
 from shadow_gnn_torch.sampling.cache import unpack_bits
 
 NORMS = ("none", "rw", "sym", "gin")
@@ -56,12 +62,15 @@ def launch_dims(b: int, n: int, transpose: bool = False):
 
 def packed_spmm_plain(bits: torch.Tensor, x: torch.Tensor, norm: str = "none",
                       dropedge: float = 0.0, seed: int = 0,
-                      transpose: bool = False) -> torch.Tensor:
+                      transpose: bool = False, bf16: bool = False) -> torch.Tensor:
     """Plain PyTorch version: unpack -> mask -> dense normalise -> bmm
-    (with the normalised block transposed when ``transpose``)."""
+    (with the normalised block transposed when ``transpose``); ``bf16``
+    rounds the normalised block and ``x`` to bf16 before the f32 bmm."""
     if norm not in NORMS:
         raise ValueError(f"unknown norm {norm!r}")
     adj = _DENSE_NORM[norm](unpack_bits(bits, x.shape[1]), seed, dropedge)
+    if bf16:
+        adj, x = round_bf16(adj), round_bf16(x)
     return torch.bmm(adj.transpose(1, 2) if transpose else adj, x)
 
 
@@ -73,14 +82,14 @@ def _kernel_fn(transpose: bool):
         fn.restype = ctypes.c_int
         fn.argtypes = ([ctypes.c_void_p] * 3 + [ctypes.c_int] * 4
                        + [ctypes.c_int, ctypes.c_uint32, ctypes.c_uint32]
-                       + [ctypes.c_int] * 5 + [ctypes.c_void_p])
+                       + [ctypes.c_int] * 6 + [ctypes.c_void_p])
     return fn
 
 
-def _aggregate(bits, x, norm, dropedge, seed, transpose):
+def _aggregate(bits, x, norm, dropedge, seed, transpose, bf16):
     """One direction: the plain version on the CPU, else the kernel."""
     if bits.device.type == "cpu" and x.device.type == "cpu":
-        return packed_spmm_plain(bits, x, norm, dropedge, seed, transpose)
+        return packed_spmm_plain(bits, x, norm, dropedge, seed, transpose, bf16)
     if bits.device.type != "cuda" or bits.device != x.device:
         raise ValueError(f"bits on {bits.device} and x on {x.device}: both must "
                          "be on one CUDA device (or both on the CPU)")
@@ -104,14 +113,15 @@ def _aggregate(bits, x, norm, dropedge, seed, transpose):
             bits.data_ptr(), x.data_ptr(), out.data_ptr(), n, bits.shape[-1],
             f, _NORM_CODE[norm], int(dropedge > 0.0),
             ctypes.c_uint32(int(seed) & 0xFFFFFFFF),
-            ctypes.c_uint32(drop_threshold(dropedge)), ROWS_PER_BLOCK, tiles,
-            grid, threads, smem, stream)
+            ctypes.c_uint32(drop_threshold(dropedge)), int(bf16), ROWS_PER_BLOCK,
+            tiles, grid, threads, smem, stream)
     if rc != 0:
         raise RuntimeError(f"packed_spmm kernel launch failed: CUDA error {rc}")
-    if transpose:
-        packed_spmm_t.launches += 1
+    fn = packed_spmm_t if transpose else packed_spmm
+    if bf16:
+        fn.launches_bf16 += 1
     else:
-        packed_spmm.launches += 1
+        fn.launches += 1
     return out
 
 
@@ -121,24 +131,22 @@ class _PackedSpmm(torch.autograd.Function):
     package's custom VJP)."""
 
     @staticmethod
-    def forward(ctx, bits, x, norm, dropedge, seed):
+    def forward(ctx, bits, x, norm, dropedge, seed, bf16):
         ctx.save_for_backward(bits)
-        ctx.args = (norm, dropedge, seed)
-        return _aggregate(bits, x, norm, dropedge, seed, False)
+        ctx.args = (norm, dropedge, seed, bf16)
+        return _aggregate(bits, x, norm, dropedge, seed, False, bf16)
 
     @staticmethod
     def backward(ctx, g):
         (bits,) = ctx.saved_tensors
-        return None, packed_spmm_t(bits, g, *ctx.args), None, None, None
+        return None, packed_spmm_t(bits, g, *ctx.args), None, None, None, None
 
 
-def _check_args(norm: str, dropedge: float, bf16: bool):
+def _check_args(norm: str, dropedge: float):
     if norm not in NORMS:
         raise ValueError(f"unknown norm {norm!r}")
     if not 0.0 <= dropedge < 1.0:
         raise ValueError(f"dropedge {dropedge} outside [0, 1)")
-    if bf16:
-        raise NotImplementedError("packed_spmm: the bf16 mode is not ported yet")
 
 
 def packed_spmm(bits: torch.Tensor, x: torch.Tensor, norm: str = "none",
@@ -147,24 +155,28 @@ def packed_spmm(bits: torch.Tensor, x: torch.Tensor, norm: str = "none",
     """out[b] = norm(unpack(bits[b]) * keep(seed, b)) @ x[b].
 
     bits [B, N, ceil(N/8)] uint8, x [B, N, F] f32 -> [B, N, F] f32;
-    ``seed`` picks the dropedge mask (ignored at dropedge 0).
-    Differentiable in ``x``.  ``packed_spmm.calls`` counts every call;
-    ``packed_spmm.launches`` counts the forward kernel's launches only.
+    ``seed`` picks the dropedge mask (ignored at dropedge 0); ``bf16``
+    the bf16 mode (its backward too).  Differentiable in ``x``.
+    ``packed_spmm.calls`` counts every call; ``packed_spmm.launches``
+    and ``packed_spmm.launches_bf16`` count the forward kernel's
+    launches in each mode.
     """
-    _check_args(norm, dropedge, bf16)
+    _check_args(norm, dropedge)
     packed_spmm.calls += 1
-    return _PackedSpmm.apply(bits, x, norm, float(dropedge), int(seed))
+    return _PackedSpmm.apply(bits, x, norm, float(dropedge), int(seed), bool(bf16))
 
 
 def packed_spmm_t(bits: torch.Tensor, g: torch.Tensor, norm: str = "none",
-                  dropedge: float = 0.0, seed: int = 0) -> torch.Tensor:
+                  dropedge: float = 0.0, seed: int = 0,
+                  bf16: bool = False) -> torch.Tensor:
     """dx[b] = norm(unpack(bits[b]) * keep(seed, b))^T @ g[b]: the
-    backward of :func:`packed_spmm`.  ``packed_spmm_t.launches`` counts
-    the transposed kernel's launches."""
-    _check_args(norm, dropedge, False)
-    return _aggregate(bits, g, norm, float(dropedge), int(seed), True)
+    backward of :func:`packed_spmm`.  ``packed_spmm_t.launches`` and
+    ``packed_spmm_t.launches_bf16`` count the transposed kernel's
+    launches in each mode."""
+    _check_args(norm, dropedge)
+    return _aggregate(bits, g, norm, float(dropedge), int(seed), True, bool(bf16))
 
 
 packed_spmm.calls = 0
-packed_spmm.launches = 0
-packed_spmm_t.launches = 0
+packed_spmm.launches = packed_spmm.launches_bf16 = 0
+packed_spmm_t.launches = packed_spmm_t.launches_bf16 = 0

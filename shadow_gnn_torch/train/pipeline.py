@@ -24,7 +24,12 @@ Differences from the JAX Trainer:
   is not ported);
 * serving builds the mode's subgraph cache on the first request (the
   JAX Trainer builds it in its first epoch of that mode);
-* samplers other than deterministic ``ppr`` are not ported.
+* samplers other than deterministic ``ppr`` are not ported;
+* the precision trade (``matmul_precision``, ``compute_dtype``,
+  ``feat_dtype``) is carried by ``ModelConfig`` and the feature table,
+  never by a global flag; ``matmul_precision="tensorfloat32"`` is not
+  ported.  A bf16 feature table is widened to the compute dtype at the
+  gather (exact), so an f32 model sees the rounded features in f32.
 """
 from __future__ import annotations
 
@@ -114,9 +119,16 @@ class Trainer:
     def __init__(self, name_data: str, dir_data: str, raw: RawGraph,
                  parsed: Dict[str, Any], metrics: Optional[Metrics] = None,
                  logger: Optional[Logger] = None, seed: int = 0, device="cuda",
-                 packed_adj: bool = False):
+                 packed_adj: bool = False, matmul_precision: Optional[str] = None,
+                 compute_dtype: str = "float32", feat_dtype: str = "float32"):
         """``metrics`` defaults to the dataset's metric (DATA_METRIC,
-        else accuracy) and ``logger`` to one that writes no files."""
+        else accuracy) and ``logger`` to one that writes no files.
+        ``matmul_precision`` (None = "float32", or "bfloat16"),
+        ``compute_dtype`` and ``feat_dtype`` ("float32" or "bfloat16") are
+        the JAX Trainer's arguments of those names; the model checks the
+        first two."""
+        if feat_dtype not in ("float32", "bfloat16"):
+            raise ValueError(f"unsupported feat_dtype {feat_dtype!r}")
         self.device = resolve_device(device)
         self.name_data = name_data
         self.dir_data = dir_data
@@ -170,7 +182,13 @@ class Trainer:
             from shadow_gnn_torch.train.preproc import preprocess_signals
             (self.feat_np, self.dim_feat_smooth, self.dim_label_smooth,
              self.preproc_log) = preprocess_signals(self)
-        self.feat_tab = torch.as_tensor(self.feat_np, device=self.device)
+        # the device table, rounded once at upload (the host
+        # preprocessing stays f32)
+        self.feat_dtype = feat_dtype
+        tab = torch.as_tensor(self.feat_np)
+        if feat_dtype == "bfloat16":
+            tab = tab.to(torch.bfloat16)
+        self.feat_tab = tab.to(self.device)
         self.branches = self._build_branches()
         self.num_ensemble = len(self.branches)
         self.tables: Dict[int, List[PPRTables]] = {}
@@ -198,6 +216,8 @@ class Trainer:
             dropout=float(self.params_train["dropout"]),
             dropedge=float(self.params_train.get("dropedge", 0.0)),
             packed_adj=packed_adj,
+            matmul_precision=matmul_precision or "float32",
+            compute_dtype=compute_dtype,
         )
         self.model = DeepGNN(self.model_cfg)
         init_params(self.model, torch.Generator().manual_seed(seed))
@@ -348,8 +368,8 @@ class Trainer:
             else:
                 batch = sample_subgraphs(cfg, self.graph[mode], roots, rows,
                                          self.tables[mode][i])
-            feats.append(self.feat_tab[torch.clamp(batch.nodes, 0,
-                                                   self.num_nodes - 1)])
+            feats.append(self.feat_tab[torch.clamp(
+                batch.nodes, 0, self.num_nodes - 1)].to(self.model_cfg.dtype))
             batches.append(batch)
         return batches, feats
 

@@ -9,9 +9,10 @@ entries were all dropped, a row whose max lies on a dropped edge and
 padded tail rows.  Tolerance rtol 1e-5 / atol 1e-6 forward and rtol
 1e-4 / atol 1e-5 for gradients (as tests/test_pallas_gat.py holds the
 Pallas kernel): the same f32 arithmetic, summed in another order.
-The kernels' host side (launch shapes, limits, the bf16 levels) is
+The kernels' host side (launch shapes, limits, the levels' guards) is
 tested here; the kernels themselves run only on the card
-(``chip_smoke.py``)."""
+(``chip_smoke.py``).  The bf16 levels are held against JAX in
+``tests/test_torch_bf16_ops.py``."""
 import functools
 
 import jax
@@ -171,10 +172,15 @@ def test_launch_dims():
 def test_wrapper_guards():
     args, _ = _case(5)
     t = _torch(args)
-    for kw in (dict(bf16=True), dict(bf16_scores=True),
-               dict(bf16=True, bf16_scores=True)):
-        with pytest.raises(NotImplementedError, match="bf16"):
-            tg.gat_attention(*t, **kw)
+    # the bf16 levels run on the CPU as their plain versions; bf16_scores
+    # alone is refused, in both directions
+    for kw in (dict(bf16=True), dict(bf16=True, bf16_scores=True)):
+        assert torch.equal(tg.gat_attention(*t, **kw),
+                           tg.gat_attention_plain(*t, **kw))
+    with pytest.raises(ValueError, match="bf16_scores requires bf16"):
+        tg.gat_attention(*t, bf16_scores=True)
+    with pytest.raises(ValueError, match="bf16_scores requires bf16"):
+        tg.gat_attention_bwd(*t, t[2], t[2], bf16_scores=True)
     # tensors neither all on the CPU nor on one CUDA device never reach
     # the plain version, in either direction
     with pytest.raises(ValueError, match="CUDA"):
@@ -194,8 +200,12 @@ def test_wrapper_guards():
     for b, n, dh in ((2, 16, 257), (3, 2920, 128)):
         with pytest.raises(ValueError, match="limits"):
             tg.check_limits(b, n, dh)
-    # on the CPU nothing counts as a kernel launch
-    launches = (tg.gat_attention.launches, tg.gat_attention_bwd.launches)
-    tg_t = _torch(args, grad=True)
-    tg.gat_attention(*tg_t).sum().backward()
-    assert (tg.gat_attention.launches, tg.gat_attention_bwd.launches) == launches
+    # on the CPU nothing counts as a kernel launch, at any level
+    counts = [tg.gat_attention.launches, tg.gat_attention_bwd.launches,
+              tg.gat_attention.launches_bf16, tg.gat_attention_bwd.launches_bf16]
+    for level in (False, True):
+        tg_t = _torch(args, grad=True)
+        tg.gat_attention(*tg_t, level, level).sum().backward()
+    assert counts == [tg.gat_attention.launches, tg.gat_attention_bwd.launches,
+                      tg.gat_attention.launches_bf16,
+                      tg.gat_attention_bwd.launches_bf16]

@@ -176,8 +176,13 @@ def test_packed_spmm_wrapper_guards(monkeypatch):
     adj, x = _case(13)
     bits = tcache.pack_bits(torch.as_tensor(adj))
     tx = torch.as_tensor(x)
-    with pytest.raises(NotImplementedError):
-        tpp.packed_spmm(bits, tx, "rw", bf16=True)
+    # the bf16 mode runs on the CPU as its plain version, in both
+    # directions, and counts no launch
+    launches = (tpp.packed_spmm.launches_bf16, tpp.packed_spmm_t.launches_bf16)
+    for fn, t in ((tpp.packed_spmm, False), (tpp.packed_spmm_t, True)):
+        assert torch.equal(fn(bits, tx, "rw", 0.1, 3, bf16=True),
+                           tpp.packed_spmm_plain(bits, tx, "rw", 0.1, 3, t, True))
+    assert (tpp.packed_spmm.launches_bf16, tpp.packed_spmm_t.launches_bf16) == launches
     with pytest.raises(ValueError):
         tpp.packed_spmm(bits, tx, "mean")
     for p in (-0.1, 1.0):
