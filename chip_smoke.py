@@ -11,9 +11,14 @@ Phases, each fatal on failure (an uncaught exception, non-zero exit):
 1. build   — compile every hand-written CUDA kernel from ``csrc/`` (one
              nvcc per source, all at once) and the native PPR push;
 2. kernels — hold each kernel against its plain PyTorch version on the
-             card: the forward ``packed_spmm`` (all norms, N 24/37/208,
-             F 256/500, B=256 at N=208) at dropedge 0, 0.05 and 0.5, the
-             transposed ``packed_spmm_t`` at dropedge 0 and 0.05; the GAT
+             card: the forward ``packed_spmm`` and the transposed
+             ``packed_spmm_t`` (all norms, dropedge 0, 0.05 and 0.5; N
+             24/37/208 at F 37/256/500, B=256 at N=208, a 30%-dense block
+             at N=208, the largest N the transposed kernel takes, 3592, at
+             F 37, and the forward at N 6500, its tile built in
+             sub-tiles), after printing their launch shape (clusters,
+             lines a CTA, feature splits) and the largest N each takes;
+             the transposed kernel must refuse N=3593; the GAT
              attention forward ``gat_attention`` (B2) and backward
              ``gat_attention_bwd`` (B3) at N 16/152/408, H 1/4, dh
              8/128/200, with and without dropped edges, on blocks with an
@@ -24,9 +29,9 @@ Phases, each fatal on failure (an uncaught exception, non-zero exit):
              bf16-precision product (``ops/precision.py``, a cuBLAS bf16
              GEMM with f32 output) against the f32 product of the rounded
              operands (1e-5 of max), and the bf16 levels at the same
-             cases: B1c, the bf16 mode of both packed directions, also at
-             dropedge 0.5 in the transposed direction, with the weights'
-             flipped roundings counted (``phase_kernels_bf16``); B2b/B3b
+             cases: B1c, the bf16 mode of both packed directions, with
+             the weights' flipped roundings counted
+             (``phase_kernels_bf16``); B2b/B3b
              at both levels with f32 and bf16 values, dv held with a
              counted slack for the roundings of P that a denominator
              summed in another order can flip (``phase_kernels_gat_bf16``);
@@ -63,9 +68,9 @@ Phases, each fatal on failure (an uncaught exception, non-zero exit):
              of the same function (``torch.bmm`` on the normalised,
              edge-dropped dense block, or on its transpose), timed as
              CUDA-graph replays of 20 calls with CUDA events, on the
-             cached bits: the forward at every
-             serving batch (8, 64, 256), and at the training batch (64)
-             the forward with dropedge 0.05 and the transposed kernel;
+             cached bits: both packed directions at every serving batch
+             (8, 64, 256), and at the training batch (64) with dropedge
+             0.05;
              beside the least time the card could take (bytes over 3.35
              TB/s, operations over 67 TFLOP/s f32);
 7. bf16    — phases 3-6 again for a flagship trainer built with
@@ -271,44 +276,95 @@ def phase_build():
           f"{time.perf_counter() - t0:.2f}s")
 
 
+# (N, B, density, directions) of the packed kernels' checks: the small
+# blocks, the cached PPR size at the serving batch, a dense block, the
+# largest N the transposed kernel takes, and a forward beyond it (its
+# tile built in sub-tiles); ``_packed_blocks`` adds an empty row, and
+# makes the N=208 blocks undirected like the cached ones
+PACKED_CASES = ((24, 64, 0.05, (False, True)), (37, 64, 0.05, (False, True)),
+                (208, 256, 0.05, (False, True)), (208, 16, 0.3, (False, True)),
+                (3592, 2, 0.05, (False, True)), (6500, 1, 0.05, (False,)))
+PACKED_F = (37, 256, 500)
+
+
+def _packed_blocks(gen):
+    """(N, B, directions, bits, the F of its checks) of every case of
+    ``PACKED_CASES``; the largest two at F=37 only."""
+    import torch
+    from shadow_gnn_torch.sampling.cache import pack_bits
+    for n, b, dens, dirs in PACKED_CASES:
+        adj = (torch.rand(b, n, n, device="cuda", generator=gen) < dens).float()
+        if n == 208:                           # undirected, like cached blocks
+            adj = torch.maximum(adj, adj.transpose(1, 2))
+        adj[:, n // 3] = 0.0                   # an empty row
+        yield n, b, dirs, pack_bits(adj), PACKED_F if n < 1000 else PACKED_F[:1]
+        del adj
+
+
+def _print_packed_launches():
+    """The structure pass and gather shape of the packed kernels at the
+    main path's shapes, and the largest N each direction takes."""
+    from shadow_gnn_torch.ops.packed import MAX_N, launch_dims
+    for b, f in ((8, 500), (8, 256), (64, 500), (64, 256), (256, 500)):
+        d = launch_dims(b, 208, f)
+        print(f"[kernels] packed launch B={b} N=208 F={f}: {d.grid} CTAs in "
+              f"clusters of {d.cluster}, {d.threads} threads, {d.tile} lines a "
+              f"CTA ({d.sub} a bitmap), features in {d.fsplit} split(s) of "
+              f"{d.per} chunks of 128, {d.smem} B shared, float4 {d.vec}")
+    for t in (False, True):
+        lo, hi = 1, MAX_N
+        while lo < hi:
+            mid = (lo + hi + 1) // 2
+            try:
+                launch_dims(1, mid, 8, t)
+                lo = mid
+            except ValueError:
+                hi = mid - 1
+        print(f"[kernels] {'packed_spmm_t' if t else 'packed_spmm'} takes N up "
+              f"to {lo}")
+
+
 def phase_kernels():
     """Every kernel against its plain version on the card; returns the
     worst max |kernel - plain| of each kernel."""
     import torch
     from shadow_gnn_torch.ops.packed import (packed_spmm, packed_spmm_plain,
                                              packed_spmm_t)
-    from shadow_gnn_torch.sampling.cache import pack_bits
+    _print_packed_launches()
     gen = torch.Generator(device="cuda").manual_seed(0)
     worst = {"packed_spmm": (0.0, 0.0), "packed_spmm_t": (0.0, 0.0)}
-    cases = [("packed_spmm", p) for p in (0.0, DROPEDGE, 0.5)] + \
-            [("packed_spmm_t", p) for p in (0.0, DROPEDGE)]
-    for n in (24, 37, 208):
-        b = 256 if n == 208 else 64
-        adj = (torch.rand(b, n, n, device="cuda", generator=gen) < 0.05).float()
-        if n == 208:                           # undirected, like cached blocks
-            adj = torch.maximum(adj, adj.transpose(1, 2))
-        adj[:, n // 3] = 0.0                   # an empty row
-        bits = pack_bits(adj)
-        for f in (256, 500):
+    for n, b, dirs, bits, fs in _packed_blocks(gen):
+        for f in fs:
             x = torch.randn(b, n, f, device="cuda", generator=gen)
             for norm in ("none", "rw", "sym", "gin"):
-                for name, p in cases:
-                    seed = 1000 * n + f
-                    t = name == "packed_spmm_t"
-                    fn = packed_spmm_t if t else packed_spmm
-                    got = fn(bits, x, norm, p, seed)
-                    torch.cuda.synchronize()
-                    want = packed_spmm_plain(bits, x, norm, p, seed, transpose=t)
-                    torch.cuda.synchronize()
-                    err = (got - want).abs().max().item()
-                    rel = err / max(want.abs().max().item(), 1e-30)
-                    print(f"[kernels] {name:13s} B={b} N={n} F={f} {norm:4s} "
-                          f"p={p:<4} max abs {err:.3e} rel {rel:.3e}")
-                    if not rel <= 1e-4:
-                        raise AssertionError(f"{name} {norm} N={n} F={f} p={p}: "
-                                             f"rel error {rel} > 1e-4")
-                    w_abs, w_rel = worst[name]
-                    worst[name] = (max(w_abs, err), max(w_rel, rel))
+                for t in dirs:
+                    for p in (0.0, DROPEDGE, 0.5):
+                        name = "packed_spmm_t" if t else "packed_spmm"
+                        seed = 1000 * n + f
+                        fn = packed_spmm_t if t else packed_spmm
+                        got = fn(bits, x, norm, p, seed)
+                        torch.cuda.synchronize()
+                        want = packed_spmm_plain(bits, x, norm, p, seed, transpose=t)
+                        torch.cuda.synchronize()
+                        err = (got - want).abs().max().item()
+                        rel = err / max(want.abs().max().item(), 1e-30)
+                        print(f"[kernels] {name:13s} B={b} N={n} F={f} {norm:4s} "
+                              f"p={p:<4} max abs {err:.3e} rel {rel:.3e}")
+                        if not rel <= 1e-4:
+                            raise AssertionError(f"{name} {norm} N={n} F={f} p={p}: "
+                                                 f"rel error {rel} > 1e-4")
+                        w_abs, w_rel = worst[name]
+                        worst[name] = (max(w_abs, err), max(w_rel, rel))
+        del bits
+    # beyond the transposed kernel's limit it raises
+    x = torch.zeros(1, 3593, 8, device="cuda")
+    try:
+        packed_spmm_t(torch.zeros(1, 3593, 450, dtype=torch.uint8, device="cuda"),
+                      x, "rw")
+    except ValueError:
+        pass
+    else:
+        raise AssertionError("packed_spmm_t took N=3593 beyond its limit")
     for name, (w_abs, w_rel) in worst.items():
         print(f"[kernels] {name} worst abs {w_abs:.3e} rel {w_rel:.3e}")
     return {name: w_abs for name, (w_abs, _) in worst.items()}
@@ -441,40 +497,34 @@ def phase_precision():
 
 def phase_kernels_bf16():
     """B1c, both directions, against ``packed_spmm_plain(bf16=True)``: all
-    norms, N 24/37/208, F 256/500, dropedge 0/0.05/0.5.  The kernel's
-    rounded weights are read off its product with the identity (exact:
-    one nonzero term per sum); a weight whose bf16 rounding differs from
-    the plain block's is a flip, counted and bounded (1e-3 of the
-    entries); the product is held at 1e-4 of max against the kernel's own
-    weights, and against the plain version wherever no weight flipped.
-    Returns the worst max |kernel - plain| of each direction."""
+    norms, dropedge 0/0.05/0.5, on the blocks and F of ``PACKED_CASES``.
+    The kernel's rounded weights are read off its product with the
+    identity (exact: one nonzero term per sum); a weight whose bf16
+    rounding differs from the plain block's is a flip, counted and bounded
+    (1e-3 of the entries); the product is held at 1e-4 of max against the
+    kernel's own weights, and against the plain version wherever no weight
+    flipped.  Returns the worst max |kernel - plain| of each direction."""
     import torch
     from shadow_gnn_torch.ops.packed import (NORMS, packed_spmm,
                                              packed_spmm_plain, packed_spmm_t)
     from shadow_gnn_torch.ops.precision import round_bf16
-    from shadow_gnn_torch.sampling.cache import pack_bits
     gen = torch.Generator(device="cuda").manual_seed(5)
     worst = {"packed_spmm_bf16": 0.0, "packed_spmm_t_bf16": 0.0}
     flips = beyond = entries = 0
-    for n in (24, 37, 208):
-        b = 256 if n == 208 else 64
-        adj = (torch.rand(b, n, n, device="cuda", generator=gen) < 0.05).float()
-        if n == 208:
-            adj = torch.maximum(adj, adj.transpose(1, 2))
-        adj[:, n // 3] = 0.0
-        bits = pack_bits(adj)
+    for n, b, dirs, bits, fs in _packed_blocks(gen):
         eye = torch.eye(n, device="cuda").expand(b, n, n).contiguous()
-        xs = {f: torch.randn(b, n, f, device="cuda", generator=gen) for f in (256, 500)}
+        xs = {f: torch.randn(b, n, f, device="cuda", generator=gen) for f in fs}
         for norm in NORMS:
             for p in (0.0, DROPEDGE, 0.5):
                 seed = 1000 * n + 7
-                for t in (False, True):
+                for t in dirs:
                     name = "packed_spmm_t_bf16" if t else "packed_spmm_bf16"
                     fn = packed_spmm_t if t else packed_spmm
                     w_k = fn(bits, eye, norm, p, seed, bf16=True)
                     w_p = packed_spmm_plain(bits, eye, norm, p, seed, t, True)
                     n_flip = int((w_k != w_p).sum())
                     nnz = int((w_p != 0).sum())
+                    del w_p
                     for f, x in xs.items():
                         got = fn(bits, x, norm, p, seed, bf16=True)
                         want = packed_spmm_plain(bits, x, norm, p, seed, t, True)
@@ -496,6 +546,8 @@ def phase_kernels_bf16():
                         worst[name] = max(worst[name], err)
                         flips, beyond, entries = (flips + n_flip, beyond + n_beyond,
                                                   entries + got.numel())
+                    del w_k
+        del bits, eye, xs
     print(f"[kernels] B1c worst abs {worst}; flipped weights {flips}, entries "
           f"beyond 1e-5 of max {beyond} of {entries}")
     return worst
@@ -1128,11 +1180,12 @@ def _library_bmm(adj, x, bf16):
 
 
 def phase_time(bits_all, bf16=False):
-    """packed_spmm on the cached TEST bits at every serving batch
-    (``bf16``: its bf16 mode, B1c)."""
+    """Both directions of packed_spmm on the cached TEST bits at every
+    serving batch, rw, dropedge 0 (``bf16``: their bf16 mode, B1c)."""
     import torch
     from shadow_gnn_torch.ops.normalize import adj_norm_rw
-    from shadow_gnn_torch.ops.packed import packed_spmm, packed_spmm_plain
+    from shadow_gnn_torch.ops.packed import (packed_spmm, packed_spmm_plain,
+                                             packed_spmm_t)
     from shadow_gnn_torch.sampling.cache import unpack_bits
     gen = torch.Generator(device="cuda").manual_seed(1)
     for b in (8, 64, 256):
@@ -1142,17 +1195,23 @@ def phase_time(bits_all, bf16=False):
         nnz = int((adj_n > 0).sum())
         for f in (500, 256):
             x = torch.randn(b, n, f, device="cuda", generator=gen)
-            ms = _time_ms(lambda: packed_spmm(bits, x, "rw", bf16=bf16))
-            plain_ms = _time_ms(lambda: packed_spmm_plain(bits, x, "rw", bf16=bf16))
-            library_ms = _time_ms(_library_bmm(adj_n, x, bf16))
-            byts = b * (n * nbytes + 2 * n * f * 4)
-            ops = nnz * f + b * n * f           # gather-adds + the 1/deg scale
-            bound_ms, bound_by = _bound(byts, ops)
-            print(f"[time] packed_spmm{'_bf16' if bf16 else ''} rw B={b} N={n} "
-                  f"F={f} nnz={nnz}: kernel "
-                  f"{ms:.4f} ms, plain {plain_ms:.4f} ms, torch.bmm "
-                  f"{library_ms:.4f} ms, bound {bound_ms:.4f} ms ({bound_by}: "
-                  f"{byts / 1e6:.1f} MB, {ops / 1e9:.3f} GFLOP)")
+            for name, fn, lib, t in (("packed_spmm", packed_spmm, adj_n, False),
+                                     ("packed_spmm_t", packed_spmm_t,
+                                      adj_n.transpose(1, 2), True)):
+                ms = _time_ms(lambda: fn(bits, x, "rw", bf16=bf16))
+                plain_ms = _time_ms(lambda: packed_spmm_plain(bits, x, "rw",
+                                                              transpose=t, bf16=bf16))
+                library_ms = _time_ms(_library_bmm(lib, x, bf16))
+                byts = b * (n * nbytes + 2 * n * f * 4)
+                # forward: gather-adds + the 1/deg scale; transposed: a
+                # multiply-add per entry
+                ops = 2 * nnz * f if t else nnz * f + b * n * f
+                bound_ms, bound_by = _bound(byts, ops)
+                name += "_bf16" if bf16 else ""
+                print(f"[time] {name:18s} rw B={b} N={n} F={f} nnz={nnz}: kernel "
+                      f"{ms:.4f} ms, plain {plain_ms:.4f} ms, torch.bmm "
+                      f"{library_ms:.4f} ms, bound {bound_ms:.4f} ms ({bound_by}: "
+                      f"{byts / 1e6:.1f} MB, {ops / 1e9:.3f} GFLOP)")
 
 
 def phase_time_train(bits, launches, max_abs_err, bf16=False):

@@ -26,6 +26,7 @@ with its custom VJP, both modes).
 from __future__ import annotations
 
 import ctypes
+from typing import NamedTuple
 
 import torch
 
@@ -39,25 +40,61 @@ NORMS = ("none", "rw", "sym", "gin")
 _NORM_CODE = {"none": 0, "rw": 1, "sym": 2, "gin": 3}
 _DENSE_NORM = {"none": adj_drop, "rw": adj_norm_rw, "sym": adj_norm_sym,
                "gin": adj_gin_rescale}
-ROWS_PER_BLOCK = 16     # output rows per thread block
-THREADS = 128           # threads per block, striding over the features
+THREADS = 128           # threads per CTA (csrc/packed_spmm.cu:kThreads)
+TILE_ROWS = 32          # output lines per CTA before the cluster grows
+MAX_CLUSTER = 8         # the portable cluster size
+CHUNK = 128             # features of a chunk: one float4 per lane of a warp
+SMS = 132               # streaming multiprocessors of an H100 SXM
 MAX_SMEM = 232_448      # dynamic shared memory one block may use on sm_90
+MAX_N = 65535           # the dropedge hash and the row counts hold 16-bit indices
 
 
-def launch_dims(b: int, n: int, transpose: bool = False):
-    """(grid, threads, shared-memory bytes, tiles) of one kernel launch.
+class LaunchDims(NamedTuple):
+    """One launch of either kernel: ``grid`` CTAs in clusters of
+    ``cluster``, ``threads`` each, ``smem`` bytes of dynamic shared
+    memory; each CTA owns ``tile`` output lines, built ``sub`` at a time;
+    each subgraph's features are split over ``fsplit`` clusters of
+    ``per`` chunks of ``CHUNK``; ``vec``: float4 loads (F % 4 == 0)."""
+    grid: int
+    cluster: int
+    threads: int
+    smem: int
+    tile: int
+    sub: int
+    fsplit: int
+    per: int
+    vec: bool
 
-    One block per (subgraph, tile of output rows).  Shared memory holds
-    the N per-row scales (f32), per-row neighbour count (i32) and the
-    tile's neighbour lists (u16, N entries per row); the transposed
-    kernel first copies the subgraph's whole bit block (N * ceil(N/8)
-    bytes, rounded up to 16) in front of them."""
-    r = ROWS_PER_BLOCK
-    tiles = -(-n // r)
-    smem = 4 * n + 4 * r + 2 * r * n
-    if transpose:
-        smem += -(-n * -(-n // 8) // 16) * 16
-    return b * tiles, THREADS, smem, tiles
+
+def launch_dims(b: int, n: int, f: int, transpose: bool = False) -> LaunchDims:
+    """The launch of one direction at [B, N, F]; raises ValueError beyond
+    the kernels' limits.
+
+    One cluster of ``cluster`` CTAs (a power of two, at most 8, about
+    TILE_ROWS lines each) per (subgraph, feature split); more splits
+    while B * cluster CTAs would fill fewer than two per SM.  Shared
+    memory: the N packed row counts (u32) and N row scales (f32), a
+    survivor bitmap of ``sub`` lines of ceil(N/32) words (``sub`` as
+    large as MAX_SMEM allows, up to the tile) and a mask byte per byte
+    column.  The transposed kernel needs its whole tile in the bitmap;
+    the forward builds it ``sub`` lines at a time."""
+    words = -(-n // 32)
+    cluster = 1
+    while cluster < MAX_CLUSTER and cluster * TILE_ROWS < n:
+        cluster *= 2
+    tile = -(-n // cluster)
+    nbytes = -(-n // 8)
+    sub = min(tile, (MAX_SMEM - 8 * n - nbytes) // (4 * words))
+    chunks = -(-f // CHUNK)
+    fsplit = max(1, min(chunks, -(-2 * SMS // (b * cluster))))
+    per = -(-chunks // fsplit)
+    fsplit = -(-chunks // per)
+    grid = b * fsplit * cluster
+    if n > MAX_N or sub < 1 or (transpose and sub < tile) or grid >= 2**31:
+        raise ValueError(f"packed_spmm{'_t' if transpose else ''}: B={b}, N={n}, "
+                         f"F={f} beyond the kernel's limits")
+    return LaunchDims(grid, cluster, THREADS, 8 * n + 4 * sub * words + nbytes, tile,
+                      sub, fsplit, per, f % 4 == 0)
 
 
 def packed_spmm_plain(bits: torch.Tensor, x: torch.Tensor, norm: str = "none",
@@ -82,7 +119,7 @@ def _kernel_fn(transpose: bool):
         fn.restype = ctypes.c_int
         fn.argtypes = ([ctypes.c_void_p] * 3 + [ctypes.c_int] * 4
                        + [ctypes.c_int, ctypes.c_uint32, ctypes.c_uint32]
-                       + [ctypes.c_int] * 6 + [ctypes.c_void_p])
+                       + [ctypes.c_int] * 10 + [ctypes.c_void_p])
     return fn
 
 
@@ -104,17 +141,16 @@ def _aggregate(bits, x, norm, dropedge, seed, transpose, bf16):
     out = torch.empty_like(x)
     if b == 0 or n == 0 or f == 0:
         return out
-    grid, threads, smem, tiles = launch_dims(b, n, transpose)
-    if n > 65535 or smem > MAX_SMEM or grid >= 2**31:
-        raise ValueError(f"packed_spmm: N={n}, B={b} beyond the kernel's limits")
+    d = launch_dims(b, n, f, transpose)
     with torch.cuda.device(x.device):
         stream = torch.cuda.current_stream().cuda_stream
         rc = _kernel_fn(transpose)(
             bits.data_ptr(), x.data_ptr(), out.data_ptr(), n, bits.shape[-1],
             f, _NORM_CODE[norm], int(dropedge > 0.0),
             ctypes.c_uint32(int(seed) & 0xFFFFFFFF),
-            ctypes.c_uint32(drop_threshold(dropedge)), int(bf16), ROWS_PER_BLOCK,
-            tiles, grid, threads, smem, stream)
+            ctypes.c_uint32(drop_threshold(dropedge)), int(bf16),
+            int(d.vec and x.data_ptr() % 16 == 0), d.cluster, d.tile, d.sub,
+            d.fsplit, d.per, d.grid, d.threads, d.smem, stream)
     if rc != 0:
         raise RuntimeError(f"packed_spmm kernel launch failed: CUDA error {rc}")
     fn = packed_spmm_t if transpose else packed_spmm

@@ -211,24 +211,74 @@ def test_packed_spmm_wrapper_guards(monkeypatch):
 @pytest.mark.parametrize("b,n", [(1, 13), (8, 24), (64, 37), (256, 208),
                                  (4, 1330)])
 def test_launch_dims(b, n):
-    grid, threads, smem, tiles = tpp.launch_dims(b, n)
-    r = tpp.ROWS_PER_BLOCK
-    assert tiles * r >= n > (tiles - 1) * r
-    assert grid == b * tiles and threads % 32 == 0 and threads >= r
-    # rscale[n] f32 | cnt[r] i32 | nbr[r*n] u16
-    assert smem == 4 * n + 4 * r + 2 * r * n
-    assert smem <= tpp.MAX_SMEM
-    # the transposed kernel: the same grid, with the bit block in front
-    grid_t, threads_t, smem_t, tiles_t = tpp.launch_dims(b, n, transpose=True)
-    assert (grid_t, threads_t, tiles_t) == (grid, threads, tiles)
-    bit_block = n * -(-n // 8)
-    assert smem_t - smem == -(-bit_block // 16) * 16 >= bit_block
+    """One cluster of CTAs per (subgraph, feature split): the CTAs' tiles
+    cover the N output lines once, the splits every chunk of F once, and
+    shared memory holds the counts, the scales and a bitmap of the tile;
+    the two directions launch alike up to the transposed kernel's N."""
+    words = -(-n // 32)
+    for f in (37, 256, 500):
+        d = tpp.launch_dims(b, n, f)
+        assert d == tpp.launch_dims(b, n, f, transpose=True)
+        assert d.threads == tpp.THREADS and d.threads % 32 == 0
+        # the cluster: a power of two up to 8, about TILE_ROWS lines a CTA
+        assert d.cluster in (1, 2, 4, 8)
+        assert d.cluster == 8 or d.cluster * tpp.TILE_ROWS >= n
+        assert d.cluster == 1 or (d.cluster // 2) * tpp.TILE_ROWS < n
+        assert d.tile == -(-n // d.cluster) and (d.cluster - 1) * d.tile < n
+        assert d.sub == d.tile          # the whole tile in one bitmap
+        # the feature splits: every chunk of 128 in exactly one
+        chunks = -(-f // tpp.CHUNK)
+        assert (d.fsplit - 1) * d.per < chunks <= d.fsplit * d.per
+        assert d.fsplit == 1 or b * d.cluster * (d.fsplit - 1) < 2 * tpp.SMS
+        assert d.grid == b * d.fsplit * d.cluster
+        # counts (u32) and scales (f32) of every row, the bitmap, a mask
+        # byte per byte column
+        assert d.smem == 8 * n + 4 * d.sub * words + -(-n // 8) <= tpp.MAX_SMEM
+        assert d.vec == (f % 4 == 0)
     if (b, n) == (256, 208):        # the serving shape
-        assert (grid, smem) == (3328, 7552)
+        assert tpp.launch_dims(b, n, 500) == (2048, 8, 128, 2418, 26, 26, 1, 4, True)
+        # the serving batch of 8 splits the features to fill the card
+        assert tpp.launch_dims(8, n, 500)[:8] == (256, 8, 128, 2418, 26, 26, 4, 1)
+        assert tpp.launch_dims(8, n, 256).fsplit == 2
     if (b, n) == (64, 37):
-        assert smem_t == smem + 192
-    if n == 1330:                   # beyond the transposed kernel's shared memory
-        assert smem_t > tpp.MAX_SMEM
+        assert tpp.launch_dims(b, n, 37) == (128, 2, 128, 453, 19, 19, 1, 1, False)
+    if n == 1330:                   # beyond the old transposed kernel's room
+        assert tpp.launch_dims(b, n, 256).smem == 38863
+
+
+def test_launch_limits():
+    """The N at which each direction raises, and the grid's limit: the
+    forward builds a tile larger than its bitmap room in sub-tiles, the
+    transposed kernel needs its tile in one bitmap."""
+    big = tpp.launch_dims(1, 28_175, 8)
+    assert big.cluster == 8 and big.tile == 3522 and big.sub == 1
+    assert big.smem <= tpp.MAX_SMEM
+    d = tpp.launch_dims(1, 6500, 37)
+    assert (d.tile, d.sub) == (813, 220) and d.sub < d.tile
+    assert tpp.launch_dims(2, 3592, 37, transpose=True).sub == 449
+    for n, t in ((28_176, False), (3593, True), (65_536, False), (70_000, True)):
+        with pytest.raises(ValueError, match="limits"):
+            tpp.launch_dims(1, n, 8, transpose=t)
+    with pytest.raises(ValueError, match="limits"):
+        tpp.launch_dims(2**28, 208, 500)          # 2^31 CTAs
+    tpp.launch_dims(2**28 - 1, 208, 500)
+
+
+def test_packed_spmm_odd_feature_widths():
+    """F % 4 != 0 is taken (the kernels' scalar loads; the plain version
+    here) and agrees with the dense product; F > 512 splits into groups."""
+    adj, _ = _case(37, b=2)
+    bits = tcache.pack_bits(torch.as_tensor(adj))
+    for f in (1, 37, 130, 515):
+        assert not tpp.launch_dims(2, 37, f).vec or f % 4 == 0
+        x = torch.as_tensor(np.random.default_rng(f).normal(
+            size=(2, 37, f)).astype(np.float32))
+        for t in (False, True):
+            fn = tpp.packed_spmm_t if t else tpp.packed_spmm
+            w = tnorm.adj_norm_rw(torch.as_tensor(adj), 5, 0.3)
+            want = torch.bmm(w.transpose(1, 2) if t else w, x)
+            torch.testing.assert_close(fn(bits, x, "rw", 0.3, 5), want,
+                                       rtol=1e-5, atol=1e-5)
 
 
 _FORBIDDEN = ("jax", "jaxlib", "flax", "optax", "shadow_gnn_tpu")
