@@ -20,8 +20,10 @@ Phases, each fatal on failure (an uncaught exception, non-zero exit):
              lines a CTA, feature splits) and the largest N each takes;
              the transposed kernel must refuse N=3593; the GAT
              attention forward ``gat_attention`` (B2) and backward
-             ``gat_attention_bwd`` (B3) at N 16/152/408, H 1/4, dh
-             8/128/200, with and without dropped edges, on blocks with an
+             ``gat_attention_bwd`` (B3) at N 16/152/408 and the largest N
+             they take (907), H 1/4, dh 8/128/200, with and without
+             dropped edges (both must refuse N=908 and dh=264), on
+             blocks about 10% dense with an
              empty row, a fully dropped row, a row whose max lies on a
              dropped edge and padded tail rows; max |kernel - plain| must
              stay below 1e-4 of max |plain| (d att_self, 0 up to
@@ -78,7 +80,8 @@ Phases, each fatal on failure (an uncaught exception, non-zero exit):
              and evaluation batch through B1c (3 forward launches; 3
              transposed per step), the first step held against the plain
              versions as in phase 4, B1c timed beside ``torch.bmm`` on
-             the bf16 operands with an f32 output;
+             the bf16 operands with an f32 output, with the cast of its f32
+             operands in the timed call and without it;
 8. gat     — the products GAT-5 leaderboard model at full width
              (``configs/products_gat_5_ppr_leaderboard.yml``: dim 512, 4
              heads, 5 layers, prelu, max residue and pooling, ppr-
@@ -101,11 +104,14 @@ Phases, each fatal on failure (an uncaught exception, non-zero exit):
              times; the same requests uncached (still 5 launches each);
              then B2 and B3 timed on cached TRAIN blocks (B=128, N=152,
              H=4, dh=128) beside their bound, plain versions and
-             ``scaled_dot_product_attention``;
+             ``scaled_dot_product_attention``; their per-phase device
+             clocks from an instrumented build of the same source, and
+             their times with clusters of 1, 2 and 4 CTAs;
 9. gat bf16 — the same with ``matmul_precision="bfloat16"`` (serving,
              first step, ``train()``: 5 B2b and 5 B3b launches per TRAIN
              step, 5 B2b per evaluation batch and request; B2b/B3b timed
-             beside SDPA on bf16 operands), then with
+             beside SDPA on bf16 operands, with and without the cast of its
+             f32 operands), then with
              ``compute_dtype="bfloat16"`` and ``feat_dtype="bfloat16"``
              as well (a bf16 feature table, the dense path): serving, the
              first step and 1 epoch;
@@ -269,7 +275,8 @@ def phase_build():
     logs = build.build()
     t_cuda = time.perf_counter() - t0
     for name, log in logs.items():
-        print(f"[build] {name}: nvcc {' '.join(build.NVCC_FLAGS)}\n{log.strip()}")
+        flags = build.NVCC_FLAGS + build.KERNEL_FLAGS.get(name, [])
+        print(f"[build] {name}: nvcc {' '.join(flags)}\n{log.strip()}")
     t0 = time.perf_counter()
     get_lib()
     print(f"[build] CUDA kernels {t_cuda:.2f}s, native PPR push "
@@ -370,6 +377,13 @@ def phase_kernels():
     return {name: w_abs for name, (w_abs, _) in worst.items()}
 
 
+def _gat_cases():
+    """(N, B) of the GAT kernels' checks: small blocks, the products shape,
+    the papers GAT-3 shape, and the largest N the kernels take."""
+    from shadow_gnn_torch.ops.gat import MAX_N
+    return ((16, 32), (152, 128), (408, 16), (MAX_N, 2))
+
+
 def _gat_case(b, n, h, dh, drop, gen):
     """Random attention operands on the card with the edge-case rows: an
     empty row, a row whose kept entries were all dropped, a row whose max
@@ -404,11 +418,15 @@ def phase_kernels_gat():
     from shadow_gnn_torch.ops.gat import (gat_attention, gat_attention_bwd,
                                           gat_attention_bwd_plain,
                                           gat_attention_plain)
+    from shadow_gnn_torch.ops.gat import launch_dims, occupancy
+    for shape in ((128, 152, 4, 128), (64, 408, 4, 200)):
+        print(f"[kernels] gat launch at (B, N, H, dh) = {shape}: "
+              f"{launch_dims(*shape)}; CTAs an SM (forward, backward) "
+              f"{occupancy(*shape)}")
     gen = torch.Generator(device="cuda").manual_seed(3)
     worst = {"gat_attention": 0.0, "gat_attention_bwd": 0.0}
     n_cases = 0
-    for n in (16, 152, 408):
-        b = {16: 32, 152: 128, 408: 16}[n]
+    for n, b in _gat_cases():
         for h in (1, 4):
             for dh in (8, 128, 200):
                 for drop in (0.0, 0.1):
@@ -448,13 +466,20 @@ def phase_kernels_gat():
                     worst["gat_attention_bwd"] = max(worst["gat_attention_bwd"],
                                                      max(errs_b))
                     n_cases += 1
-    # beyond the kernels' limits they raise
-    try:
-        gat_attention(*_gat_case(2, 16, 1, 264, 0.0, gen)[:5])
-    except ValueError:
-        pass
-    else:
-        raise AssertionError("gat_attention took dh=264 beyond its limit")
+    # beyond the kernels' limits they raise: dh 264, and N one past the
+    # largest the backward's bitmaps take
+    n_max = _gat_cases()[-1][0]
+    for b, n, dh in ((2, 16, 264), (1, n_max + 1, 8)):
+        a_s, a_n, v, adj_norm, adj, g = _gat_case(b, n, 1, dh, 0.0, gen)
+        for call in (lambda: gat_attention(a_s, a_n, v, adj_norm, adj),
+                     lambda: gat_attention_bwd(a_s, a_n, v, adj_norm, adj, v, g)):
+            try:
+                call()
+            except ValueError:
+                pass
+            else:
+                raise AssertionError(f"gat kernels took N={n} dh={dh} beyond "
+                                     "their limits")
     print(f"[kernels] gat worst over {n_cases} cases: forward abs "
           f"{worst['gat_attention']:.3e}, backward abs "
           f"{worst['gat_attention_bwd']:.3e}")
@@ -584,8 +609,7 @@ def phase_kernels_gat_bf16():
     gen = torch.Generator(device="cuda").manual_seed(8)
     worst = {"gat_attention_bf16": 0.0, "gat_attention_bwd_bf16": 0.0}
     n_cases = flips = 0
-    for n in (16, 152, 408):
-        b = {16: 32, 152: 128, 408: 16}[n]
+    for n, b in _gat_cases():
         for h in (1, 4):
             for dh in (8, 128, 200):
                 for drop in (0.0, 0.1):
@@ -1170,13 +1194,29 @@ def _bound(byts, ops):
 
 
 def _library_bmm(adj, x, bf16):
-    """The library yardstick: torch.bmm of the normalised block and x, on
-    their bf16 roundings with an f32 output at the bf16 mode."""
+    """The library yardstick: torch.bmm of the normalised block and x.  At
+    the bf16 mode (bf16 operands, f32 output) the kernels read f32, so the
+    yardstick casts the f32 operands in the timed call; the product of
+    operands cast beforehand is timed beside it.  Returns the two calls
+    (cast + product, product alone); at f32 the product twice."""
     import torch
-    if bf16:
-        adj, x = adj.bfloat16(), x.bfloat16()
-        return lambda: torch.bmm(adj, x, out_dtype=torch.float32)
-    return lambda: torch.bmm(adj, x)
+    if not bf16:
+        return (lambda: torch.bmm(adj, x),) * 2
+    adj16, x16 = adj.bfloat16(), x.bfloat16()
+    return (lambda: torch.bmm(adj.bfloat16(), x.bfloat16(), out_dtype=torch.float32),
+            lambda: torch.bmm(adj16, x16, out_dtype=torch.float32))
+
+
+def _cast_note(bf16, call_ms):
+    """The library call alone, beside the cast-inclusive time at bf16."""
+    return f" with the cast (call alone {call_ms:.4f} ms)" if bf16 else ""
+
+
+def _library_ms(adj, x, bf16):
+    """(cast + call, call alone) ms of :func:`_library_bmm`."""
+    cast_call, call = _library_bmm(adj, x, bf16)
+    call_ms = _time_ms(call)
+    return (_time_ms(cast_call) if bf16 else call_ms), call_ms
 
 
 def phase_time(bits_all, bf16=False):
@@ -1201,7 +1241,7 @@ def phase_time(bits_all, bf16=False):
                 ms = _time_ms(lambda: fn(bits, x, "rw", bf16=bf16))
                 plain_ms = _time_ms(lambda: packed_spmm_plain(bits, x, "rw",
                                                               transpose=t, bf16=bf16))
-                library_ms = _time_ms(_library_bmm(lib, x, bf16))
+                library_ms, call_ms = _library_ms(lib, x, bf16)
                 byts = b * (n * nbytes + 2 * n * f * 4)
                 # forward: gather-adds + the 1/deg scale; transposed: a
                 # multiply-add per entry
@@ -1210,8 +1250,9 @@ def phase_time(bits_all, bf16=False):
                 name += "_bf16" if bf16 else ""
                 print(f"[time] {name:18s} rw B={b} N={n} F={f} nnz={nnz}: kernel "
                       f"{ms:.4f} ms, plain {plain_ms:.4f} ms, torch.bmm "
-                      f"{library_ms:.4f} ms, bound {bound_ms:.4f} ms ({bound_by}: "
-                      f"{byts / 1e6:.1f} MB, {ops / 1e9:.3f} GFLOP)")
+                      f"{library_ms:.4f} ms{_cast_note(bf16, call_ms)}, bound "
+                      f"{bound_ms:.4f} ms ({bound_by}: {byts / 1e6:.1f} MB, "
+                      f"{ops / 1e9:.3f} GFLOP)")
 
 
 def phase_time_train(bits, launches, max_abs_err, bf16=False):
@@ -1237,7 +1278,7 @@ def phase_time_train(bits, launches, max_abs_err, bf16=False):
             ms = _time_ms(lambda: fn(bits, x, "rw", DROPEDGE, seed, bf16=bf16))
             plain_ms = _time_ms(lambda: packed_spmm_plain(bits, x, "rw", DROPEDGE,
                                                           seed, t, bf16))
-            library_ms = _time_ms(_library_bmm(lib, x, bf16))
+            library_ms, call_ms = _library_ms(lib, x, bf16)
             name += "_bf16" if bf16 else ""
             byts = b * (n * nbytes + 2 * n * f * 4)
             # forward: gather-adds + the 1/deg scale; transposed: a
@@ -1246,8 +1287,9 @@ def phase_time_train(bits, launches, max_abs_err, bf16=False):
             bound_ms, bound_by = _bound(byts, ops)
             print(f"[time] {name:13s} rw p={DROPEDGE} B={b} N={n} F={f} "
                   f"nnz={nnz}: kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, "
-                  f"torch.bmm {library_ms:.4f} ms, bound {bound_ms:.4f} ms "
-                  f"({bound_by}: {byts / 1e6:.1f} MB, {ops / 1e9:.3f} GFLOP)")
+                  f"torch.bmm {library_ms:.4f} ms{_cast_note(bf16, call_ms)}, bound "
+                  f"{bound_ms:.4f} ms ({bound_by}: {byts / 1e6:.1f} MB, "
+                  f"{ops / 1e9:.3f} GFLOP)")
             if f == 500:
                 rows.append({
                     "name": name, "route": "cuda",
@@ -1257,7 +1299,8 @@ def phase_time_train(bits, launches, max_abs_err, bf16=False):
                                    (1, 1): "155"}[t, bf16],
                     "launches": launches[name], "max_abs_err": max_abs_err[name],
                     "ms": ms, "plain_ms": plain_ms, "bound_ms": bound_ms,
-                    "bound_by": bound_by, "library_ms": library_ms})
+                    "bound_by": bound_by, "library_ms": library_ms,
+                    "library_call_ms": call_ms})
     return rows
 
 
@@ -1299,18 +1342,13 @@ def _profile(label, fn, n, wall_ms):
               f"{cnt / n:5.1f}x  {name[:90]}")
 
 
-def phase_time_gat(tr, launches, max_abs_err, bf16=False):
-    """B2 and B3 at the training shape (B=128, N=152, H=4, dh=128) on the
-    cached TRAIN blocks, dropedge 0.1, beside their bound, their plain
-    versions and scaled_dot_product_attention (forward; its backward as
-    forward + backward less forward).  ``bf16``: B2b and B3b at the
-    level the bf16-precision model runs (``bf16`` + ``bf16_scores``, f32
-    values), SDPA on bf16 operands.  Returns the two JSON rows."""
+def _gat_train_operands(tr):
+    """The attention's operands at the training shape: the cached TRAIN
+    blocks of the first batch (dropedge 0.1, a fixed seed) and random
+    score terms, values and output gradient.  Returns ((att_self,
+    att_neigh, values, adj_norm, adj_struct), g)."""
     import torch
     from shadow_gnn_torch import TRAIN
-    from shadow_gnn_torch.ops.gat import (gat_attention, gat_attention_bwd,
-                                          gat_attention_bwd_plain,
-                                          gat_attention_plain)
     from shadow_gnn_torch.ops.normalize import adj_drop
     from shadow_gnn_torch.sampling.cache import unpack_bits
     gen = torch.Generator(device="cuda").manual_seed(4)
@@ -1320,14 +1358,91 @@ def phase_time_gat(tr, launches, max_abs_err, bf16=False):
     dh = tr.model_cfg.dim // h
     adj = unpack_bits(bits, n)
     adj_n = adj_drop(adj, 12345, GAT_DROPEDGE)
-    nnz_s, nnz_k = int((adj > 0).sum()), int((adj_n > 0).sum())
     a_s = torch.randn(b, h, n, device="cuda", generator=gen)
     a_n = torch.randn(b, h, n, device="cuda", generator=gen)
     v = torch.randn(b, n, h, dh, device="cuda", generator=gen)
     g = torch.randn(b, n, h, dh, device="cuda", generator=gen)
-    args = (a_s, a_n, v, adj_n, adj)
+    return (a_s, a_n, v, adj_n, adj), g
+
+
+def _print_clocks(name, lib, grid, phases):
+    """The stamps of the instrumented kernels' last launch (``grid`` CTAs):
+    the median of each phase over the CTAs, the median and longest CTA,
+    the launch's span and the SMs it ran on."""
+    import ctypes
+    import numpy as np
+    import torch
+    fn = lib.gat_attention_clocks
+    fn.restype, fn.argtypes = ctypes.c_int, [ctypes.c_void_p, ctypes.c_int]
+    buf = torch.zeros(grid * 8, dtype=torch.int64)
+    if fn(buf.data_ptr(), grid) != 0:
+        raise RuntimeError("could not read the GAT kernels' phase clocks")
+    x = buf.numpy().view(np.uint64).reshape(grid, 8)
+    t = (x >> np.uint64(8)).astype(np.float64) / 1e3            # us
+    k = len(phases)
+    per = [float(np.median(t[:, i + 1] - t[:, i])) for i in range(k)]
+    cta = t[:, k] - t[:, 0]
+    print(f"[phases] {name}: span {t[:, k].max() - t[:, 0].min():.2f} us over "
+          f"{len(set((x[:, 0] & np.uint64(0xff)).tolist()))} SMs, CTA median "
+          f"{np.median(cta):.2f} us, longest {cta.max():.2f}; phase medians (us): "
+          + ", ".join(f"{p} {v:.2f}" for p, v in zip(phases, per)))
+
+
+def phase_clocks_gat(tr):
+    """Where B2 and B3 spend their time at the training shape (f32): one
+    launch of each through the instrumented copy of the kernels (built
+    with -DGAT_PHASE_CLOCKS; thread 0 of each CTA stamps %globaltimer at
+    each phase boundary), then both kernels timed with clusters of 1, 2
+    and 4 CTAs of a subgraph (the launch takes 2)."""
+    import torch
+    from shadow_gnn_torch.ops import build, gat
+    args, g = _gat_train_operands(tr)
+    b, h, n = args[0].shape
+    d = gat.launch_dims(b, n, h, args[2].shape[-1])
+    lib = build.load("gat_attention_clocks")
+    with _Swap((gat, "LIBRARY", "gat_attention_clocks")), torch.no_grad():
+        out = gat._forward(*args)
+        torch.cuda.synchronize()
+        _print_clocks("gat_attention", lib, d.fwd_grid,
+                      ("bitmap", "slots", "e and D", "gather"))
+        gat.gat_attention_bwd(*args, out, g)
+        torch.cuda.synchronize()
+        _print_clocks("gat_attention_bwd", lib, d.bwd_grid,
+                      ("bitmap", "slots", "e and D", "r", "columns", "da_s"))
+    dims = gat.launch_dims
+    for cl in (1, 2, 4):
+        def clustered(*shape, cl=cl):
+            return dims(*shape)._replace(fwd_cluster=cl, bwd_cluster=cl)
+        with _Swap((gat, "launch_dims", clustered)), torch.no_grad():
+            fwd_ms = _time_ms(lambda: gat._forward(*args))
+            bwd_ms = _time_ms(lambda: gat.gat_attention_bwd(*args, out, g))
+        print(f"[phases] clusters of {cl}: gat_attention {fwd_ms:.4f} ms, "
+              f"gat_attention_bwd {bwd_ms:.4f} ms")
+
+
+def phase_time_gat(tr, launches, max_abs_err, bf16=False):
+    """B2 and B3 at the training shape (B=128, N=152, H=4, dh=128) on the
+    cached TRAIN blocks, dropedge 0.1, beside their bound, their plain
+    versions and scaled_dot_product_attention (forward; its backward as
+    forward + backward less forward).  ``bf16``: B2b and B3b at the
+    level the bf16-precision model runs (``bf16`` + ``bf16_scores``, f32
+    values), SDPA on bf16 operands, timed with the cast of its f32
+    operands (``library_ms``) and alone (``library_call_ms``).  Returns
+    the two JSON rows."""
+    import torch
+    from shadow_gnn_torch.ops.gat import (gat_attention, gat_attention_bwd,
+                                          gat_attention_bwd_plain,
+                                          gat_attention_plain)
+    args, g = _gat_train_operands(tr)
+    a_s, a_n, v, adj_n, adj = args
+    b, h, n = a_s.shape
+    dh = v.shape[-1]
+    nnz_s, nnz_k = int((adj > 0).sum()), int((adj_n > 0).sum())
     lv = dict(bf16=bf16, bf16_scores=bf16)
-    out = gat_attention_plain(*args, **lv)
+    # contiguous, as the forward kernel's output that the model's backward
+    # receives (the plain version returns a permuted view, whose copy would
+    # be timed with the backward)
+    out = gat_attention_plain(*args, **lv).contiguous()
 
     # the library yardstick: q = [a_s, 1, 0...], k = [1, a_n, 0...], so
     # q.k = a_s[i] + a_n[j], softmax over the kept edges
@@ -1338,56 +1453,68 @@ def phase_time_gat(tr, launches, max_abs_err, bf16=False):
     vh = v.permute(0, 2, 1, 3).contiguous()
     gh = g.permute(0, 2, 1, 3).contiguous()
     mask = (adj_n > 0)[:, None]
-    if bf16:
-        q, k, vh, gh = (t.bfloat16() for t in (q, k, vh, gh))
     qkv = [t.requires_grad_() for t in (q, k, vh)]
+    # at bf16: the kernels read f32, so the yardstick casts its f32 operands
+    # in the timed call; operands cast beforehand give the call alone
+    qkv16 = [t.detach().bfloat16().requires_grad_() for t in qkv] if bf16 else qkv
+    g16 = gh.bfloat16() if bf16 else gh
     sdpa = torch.nn.functional.scaled_dot_product_attention
 
-    def sdpa_fwd():
-        with torch.no_grad():
-            return sdpa(*qkv, attn_mask=mask, scale=1.0)
+    def operands(cast):
+        if cast and bf16:
+            return [t.bfloat16() for t in qkv], qkv, gh.bfloat16()
+        return qkv16, qkv16, g16
 
-    def sdpa_fwd_bwd():
-        return torch.autograd.grad(sdpa(*qkv, attn_mask=mask, scale=1.0), qkv, gh)
+    def sdpa_fwd(cast):
+        with torch.no_grad():
+            return sdpa(*operands(cast)[0], attn_mask=mask, scale=1.0)
+
+    def sdpa_fwd_bwd(cast):
+        ops, leaves, gg = operands(cast)
+        return torch.autograd.grad(sdpa(*ops, attn_mask=mask, scale=1.0), leaves, gg)
 
     with torch.no_grad():
         fwd_ms = _time_ms(lambda: gat_attention(*args, **lv))
         fwd_plain = _time_ms(lambda: gat_attention_plain(*args, **lv))
         bwd_ms = _time_ms(lambda: gat_attention_bwd(*args, out, g, **lv))
         bwd_plain = _time_ms(lambda: gat_attention_bwd_plain(*args, out, g, **lv))
-        lib_fwd = _time_ms(sdpa_fwd)
-    lib_fwd_bwd = _time_ms(sdpa_fwd_bwd)
-    lib_bwd = lib_fwd_bwd - lib_fwd
+    lib = {}
+    for cast in (True, False) if bf16 else (False,):
+        f_ms = _time_ms(lambda: sdpa_fwd(cast))
+        fb_ms = _time_ms(lambda: sdpa_fwd_bwd(cast))
+        lib[cast] = (f_ms, fb_ms - f_ms, fb_ms)
+    lib.setdefault(True, lib[False])
     att, blk, adjb = 4 * b * h * n, 4 * b * n * h * dh, 4 * b * n * n
     # scores on every structural entry (add, subtract, exp, scale, sum),
     # dh multiply-adds per kept entry; backward: g.v and P g per kept
     # entry, g.out per row
     cases = (
-        ("gat_attention", fwd_ms, fwd_plain, lib_fwd, "_fwd_kernel",
+        ("gat_attention", fwd_ms, fwd_plain, 0, "_fwd_kernel",
          2 * att + 2 * blk + 2 * adjb,
          h * (5 * nnz_s + 2 * dh * nnz_k) + b * n * h * dh),
-        ("gat_attention_bwd", bwd_ms, bwd_plain, lib_bwd, "_bwd_kernel",
+        ("gat_attention_bwd", bwd_ms, bwd_plain, 1, "_bwd_kernel",
          4 * att + 4 * blk + 2 * adjb,
          h * (5 * nnz_s + (4 * dh + 4) * nnz_k) + 2 * b * n * h * dh))
     line = ({"_fwd_kernel": 93, "_bwd_kernel": 112} if bf16
             else {"_fwd_kernel": 85, "_bwd_kernel": 101})
     rows = []
-    for name, ms, plain_ms, lib_ms, tpu_fn, byts, ops in cases:
+    for name, ms, plain_ms, which, tpu_fn, byts, ops in cases:
         name += "_bf16" if bf16 else ""
         bound_ms, bound_by = _bound(byts, ops)
-        note = f" (fwd+bwd {lib_fwd_bwd:.4f} less fwd)" if tpu_fn == "_bwd_kernel" else ""
+        lib_ms, call_ms = lib[True][which], lib[False][which]
+        note = (f" (fwd+bwd {lib[True][2]:.4f} less fwd)" if which else "")
         print(f"[time] {name:22s} B={b} N={n} H={h} dh={dh} p={GAT_DROPEDGE} "
               f"nnz={nnz_s} kept={nnz_k}: kernel {ms:.4f} ms, plain "
               f"{plain_ms:.4f} ms, scaled_dot_product_attention {lib_ms:.4f} ms"
-              f"{note}, bound {bound_ms:.4f} ms ({bound_by}: {byts / 1e6:.1f} MB, "
-              f"{ops / 1e9:.3f} GFLOP)")
+              f"{note}{_cast_note(bf16, call_ms)}, bound {bound_ms:.4f} ms "
+              f"({bound_by}: {byts / 1e6:.1f} MB, {ops / 1e9:.3f} GFLOP)")
         rows.append({
             "name": name, "route": "cuda",
             "source": "shadow_gnn_torch/csrc/gat_attention.cu",
             "replaces": f"shadow_gnn_tpu/ops/pallas_gat.py:{line[tpu_fn]}",
             "launches": launches[name], "max_abs_err": max_abs_err[name],
             "ms": ms, "plain_ms": plain_ms, "bound_ms": bound_ms,
-            "bound_by": bound_by, "library_ms": lib_ms})
+            "bound_by": bound_by, "library_ms": lib_ms, "library_call_ms": call_ms})
     return rows
 
 
@@ -1485,6 +1612,7 @@ def main():
     phase_uncached(tr, reqs, GAT_SIZES, gat_attention, tr.model_cfg.num_layers,
                    "[gat]")
     rows += phase_time_gat(tr, gat_launches, max_abs_err)
+    phase_clocks_gat(tr)
     del tr, reqs
     torch.cuda.empty_cache()
 

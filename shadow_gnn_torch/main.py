@@ -7,9 +7,13 @@ The train path of ``shadow_gnn_tpu/main.py``, with its flags of that
 path (the precision trade ``--matmul_precision bfloat16``,
 ``--compute_dtype bfloat16``, ``--feat_dtype bfloat16`` among them),
 plus ``--device`` (default ``cuda``; ``cpu`` runs the plain PyTorch
-versions of the kernels).  The JAX CLI's other flags, and
-``--matmul_precision tensorfloat32``, are accepted by name and refused
-with an error, because the parts they select are not ported yet.
+versions of the kernels).  ``--gpu N`` (a no-op in the JAX CLI, kept
+for the reference CLI) selects ``cuda:N`` when ``--device`` is not
+given.  ``--device_ppr auto`` and ``host`` both run the host PPR push,
+the only PPR the port has.  The JAX CLI's other flags,
+``--device_ppr device`` and ``--matmul_precision tensorfloat32`` are
+accepted by name and refused with an error, because the parts they
+select are not ported yet.
 """
 from __future__ import annotations
 
@@ -23,7 +27,7 @@ import traceback
 UNPORTED_FLAGS = (
     "inference_dir", "inference_configs", "is_inf_train", "postproc_configs",
     "postproc_dir", "compute_complexity_only", "inference_budget",
-    "platform", "chunk_batches", "device_ppr", "prng",
+    "platform", "chunk_batches", "prng",
     "data_tarball", "meta_config",
     "reload_model_dir", "trace_dir", "distributed", "partition",
     "partition_devices",
@@ -64,8 +68,15 @@ def build_argparser():
                    choices=["float32", "bfloat16"],
                    help="device feature-table storage dtype; bfloat16 rounds "
                         "the features once at upload")
-    p.add_argument("--device", type=str, default="cuda",
+    p.add_argument("--device", type=str, default=None,
                    help="torch device: cuda (default) or cpu")
+    p.add_argument("--gpu", type=int, default=None,
+                   help="accepted for reference-CLI compatibility: the card "
+                        "cuda:N when --device is not given")
+    p.add_argument("--device_ppr", type=str, default="auto",
+                   choices=["auto", "host", "device"],
+                   help="PPR precompute: auto and host run the host push (the "
+                        "device power iteration is not ported)")
     p.add_argument("--no_pbar", action="store_true",
                    help="accepted for reference-CLI compatibility (no-op)")
     for name in UNPORTED_FLAGS:
@@ -77,7 +88,10 @@ def build_argparser():
     return p
 
 
-def main(argv=None):
+def parse_args(argv=None):
+    """The parsed command line, ``device`` resolved (``--gpu N`` to
+    ``cuda:N``); exits with usage error 2 on a flag of an unported part
+    or on ``--gpu`` with ``--device cpu``."""
     parser = build_argparser()
     args = parser.parse_args(argv)
     given = [n for n in UNPORTED_FLAGS if getattr(args, n) not in (None, False)]
@@ -85,10 +99,24 @@ def main(argv=None):
         given.append("fused_gat off")
     if args.matmul_precision == "tensorfloat32":
         given.append("matmul_precision tensorfloat32")
+    if args.device_ppr == "device":
+        given.append("device_ppr device")
     if given:
         parser.error("not ported to the PyTorch package yet: "
                      + ", ".join(f"--{n}" for n in given)
                      + " (use python -m shadow_gnn_tpu.main)")
+    if args.gpu is not None:
+        if args.device is not None and args.device.startswith("cpu"):
+            parser.error("--gpu selects a card; it cannot go with --device cpu")
+        if args.device is None:
+            args.device = f"cuda:{args.gpu}"
+    if args.device is None:
+        args.device = "cuda"
+    return args
+
+
+def main(argv=None):
+    args = parse_args(argv)
     import numpy as np
     import yaml
 

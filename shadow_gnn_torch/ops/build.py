@@ -19,7 +19,11 @@ CSRC = os.path.join(_PKG, "csrc")
 BUILD_DIR = os.path.join(_PKG, "_build")
 # library name -> source file in csrc/
 KERNEL_SOURCES = {"packed_spmm": "packed_spmm.cu",
-                  "gat_attention": "gat_attention.cu"}
+                  "gat_attention": "gat_attention.cu",
+                  "gat_attention_clocks": "gat_attention.cu"}
+# library name -> extra nvcc flags: the GAT kernels with their per-phase
+# clocks compiled in (chip_smoke.py's phase_clocks_gat reads them)
+KERNEL_FLAGS = {"gat_attention_clocks": ["-DGAT_PHASE_CLOCKS"]}
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
 
@@ -59,7 +63,7 @@ def build(names: Optional[Iterable[str]] = None) -> Dict[str, str]:
     procs = {}
     for name in todo:
         tmp = f"{library_path(name)}.{os.getpid()}.tmp"
-        cmd = [nvcc, *NVCC_FLAGS, "-o", tmp,
+        cmd = [nvcc, *NVCC_FLAGS, *KERNEL_FLAGS.get(name, []), "-o", tmp,
                os.path.join(CSRC, KERNEL_SOURCES[name])]
         procs[name] = (subprocess.Popen(cmd, stdout=subprocess.PIPE,
                                         stderr=subprocess.STDOUT, text=True), tmp)

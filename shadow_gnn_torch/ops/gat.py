@@ -35,34 +35,95 @@ with its custom VJP, node-major values, every level).
 from __future__ import annotations
 
 import ctypes
+from typing import NamedTuple
 
 import torch
 
 from shadow_gnn_torch.ops.precision import round_bf16
 
-ROWS_PER_BLOCK = 8      # output rows per block of the rows kernels
-COLS_PER_BLOCK = 32     # columns per block of the backward's column kernel
-THREADS = 256           # 8 warps
-MAX_DH = 256            # each lane keeps dh / 32 values in registers
+THREADS = 512           # 16 warps a CTA, both kernels
+MAX_DH = 256            # a lane owns 4 features of each 128
 MAX_SMEM = 232_448      # dynamic shared memory one block may use on sm_90
+# two CTAs an SM: (228 KB less 1 KB reserved per CTA) / 2
+SMEM_TWO_PER_SM = 115_712
+EDGE_SLOT_BYTES = 8     # an edge slot: e, then ds (f32); its row and column (u16)
+MIN_SMEM_EDGES = 1024   # slots a staged slice of v or g must leave room for
+MAX_N = 907             # the backward's two bitmaps fit one block
 
 
-def launch_dims(b: int, n: int):
-    """Launch shapes of both kernels for B subgraphs of N nodes:
-    (rows grid, threads, rows shared bytes, row tiles, column grid,
-    column shared bytes, column tiles).
+class GatLaunch(NamedTuple):
+    """Launch shapes of both kernels (``launch_dims``)."""
+    fwd_grid: int       # B * H * split CTAs, b-major
+    fwd_cluster: int    # CTAs of a subgraph that share its bitmap
+    split: int          # the forward's dh split: a CTA owns dh / split features
+    fwd_edge_cap: int   # edge slots in shared memory
+    fwd_smem: int
+    bwd_grid: int       # B * H CTAs, b-major
+    bwd_cluster: int
+    g_staged: bool      # the backward stages g's head slice in shared memory
+    bwd_edge_cap: int
+    bwd_smem: int
+    chunks: int         # 128-feature chunks of a (node, head) row
+    threads: int
 
-    Rows kernels: one block per (subgraph, tile of ROWS_PER_BLOCK rows);
-    shared memory holds each tile row's adjn values (f32) and structural
-    columns (u16), one score row per warp (f32) and the row counts.
-    Column kernel: one block per (subgraph, tile of 32 columns); shared
-    memory holds a bitmap of each column."""
-    r, warps = ROWS_PER_BLOCK, THREADS // 32
-    tiles = -(-n // r)
-    smem = 4 * r * n + 4 * warps * n + 4 * r + 2 * r * n
-    col_tiles = -(-n // COLS_PER_BLOCK)
-    col_smem = 4 * COLS_PER_BLOCK * -(-n // 32)
-    return b * tiles, THREADS, smem, tiles, b * col_tiles, col_smem, col_tiles
+
+def _fwd_base(n: int) -> int:
+    """The forward's shared memory without v and the edge slots: mbarrier |
+    a_n, a_s, rm, D [n] f32 | rowstart [n+1] i32 | scan [32] i32 | bitmap
+    [n, ceil(n/32)] u32."""
+    return 16 + 16 * n + 4 * (n + 1) + 128 + 4 * n * -(-n // 32)
+
+
+def _bwd_base(n: int) -> int:
+    """The backward's shared memory without g and the edge slots: mbarrier |
+    a_n, a_s, rm, D, r [n] f32 | colstart [n+1] i32 | scan [32] i32 | row and
+    column bitmaps [n, ceil(n/32)] u32 each."""
+    return 16 + 20 * n + 4 * (n + 1) + 128 + 8 * n * -(-n // 32)
+
+
+def _slots(n: int, used: int):
+    """(edge slots, shared bytes) beside ``used`` bytes: the rest of two
+    CTAs' share of an SM, or of one block's when ``used`` passes it."""
+    budget = SMEM_TWO_PER_SM if used <= SMEM_TWO_PER_SM else MAX_SMEM
+    cap = max(0, min(n * n, (budget - used) // EDGE_SLOT_BYTES))
+    return cap, used + EDGE_SLOT_BYTES * cap
+
+
+def _cluster(ctas: int) -> int:
+    """Clusters of two CTAs of a subgraph where it has an even count: a
+    cluster of four keeps 8 of the 132 SMs idle (124 take clusters of 4)."""
+    return 2 if ctas % 2 == 0 else 1
+
+
+def scratch_bytes(grid: int, n: int, edge_cap: int) -> int:
+    """The scratch buffer of a launch: N^2 slots per CTA when a subgraph
+    could have more edges than ``edge_cap``, else none."""
+    return grid * n * n * EDGE_SLOT_BYTES if edge_cap < n * n else 0
+
+
+def launch_dims(b: int, n: int, h: int, dh: int) -> GatLaunch:
+    """Launch shapes for B subgraphs of N nodes, H heads of width dh.
+
+    Forward: one CTA per (subgraph, head, dh slice); the split is the
+    smallest divisor of dh/4 whose slice of v and MIN_SMEM_EDGES slots fit
+    two CTAs an SM (else one).  Backward: one CTA per (subgraph,
+    head); g's head slice is staged when it and MIN_SMEM_EDGES slots fit
+    two CTAs an SM.  The rest of that budget (or of the whole block's,
+    when the structure alone passes it) holds edge slots; a CTA whose
+    subgraph has more edges uses its N^2 slots of the scratch buffer.
+    Pairs of a subgraph's CTAs form clusters that share its bitmap."""
+    quads = max(dh // 4, 1)
+    splits = [c for c in range(1, quads + 1) if quads % c == 0]
+    few = EDGE_SLOT_BYTES * min(n * n, MIN_SMEM_EDGES)
+    split = next((c for budget in (SMEM_TWO_PER_SM, MAX_SMEM) for c in splits
+                  if _fwd_base(n) + 4 * n * (dh // c) + few <= budget), splits[-1])
+    fwd_cap, fwd_smem = _slots(n, _fwd_base(n) + 4 * n * (dh // split))
+    g_bytes = 4 * n * dh
+    staged = _bwd_base(n) + g_bytes + few <= SMEM_TWO_PER_SM
+    bwd_cap, bwd_smem = _slots(n, _bwd_base(n) + (g_bytes if staged else 0))
+    return GatLaunch(b * h * split, _cluster(h * split), split, fwd_cap, fwd_smem,
+                     b * h, _cluster(h), staged, bwd_cap, bwd_smem,
+                     1 if dh <= 128 else 2, THREADS)
 
 
 def _levels(bf16: bool, bf16_scores: bool) -> int:
@@ -122,25 +183,40 @@ def gat_attention_bwd_plain(att_self, att_neigh, values, adj_norm, adj_struct,
     return ds.sum(-1), ds.sum(-2), dv.permute(0, 2, 1, 3).to(values.dtype)
 
 
-def _lib_fn(name: str, n_ptr: int, n_int: int):
+# the kernel library the wrappers launch from; chip_smoke.py switches it
+# to "gat_attention_clocks" (the same kernels with per-phase clocks)
+LIBRARY = "gat_attention"
+
+
+def _lib_fn(name: str, n_ptr: int, n_int: int, stream: bool = True):
     from shadow_gnn_torch.ops.build import load
-    fn = getattr(load("gat_attention"), name)
+    fn = getattr(load(LIBRARY), name)
     if fn.argtypes is None:
         fn.restype = ctypes.c_int
         fn.argtypes = ([ctypes.c_void_p] * n_ptr + [ctypes.c_int] * n_int
-                       + [ctypes.c_void_p])
+                       + [ctypes.c_void_p] * stream)
     return fn
 
 
-def check_limits(b: int, n: int, dh: int):
-    """Raise unless the kernels take B subgraphs of N nodes at head
-    width dh (u16 column lists, dh / 32 values per lane, the rows
-    kernels' shared memory)."""
-    grid, _, smem, _, _, _, _ = launch_dims(b, n)
-    if n > 65535 or dh > MAX_DH or smem > MAX_SMEM or grid >= 2**31:
-        raise ValueError(f"gat_attention: N={n}, dh={dh}, B={b} beyond the "
-                         f"kernels' limits (dh <= {MAX_DH}, shared memory "
-                         f"{smem} <= {MAX_SMEM} bytes)")
+def check_limits(b: int, n: int, h: int, dh: int):
+    """Raise unless the kernels take B subgraphs of N nodes, H heads of
+    width dh: dh <= 256 and a multiple of 4 (float4 rows), the
+    backward's bitmaps and lists in shared memory (N <= MAX_N)."""
+    d = launch_dims(b, n, h, dh)
+    if (n > MAX_N or dh > MAX_DH or dh % 4 or d.fwd_grid >= 2**31
+            or max(d.fwd_smem, d.bwd_smem) > MAX_SMEM):
+        raise ValueError(f"gat_attention: N={n}, H={h}, dh={dh}, B={b} beyond "
+                         f"the kernels' limits (dh <= {MAX_DH} and a multiple of "
+                         f"4, shared memory {max(d.fwd_smem, d.bwd_smem)} <= "
+                         f"{MAX_SMEM} bytes: N <= {MAX_N})")
+
+
+def occupancy(b: int, n: int, h: int, dh: int):
+    """CTAs of (the forward, the backward) one SM holds at their launch
+    shapes for B subgraphs of N nodes, H heads of width dh (on the card)."""
+    d = launch_dims(b, n, h, dh)
+    fn = _lib_fn("gat_attention_occupancy", 0, 3, stream=False)
+    return (fn(0, d.threads, d.fwd_smem), fn(1, d.threads, d.bwd_smem))
 
 
 def _check_cuda(args):
@@ -161,8 +237,18 @@ def _check_cuda(args):
                          + ", ".join(str(t.device) for t in args))
     if any(t.dtype != torch.float32 for t in args):
         raise TypeError("gat_attention: the kernels take float32 tensors")
-    check_limits(b, n, dh)
+    check_limits(b, n, h, dh)
     return b, n, h, dh
+
+
+def _scratch(grid: int, n: int, edge_cap: int, device):
+    """The edge slots of the CTAs whose subgraph outgrows shared memory."""
+    nbytes = scratch_bytes(grid, n, edge_cap)
+    return torch.empty(nbytes, dtype=torch.uint8, device=device) if nbytes else None
+
+
+def _ptr(t):
+    return None if t is None else t.data_ptr()
 
 
 def _count(fn, level: int):
@@ -184,12 +270,14 @@ def _forward(a_s, a_n, v, adj_norm, adj_struct, bf16=False, bf16_scores=False):
     out = torch.empty_like(args[2])
     if out.numel() == 0:
         return out
-    grid, threads, smem, tiles, _, _, _ = launch_dims(b, n)
+    d = launch_dims(b, n, h, dh)
+    scratch = _scratch(d.fwd_grid, n, d.fwd_edge_cap, out.device)
     with torch.cuda.device(out.device):
         stream = torch.cuda.current_stream().cuda_stream
-        rc = _lib_fn("gat_attention_forward", 6, 10)(
-            *(t.data_ptr() for t in args), out.data_ptr(), b, n, h, dh,
-            ROWS_PER_BLOCK, tiles, grid, threads, smem, level, stream)
+        rc = _lib_fn("gat_attention_forward", 7, 11)(
+            *(t.data_ptr() for t in args), out.data_ptr(), _ptr(scratch), n, h, dh,
+            d.split, d.fwd_edge_cap, d.chunks, d.fwd_grid, d.fwd_cluster, d.threads,
+            d.fwd_smem, level, stream)
     if rc != 0:
         raise RuntimeError(f"gat_attention forward kernel launch failed: CUDA error {rc}")
     _count(gat_attention, level)
@@ -200,9 +288,9 @@ def gat_attention_bwd(att_self, att_neigh, values, adj_norm, adj_struct, out, g,
                       bf16=False, bf16_scores=False):
     """The backward of :func:`gat_attention`: (das, dan [B, H, N],
     dv [B, N, H, dh] in the values' dtype).  B3 (B3b at the bf16 levels)
-    on CUDA tensors: one row-pass and one column-pass kernel, counted as
-    one launch in ``gat_attention_bwd.launches`` (``launches_bf16``).
-    The plain version on CPU tensors."""
+    on CUDA tensors, one kernel launch, counted in
+    ``gat_attention_bwd.launches`` (``launches_bf16``).  The plain
+    version on CPU tensors."""
     level = _levels(bf16, bf16_scores)
     args = (att_self, att_neigh, values, adj_norm, adj_struct, out, g)
     if all(t.device.type == "cpu" for t in args):
@@ -215,14 +303,14 @@ def gat_attention_bwd(att_self, att_neigh, values, adj_norm, adj_struct, out, g,
     dv = torch.empty_like(args[2])
     if dv.numel() == 0:
         return das.zero_(), dan.zero_(), dv.to(values.dtype)
-    stats = torch.empty((3,) + tuple(args[0].shape), device=dv.device)
-    grid, threads, smem, tiles, col_grid, col_smem, col_tiles = launch_dims(b, n)
+    d = launch_dims(b, n, h, dh)
+    scratch = _scratch(d.bwd_grid, n, d.bwd_edge_cap, dv.device)
     with torch.cuda.device(dv.device):
         stream = torch.cuda.current_stream().cuda_stream
-        rc = _lib_fn("gat_attention_backward", 11, 13)(
+        rc = _lib_fn("gat_attention_backward", 11, 11)(
             *(t.data_ptr() for t in args), das.data_ptr(), dan.data_ptr(),
-            dv.data_ptr(), stats.data_ptr(), b, n, h, dh, ROWS_PER_BLOCK, tiles,
-            grid, threads, smem, col_tiles, col_grid, col_smem, level, stream)
+            dv.data_ptr(), _ptr(scratch), n, h, dh, int(d.g_staged), d.bwd_edge_cap,
+            d.chunks, d.bwd_grid, d.bwd_cluster, d.threads, d.bwd_smem, level, stream)
     if rc != 0:
         raise RuntimeError(f"gat_attention backward kernel launch failed: CUDA error {rc}")
     _count(gat_attention_bwd, level)

@@ -20,14 +20,27 @@ import torch
 from shadow_gnn_torch.data.graph import DeviceGraph
 from shadow_gnn_torch.sampling.batch import SamplerConfig, SubgraphBatch
 
-# device-memory budget for the row induction's [B, N, deg_cap] gather
+# device-memory budget for the row induction's [B, N, deg_cap] gather:
+# membership_matrix_rows works through a batch in chunks that fit it
 ROWS_GATHER_BUDGET = 2 * 1024**3
+# the JAX package's budget and footprint formula, which its plan's
+# memory filter reads (shadow_gnn_tpu/sampling/induction.py:36-44): the
+# port chooses the same deg_cap, so it keeps its own copy of both
+PLAN_GATHER_BUDGET = 2 * 1024**3
 
 
 def rows_gather_bytes(batch: int, n_pad: int, deg_cap: int) -> int:
     """Device bytes of :func:`membership_matrix_rows`' neighbour gather:
     positions, ids and search results, int64 each."""
     return batch * n_pad * deg_cap * 8 * 3
+
+
+def plan_gather_bytes(batch: int, n_pad: int, deg_cap: int,
+                      row_block: int = 32) -> int:
+    """The JAX package's ``rows_gather_bytes``: its block gather, one
+    512-byte tile per gathered row of ``row_block`` neighbours."""
+    r_blocks = (deg_cap - 1) // row_block + 2
+    return batch * n_pad * r_blocks * 512
 
 
 def bucket_cap(n: int) -> int:
@@ -47,11 +60,13 @@ def plan_ppr_induction(scope_deg, root_deg, *, n_pad: int, num_targets: int,
 
     ``scope_deg`` is the [T, k] degree table of the scope members (0 at
     padding), ``root_deg`` the [T] root degrees.  Returns SamplerConfig
-    field overrides.  The candidate ``deg_cap`` values and the cost
-    model are the JAX package's; the memory filter uses this port's
-    gather footprint.  A plan that needs the hub table (undirected) or
-    candidate enumeration (directed, scope degree above 4096) is not
-    ported and raises.
+    field overrides.  ``deg_cap`` is chosen exactly as the JAX package
+    chooses it: its candidates, its cost model and its memory filter
+    (:func:`plan_gather_bytes`), so every hub-free rows plan is the same
+    dict.  The port's own gather footprint does not choose:
+    :func:`membership_matrix_rows` chunks the batch to fit it.  A plan
+    that needs the hub table (undirected) or candidate enumeration
+    (directed, scope degree above 4096) is not ported and raises.
     """
     scope_max = int(max(scope_deg.max() if scope_deg.size else 1,
                         root_deg.max() if root_deg.size else 1, 1))
@@ -59,14 +74,14 @@ def plan_ppr_induction(scope_deg, root_deg, *, n_pad: int, num_targets: int,
                       if d < scope_max} | {scope_max})
     gbatch = max(batch_size, 256)
     choices = [d for d in choices
-               if rows_gather_bytes(gbatch, n_pad, d) <= ROWS_GATHER_BUDGET
+               if plan_gather_bytes(gbatch, n_pad, d) <= PLAN_GATHER_BUDGET
                ] or [choices[0]]
     best = None
     for dc in choices:
         h_rows = (scope_deg > dc).sum(1) + (root_deg > dc)
         h_max = int(h_rows.max())
         cost = (n_pad * n_pad * dc / 2400
-                + rows_gather_bytes(1, n_pad, dc) / 819
+                + plan_gather_bytes(1, n_pad, dc) / 819
                 + 2400 * (h_max * num_targets) ** 2)
         if best is None or cost < best[0]:
             best = (cost, dc, h_max)
@@ -85,9 +100,23 @@ def membership_matrix_rows(graph: DeviceGraph, nodes: torch.Tensor,
 
     Members of degree above ``deg_cap`` contribute no row; they are
     counted in the returned overflow (zero when the caller sizes
-    ``deg_cap`` at the scope's max degree).
+    ``deg_cap`` at the scope's max degree).  The [B, N, deg_cap]
+    neighbour gather runs over chunks of the batch that each fit
+    ``ROWS_GATHER_BUDGET``.
     Returns (adj [B,N,N] f32, overflow int).
     """
+    b, n = nodes.shape
+    chunk = max(1, ROWS_GATHER_BUDGET // max(rows_gather_bytes(1, n, deg_cap), 1))
+    if b <= chunk:
+        return _membership_rows(graph, nodes, deg_cap)
+    parts = [_membership_rows(graph, nodes[i:i + chunk], deg_cap)
+             for i in range(0, b, chunk)]
+    return (torch.cat([a for a, _ in parts]), sum(o for _, o in parts))
+
+
+def _membership_rows(graph: DeviceGraph, nodes: torch.Tensor,
+                     deg_cap: int) -> tuple:
+    """:func:`membership_matrix_rows` over one chunk of the batch."""
     n_id = graph.num_nodes
     b, n = nodes.shape
     row_valid = nodes < n_id

@@ -153,20 +153,58 @@ def test_prepare_adj_matches_jax(aggr, p):
         np.testing.assert_array_equal(got[0].numpy(), adj * mask)
 
 
-def test_launch_dims():
-    r, warps = tg.ROWS_PER_BLOCK, tg.THREADS // 32
-    for b, n in ((1, 13), (128, 152), (64, 408), (2, 2900)):
-        grid, threads, smem, tiles, col_grid, col_smem, col_tiles = tg.launch_dims(b, n)
-        assert tiles * r >= n > (tiles - 1) * r and grid == b * tiles
-        assert col_tiles * 32 >= n > (col_tiles - 1) * 32 and col_grid == b * col_tiles
-        assert threads == 32 * warps
-        # wv[r*n] f32 | pe[warps*n] f32 | cnt[r] i32 | nbr[r*n] u16
-        assert smem == 4 * r * n + 4 * warps * n + 4 * r + 2 * r * n
-        assert col_smem == 4 * 32 * -(-n // 32)
-        assert smem <= tg.MAX_SMEM
-    # the products shape: B=128, N=152 (k=150)
-    assert tg.launch_dims(128, 152) == (2432, 256, 12192, 19, 640, 640, 5)
-    assert tg.launch_dims(3, 2920)[2] > tg.MAX_SMEM
+@pytest.mark.parametrize("b, n", [(1, 13), (128, 152), (64, 408), (2, tg.MAX_N)])
+@pytest.mark.parametrize("dh", [8, 128, 200])
+def test_launch_dims(b, n, dh):
+    h = 4
+    d = tg.launch_dims(b, n, h, dh)
+    words = -(-n // 32)
+    few = 8 * min(n * n, tg.MIN_SMEM_EDGES)
+    # forward: a CTA per (subgraph, head, dh slice), slices of whole float4s;
+    # the smallest split that fits two CTAs an SM, else one
+    fwd_base = 16 + 16 * n + 4 * (n + 1) + 128 + 4 * n * words
+    assert (dh // 4) % d.split == 0 and d.fwd_grid == b * h * d.split
+    splits = [c for c in range(1, dh // 4 + 1) if (dh // 4) % c == 0]
+    two = [c for c in splits if fwd_base + 4 * n * (dh // c) + few <= tg.SMEM_TWO_PER_SM]
+    one = [c for c in splits if fwd_base + 4 * n * (dh // c) + few <= tg.MAX_SMEM]
+    assert d.split == (two or one)[0]
+    assert d.fwd_smem == fwd_base + 4 * n * (dh // d.split) + 8 * d.fwd_edge_cap
+    # backward: a CTA per (subgraph, head); g staged where it fits two an SM
+    bwd_base = 16 + 20 * n + 4 * (n + 1) + 128 + 8 * n * words
+    assert d.bwd_grid == b * h
+    assert d.g_staged == (bwd_base + 4 * n * dh + few <= tg.SMEM_TWO_PER_SM)
+    g_bytes = 4 * n * dh if d.g_staged else 0
+    assert d.bwd_smem == bwd_base + g_bytes + 8 * d.bwd_edge_cap
+    for cap, smem in ((d.fwd_edge_cap, d.fwd_smem), (d.bwd_edge_cap, d.bwd_smem)):
+        # the slots fill two CTAs' share of an SM, or one block
+        assert cap <= n * n and smem <= tg.MAX_SMEM
+        assert cap == n * n or smem + 8 > min(
+            b_ for b_ in (tg.SMEM_TWO_PER_SM, tg.MAX_SMEM) if b_ >= smem)
+    # pairs of a subgraph's CTAs share its bitmap
+    assert d.fwd_cluster == d.bwd_cluster == 2
+    assert d.chunks == (1 if dh <= 128 else 2) and d.threads == 512
+    # the scratch buffer: N^2 slots a CTA wherever a subgraph could outgrow
+    # shared memory
+    assert tg.scratch_bytes(d.bwd_grid, n, d.bwd_edge_cap) == (
+        0 if d.bwd_edge_cap == n * n else d.bwd_grid * n * n * 8)
+
+
+def test_launch_dims_shapes():
+    # the products shape: B=128, N=152 (k=150), H=4, dh=128: v and g
+    # staged, about 3500-4000 edge slots in shared memory, two CTAs an SM
+    assert tg.launch_dims(128, 152, 4, 128) == tg.GatLaunch(
+        fwd_grid=512, fwd_cluster=2, split=1, fwd_edge_cap=3957, fwd_smem=115708,
+        bwd_grid=512, bwd_cluster=2, g_staged=True, bwd_edge_cap=3501,
+        bwd_smem=115708, chunks=1, threads=512)
+    # papers GAT-3 (N=408, dh=200): g from global memory, v in 5 slices
+    d = tg.launch_dims(64, 408, 4, 200)
+    assert not d.g_staged and d.split == 5
+    # a small block keeps every slot in shared memory; one head alone
+    # makes no cluster
+    d = tg.launch_dims(32, 16, 1, 8)
+    assert d.fwd_edge_cap == d.bwd_edge_cap == 256 and d.bwd_cluster == 1
+    # MAX_N is the largest N whose bitmaps fit one block
+    assert tg._bwd_base(tg.MAX_N) <= tg.MAX_SMEM < tg._bwd_base(tg.MAX_N + 1)
 
 
 def test_wrapper_guards():
@@ -194,12 +232,15 @@ def test_wrapper_guards():
             tg.gat_attention(*meta[:k], bad, *meta[k + 1:])
     with pytest.raises(ValueError, match="do not match"):
         tg.gat_attention_bwd(*meta, meta[2], meta[2][..., :-1])
-    # the kernels' limits: dh beyond 256 and N beyond the shared memory
-    for b, n, dh in ((128, 152, 128), (16, 408, 200), (2, 2900, 256)):
-        tg.check_limits(b, n, dh)
-    for b, n, dh in ((2, 16, 257), (3, 2920, 128)):
+    # the kernels' limits: dh beyond 256 or not a multiple of 4, N beyond
+    # the backward's bitmaps in shared memory
+    for b, n, h, dh in ((128, 152, 4, 128), (16, 408, 4, 200), (64, 408, 4, 200),
+                        (2, tg.MAX_N, 4, 256), (2, tg.MAX_N, 1, 8)):
+        tg.check_limits(b, n, h, dh)
+    for b, n, h, dh in ((2, 16, 1, 257), (2, 16, 4, 260), (2, 16, 4, 10),
+                        (2, tg.MAX_N + 1, 4, 128), (3, 2920, 4, 128)):
         with pytest.raises(ValueError, match="limits"):
-            tg.check_limits(b, n, dh)
+            tg.check_limits(b, n, h, dh)
     # on the CPU nothing counts as a kernel launch, at any level
     counts = [tg.gat_attention.launches, tg.gat_attention_bwd.launches,
               tg.gat_attention.launches_bf16, tg.gat_attention_bwd.launches_bf16]

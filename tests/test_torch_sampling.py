@@ -13,6 +13,7 @@ from shadow_gnn_tpu import TEST, TRAIN
 from shadow_gnn_tpu.data import make_synthetic_dataset as j_make
 from shadow_gnn_tpu.sampling import cache as jcache
 from shadow_gnn_tpu.sampling.induction import induce as j_induce
+from shadow_gnn_tpu.sampling.induction import plan_ppr_induction as j_plan
 from shadow_gnn_tpu.sampling.samplers import sample_nodes_ppr as j_sample
 from shadow_gnn_tpu.train.config import parse_config as j_parse
 from shadow_gnn_tpu.train.logger import Logger
@@ -20,6 +21,7 @@ from shadow_gnn_tpu.train.metrics import Metrics
 from shadow_gnn_tpu.train.pipeline import Trainer as JTrainer
 from shadow_gnn_torch.data import make_synthetic_dataset as t_make
 from shadow_gnn_torch.sampling import cache as tcache
+from shadow_gnn_torch.sampling import induction as tinduction
 from shadow_gnn_torch.sampling import ppr as tppr
 from shadow_gnn_torch.sampling.induction import induce as t_induce
 from shadow_gnn_torch.sampling.samplers import sample_nodes_ppr as t_sample
@@ -102,6 +104,63 @@ def test_plan_ppr_induction_fields(trainers):
     for f in dataclasses.fields(tc):
         assert getattr(tc, f.name) == getattr(jc, f.name), f.name
     assert tc.induction == "rows" and tc.hub_slots == 0 and tc.n_pad == 24
+
+
+# the degree of the one hub member in each plan of the grid below
+HUB_DEGREES = (100, 200, 230, 235, 600, 5000)
+
+
+@pytest.mark.parametrize("undirected", [True, False])
+@pytest.mark.parametrize("n_pad", [24, 158, 208])
+@pytest.mark.parametrize("num_targets", [1, 2])
+def test_plan_ppr_induction_grid(undirected, n_pad, num_targets):
+    """The plan against JAX's over degree tables of every scope degree
+    10 but one member: the same dict wherever JAX plans hub-free rows,
+    NotImplementedError wherever it plans hub rows or ``cand``."""
+    k = n_pad - 8 if n_pad > 24 else 16
+    root_deg = np.full(40, 10)
+    for batch in (64, 128, 256):
+        for hub in HUB_DEGREES:
+            scope_deg = np.full((40, k), 10)
+            scope_deg[3, 5] = hub
+            kw = dict(n_pad=n_pad, num_targets=num_targets, batch_size=batch,
+                      undirected=undirected)
+            want = j_plan(scope_deg, root_deg, **kw)
+            if want["induction"] == "rows" and want["hub_slots"] == 0:
+                got = tinduction.plan_ppr_induction(scope_deg, root_deg, **kw)
+                assert got == want, (batch, hub)
+            else:
+                with pytest.raises(NotImplementedError):
+                    tinduction.plan_ppr_induction(scope_deg, root_deg, **kw)
+
+
+def test_plan_ppr_induction_hub_row_repro():
+    """An undirected products-sized scope (n_pad 158, batch 128) with one
+    member of degree 230: JAX sizes the rows at deg_cap 256 with no hub
+    row, and so does the port."""
+    scope_deg = np.full((40, 150), 10)
+    scope_deg[3, 5] = 230
+    kw = dict(n_pad=158, num_targets=1, batch_size=128, undirected=True)
+    want = {"induction": "rows", "deg_cap": 256, "hub_slots": 0}
+    assert j_plan(scope_deg, np.full(40, 10), **kw) == want
+    assert tinduction.plan_ppr_induction(scope_deg, np.full(40, 10), **kw) == want
+
+
+def test_membership_rows_chunked(trainers, monkeypatch):
+    """Under a gather budget small enough to split the batch into chunks
+    the row induction gives the same block and overflow as in one piece."""
+    _, ttr = trainers
+    roots, rows = _roots(ttr)
+    tc = ttr.branches[0]["cfg"][TEST]
+    nodes, _ = t_sample(tc, ttr.graph[TEST], torch.as_tensor(roots),
+                        torch.as_tensor(rows), ttr.tables[TEST][0])
+    whole = tinduction.membership_matrix_rows(ttr.graph[TEST], nodes, 16)
+    per_root = tinduction.rows_gather_bytes(1, nodes.shape[1], 16)
+    monkeypatch.setattr(tinduction, "ROWS_GATHER_BUDGET", 5 * per_root)
+    chunked = tinduction.membership_matrix_rows(ttr.graph[TEST], nodes, 16)
+    assert nodes.shape[0] > 5
+    assert torch.equal(chunked[0], whole[0]) and chunked[1] == whole[1]
+    assert whole[0].sum() > 0 and whole[1] > 0
 
 
 def _roots(jtr, n=40):

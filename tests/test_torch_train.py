@@ -329,3 +329,35 @@ def test_cli_end_to_end(tmp_path):
                            capture_output=True, text=True, env=env, cwd=ROOT,
                            timeout=300)
         assert r.returncode == 2 and flag[0] in r.stderr
+
+
+CLI_BASE = ["--configs", "toy.yml", "--dataset", "toy"]
+
+
+@pytest.mark.parametrize("flags, device", [
+    ([], "cuda"), (["--gpu", "0"], "cuda:0"), (["--gpu", "2"], "cuda:2"),
+    (["--gpu", "1", "--device", "cuda:0"], "cuda:0"),
+    (["--device", "cpu"], "cpu")])
+def test_cli_gpu_flag(flags, device):
+    """``--gpu N`` selects ``cuda:N`` unless ``--device`` is given (the
+    parsed arguments only: no Trainer is built)."""
+    from shadow_gnn_torch.main import parse_args
+    assert parse_args(CLI_BASE + flags).device == device
+
+
+@pytest.mark.parametrize("mode", ["auto", "host"])
+def test_cli_device_ppr_host(mode):
+    from shadow_gnn_torch.main import parse_args
+    assert parse_args(CLI_BASE + ["--device_ppr", mode]).device_ppr == mode
+
+
+@pytest.mark.parametrize("flags, name", [
+    (["--device_ppr", "device"], "--device_ppr device"),
+    (["--gpu", "0", "--device", "cpu"], "--gpu")])
+def test_cli_refuses(flags, name, capsys):
+    """``--device_ppr device`` (the unported device power iteration) is
+    refused by name, and so is ``--gpu`` beside ``--device cpu``."""
+    from shadow_gnn_torch.main import parse_args
+    with pytest.raises(SystemExit) as exc:
+        parse_args(CLI_BASE + flags)
+    assert exc.value.code == 2 and name in capsys.readouterr().err
