@@ -115,9 +115,34 @@ Phases, each fatal on failure (an uncaught exception, non-zero exit):
              ``compute_dtype="bfloat16"`` and ``feat_dtype="bfloat16"``
              as well (a bf16 feature table, the dense path): serving, the
              first step and 1 epoch;
-10. profile (``--profile`` only) — torch.profiler over cached requests
-             (flagship 1 and 256 ids, GAT 128 ids) and over 5 TRAIN steps
-             of each model, f32 and at bf16 precision: device-busy time
+10. power   — the flagship SAGE-3 (f32, ``packed_adj``) on a power-law
+             graph of the flickr scale (89,250 nodes, avg deg 10, 500
+             features, 7 classes, seed 0, ``power_law=True``; max degree
+             9,444), the same cuts, 1 epoch: each mode's induction plan
+             printed (TRAIN must plan hub slots), serving through B1a and
+             against the plain versions, ``train()`` through B1a/B1b, the
+             hub-induced TRAIN blocks of the cache against the ``search``
+             strategy on the same node tables (bit for bit), uncached
+             serving against cached, then 10 cold (uncached) TRAIN steps
+             with ``induce`` timed against the whole step (CUDA events),
+             printed as ``[induce] cold step: induce X ms of Y ms``;
+11. ensemble — ``configs/arxiv_ensemble_ppr_khop.yml`` at full width
+             (GAT, 2 heads, dim 256, 3 layers; a PPR-100 branch, n_pad
+             104, and a khop depth-2 budget-10 branch, n_pad 112, softmax
+             attention over the two) on an arxiv-width power-law graph
+             (169,343 nodes, avg deg 13.7, 128 features, 40 classes, seed
+             0), TRAIN 4096, VALID 1024, TEST 2048, 2 epochs: plans,
+             serving (6 B2 launches a request; the khop picks seeded per
+             request), the first-step check, ``train()`` with B2 and B3
+             launched from both branches (counted by block width), the
+             khop overflow, and 10 timed TRAIN steps with the khop
+             branch's sampling and induction share;
+12. profile (``--profile`` only) — torch.profiler over cached requests
+             (flagship 1 and 256 ids, GAT 128 ids, the power-law flagship
+             1 and 256, the ensemble 1 and 128) and over 5 TRAIN steps of
+             each model, f32 and at bf16 precision (the power-law
+             flagship's cached and cold steps, the ensemble's steps with
+             their sampling): device-busy time
              per request or step (kernels only), its share of the
              unprofiled p50 request or median step, and the kernels and
              host operations that take the most time.
@@ -157,6 +182,8 @@ GAT_SIZES = (1, 8, 64, 128)
 GAT_TRAIN, GAT_VALID, GAT_TEST = 4096, 1024, 2048
 GAT_DROPEDGE = 0.1              # configs/products_gat_5_ppr_leaderboard.yml
 KINKED_ACTS = ("relu", "prelu", "prelu+", "leakyrelu")   # derivative jumps at 0
+COLD_STEPS = 10                 # timed TRAIN steps of the power-law and ensemble phases
+ENSEMBLE_WIDTHS = (104, 112)    # n_pad of the PPR-100 and the khop 2 x 10 branches
 
 
 def _median(xs):
@@ -705,9 +732,10 @@ def _products_graph():
                             num_classes=47, seed=0, power_law=False)
 
 
-def _flagship_trainer(g, **precision):
-    """The flagship SAGE-3 trainer on the graph ``g``; ``precision``: the
-    Trainer's ``matmul_precision`` / ``compute_dtype`` / ``feat_dtype``."""
+def _flagship_trainer(g, epochs=EPOCHS, **precision):
+    """The flagship SAGE-3 trainer on the graph ``g``, ``epochs`` epochs;
+    ``precision``: the Trainer's ``matmul_precision`` / ``compute_dtype``
+    / ``feat_dtype``."""
     import torch
     from shadow_gnn_torch import TEST, TRAIN, VALID
     from shadow_gnn_torch.train.config import parse_config
@@ -723,7 +751,7 @@ def _flagship_trainer(g, **precision):
                          "feature_smoothen": "none", "label_smoothen": "none",
                          "feature_augment": "hops", "residue": "none",
                          "pooling": "center"},
-        "hyperparameter": {"end": EPOCHS, "lr": 5e-4, "dropout": 0.45,
+        "hyperparameter": {"end": epochs, "lr": 5e-4, "dropout": 0.45,
                            "dropedge": DROPEDGE, "batch_size": 64},
         "sampler": [{"method": "ppr", "phase": "train", "k": [200],
                      "epsilon": [1e-6]}],
@@ -785,11 +813,18 @@ def _check_probs(p, s, num_classes):
         raise AssertionError(f"bad probabilities for a {s}-id request")
 
 
-def _check_emb(e, s, dim):
+def _check_emb(e, s, dim, branches=1):
     import numpy as np
-    if not (len(e) == 1 and e[0].shape == (s, dim) and np.isfinite(e[0]).all()
-            and np.allclose(np.linalg.norm(e[0], axis=1), 1.0, atol=1e-5)):
+    if not (len(e) == branches and all(
+            x.shape == (s, dim) and np.isfinite(x).all()
+            and np.allclose(np.linalg.norm(x, axis=1), 1.0, atol=1e-5) for x in e)):
         raise AssertionError(f"bad embeddings for a {s}-id request")
+
+
+def _per_pass(tr):
+    """Aggregation kernel launches of one forward (or backward): one per
+    conv layer of each ensemble branch."""
+    return tr.model_cfg.num_layers * tr.num_ensemble
 
 
 def _max_diff(fn, reqs, want):
@@ -813,11 +848,14 @@ def phase_serve(tr, sizes, fwd, tag):
     from shadow_gnn_torch import TEST
 
     secs = tr.prepare_serving(TEST)
-    sc = tr.branches[0]["cfg"][TEST]
-    n_layers = tr.model_cfg.num_layers
+    n_layers = _per_pass(tr)
     print(f"{tag} PPR tables {secs['ppr_s']:.2f}s, cache build "
-          f"{secs['cache_s']:.2f}s ({len(tr.entity_set[TEST])} roots, "
-          f"n_pad {sc.n_pad}, induction {sc.induction} deg_cap {sc.deg_cap})")
+          f"{secs['cache_s']:.2f}s ({len(tr.entity_set[TEST])} roots; "
+          + "; ".join(f"branch {i} {br['cfg'][TEST].method} n_pad "
+                      f"{br['cfg'][TEST].n_pad}, induction {br['cfg'][TEST].induction}"
+                      f" deg_cap {br['cfg'][TEST].deg_cap} hub_slots "
+                      f"{br['cfg'][TEST].hub_slots}"
+                      for i, br in enumerate(tr.branches)) + ")")
     rng = np.random.default_rng(0)
     test_ids = np.asarray(tr.entity_set[TEST])
     reqs = {s: [rng.choice(test_ids, s, replace=False) for _ in range(REPEATS)]
@@ -852,7 +890,7 @@ def phase_serve(tr, sizes, fwd, tag):
         if fwd.launches != before + n_layers:
             raise AssertionError(f"an embed_nodes request did not launch "
                                  f"{fwd.__name__} {n_layers} times")
-        _check_emb(e, EMBED_SIZE, tr.model_cfg.dim)
+        _check_emb(e, EMBED_SIZE, tr.model_cfg.dim, tr.num_ensemble)
         emb = e[0] if emb is None else emb
     launches = fwd.launches
     peak = torch.cuda.max_memory_allocated()
@@ -880,8 +918,9 @@ def phase_serve(tr, sizes, fwd, tag):
 
 
 def _train_batch(tr, lo):
-    """The cached TRAIN batch of the mode's nodes lo .. lo+B-1 (roots,
-    labels, weights 1), as ``Trainer._run_batches`` builds it."""
+    """The TRAIN batch of the mode's nodes lo .. lo+B-1 (roots, labels,
+    weights 1), as ``Trainer._run_batches`` builds it (cached branches
+    gathered, khop branches sampled from a generator seeded with ``lo``)."""
     import numpy as np
     import torch
     from shadow_gnn_torch import TRAIN
@@ -890,7 +929,8 @@ def _train_batch(tr, lo):
     with torch.no_grad():
         batches, feats = tr._sample_branch_batches(
             TRAIN, torch.as_tensor(ent[:, None], device="cuda"),
-            torch.arange(lo, lo + b, device="cuda")[:, None])
+            torch.arange(lo, lo + b, device="cuda")[:, None],
+            torch.Generator(device="cuda").manual_seed(lo))
     labels = torch.as_tensor(tr.label_np[ent].astype(np.int64), device="cuda")
     return batches, feats, labels, torch.ones(b, device="cuda")
 
@@ -961,7 +1001,7 @@ def _first_step(tr, fwd, bwd, rng_seed):
         return loss.item(), {k: p.grad.clone()
                              for k, p in tr.model.named_parameters()}, kinks
 
-    n_layers = tr.model_cfg.num_layers
+    n_layers = _per_pass(tr)
     before = (fwd.launches, bwd.launches)
     loss_k, grads_k, kinks_k = one_step()
     got = (fwd.launches - before[0], bwd.launches - before[1])
@@ -1031,15 +1071,16 @@ def _check_step(tr, fwd, bwd, tag, rng_seed):
 @contextlib.contextmanager
 def _smooth_witness(tr):
     """Within the block the trainer holds a model of its configuration
-    with the elu activation, residue none and center pooling, its random
-    weights drawn from seed 0 as the trainer's were."""
+    with the elu activation (the ensemble aggregator's too), residue none
+    and center pooling, its random weights drawn from seed 0 as the
+    trainer's were."""
     import dataclasses
     import torch
     from shadow_gnn_torch.nn.layers import init_params
     from shadow_gnn_torch.nn.model import DeepGNN
     saved = tr.model_cfg, tr.model
     tr.model_cfg = dataclasses.replace(tr.model_cfg, act="elu", residue="none",
-                                       pooling="center")
+                                       pooling="center", ensemble_act="elu")
     tr.model = DeepGNN(tr.model_cfg)
     init_params(tr.model, torch.Generator().manual_seed(0))
     tr.model.to(tr.device).eval()
@@ -1062,7 +1103,7 @@ def phase_train(tr, reqs, fwd, bwd, tag):
         print(f"{tag} {MODE2STR[mode]}: PPR tables {secs['ppr_s']:.2f}s, cache "
               f"build {secs['cache_s']:.2f}s ({len(tr.entity_set[mode])} roots)")
     _first_step_agreement(tr, fwd, bwd, tag)
-    n_layers = tr.model_cfg.num_layers
+    n_layers = _per_pass(tr)
 
     steps, evals, losses, epochs = [], [], [], []
     orig = (tr._train_step, tr._eval_step, tr.run_epoch)
@@ -1541,6 +1582,305 @@ def phase_profile_train(tr, step_ms, tag):
     tr.model.eval()
 
 
+def _flickr_power_graph():
+    return _synthetic_graph("[power]", num_nodes=89_250, avg_deg=10.0, num_feat=500,
+                            num_classes=7, seed=0, power_law=True)
+
+
+def _arxiv_graph():
+    return _synthetic_graph("[ensemble]", num_nodes=169_343, avg_deg=13.7,
+                            num_feat=128, num_classes=40, seed=0, power_law=True)
+
+
+def _print_plans(tr, tag):
+    """Each mode's induction plan of each branch (the PPR tables are
+    built for it first); returns the plans by (mode, branch)."""
+    from shadow_gnn_torch import MODE2STR, TEST, TRAIN, VALID
+    plans = {}
+    for mode in (TRAIN, VALID, TEST):
+        tr._ensure_tables(mode)
+        for i, br in enumerate(tr.branches):
+            c = br["cfg"][mode]
+            plans[mode, i] = {f: getattr(c, f) for f in
+                              ("method", "n_pad", "induction", "deg_cap", "hub_slots",
+                               "cand_cap")}
+            print(f"{tag} plan {MODE2STR[mode]} branch {i}: "
+                  f"{json.dumps(plans[mode, i])}")
+    return plans
+
+
+def phase_hub_block(tr, tag):
+    """The cached TRAIN blocks, induced through the hub table, against the
+    ``search`` strategy (a binary search of every pair) on the same node
+    tables: equal bit for bit, on subgraphs that do hold members above
+    ``deg_cap``."""
+    import torch
+    from shadow_gnn_torch import TRAIN
+    from shadow_gnn_torch.sampling import cache as cache_mod
+    from shadow_gnn_torch.sampling import induction
+    cfg, cache, g = tr.branches[0]["cfg"][TRAIN], tr.caches[TRAIN][0], tr.graph[TRAIN]
+    nodes = cache.nodes.long()
+    t0 = time.perf_counter()
+    want = induction.membership_matrix(g, nodes)
+    torch.cuda.synchronize()
+    t_search = time.perf_counter() - t0
+    got = cache_mod.unpack_bits(cache.adj_bits, cfg.n_pad)
+    n_diff = int((got != want).sum())
+    deg = g.indptr.diff()[torch.clamp(nodes, max=g.num_nodes - 1)]
+    hubs = ((deg > cfg.deg_cap) & (nodes < g.num_nodes)).sum(1)
+    print(f"{tag} hub-induced TRAIN blocks ({nodes.shape[0]} subgraphs, deg_cap "
+          f"{cfg.deg_cap}, hub_slots {cfg.hub_slots}; {int((hubs > 0).sum())} "
+          f"subgraphs hold members above deg_cap, at most {int(hubs.max())}) "
+          f"against the search strategy ({t_search:.2f}s): {n_diff} entries "
+          f"differ of {got.numel()}, {int(want.sum())} edges")
+    if n_diff or not int(hubs.max()) or not want.sum():
+        raise AssertionError("the hub-induced blocks are not the exact blocks, "
+                             "or no subgraph held a hub")
+
+
+class _ByWidth:
+    """Stands in for a counted kernel wrapper ``fn`` (its launches still
+    counted on ``counter``) and adds each call's launches to ``by_n``
+    under (``name``, block width N of the adjacency, ``args[3]``)."""
+
+    def __init__(self, fn, counter, name, by_n):
+        self.fn, self.counter, self.name, self.by_n = fn, counter, name, by_n
+
+    launches = property(lambda self: self.counter.launches,
+                        lambda self, v: setattr(self.counter, "launches", v))
+    launches_bf16 = property(lambda self: self.counter.launches_bf16,
+                             lambda self, v: setattr(self.counter, "launches_bf16", v))
+
+    def __call__(self, *args, **kw):
+        before = self.counter.launches + self.counter.launches_bf16
+        out = self.fn(*args, **kw)
+        key = (self.name, int(args[3].shape[-1]))
+        self.by_n[key] = (self.by_n.get(key, 0) + self.counter.launches
+                          + self.counter.launches_bf16 - before)
+        return out
+
+
+def _gat_launches_by_width(by_n):
+    """B2 and B3 launches recorded by block width within the block."""
+    from shadow_gnn_torch.ops import gat
+    return _Swap((gat, "_forward", _ByWidth(gat._forward, gat.gat_attention, "B2",
+                                            by_n)),
+                 (gat, "gat_attention_bwd", _ByWidth(gat.gat_attention_bwd,
+                                                     gat.gat_attention_bwd, "B3",
+                                                     by_n)))
+
+
+def _step_fn(tr, seed=5):
+    """``step(i)``: one TRAIN step on the mode's i-th batch (wrapping
+    around) as ``Trainer._run_batches`` runs it: every uncached branch
+    sampled and induced (khop picks from a generator seeded with
+    ``seed``), then forward, backward, clip and Adam.  The model must be
+    in training mode."""
+    import numpy as np
+    import torch
+    from shadow_gnn_torch import TRAIN
+    from shadow_gnn_torch.train.pipeline import EpochRNG
+    b, ent = tr.batch_size, np.asarray(tr.entity_set[TRAIN])
+    rng = EpochRNG.from_seed(seed, tr.device)
+
+    def step(i):
+        lo = (i * b) % (ent.size - b + 1)
+        labels = torch.as_tensor(tr.label_np[ent[lo:lo + b]].astype(np.int64),
+                                 device="cuda")
+        with torch.no_grad():
+            batches, feats = tr._sample_branch_batches(
+                TRAIN, torch.as_tensor(ent[lo:lo + b, None], device="cuda"),
+                torch.arange(lo, lo + b, device="cuda")[:, None], rng.sample)
+        tr._train_step(batches, feats, labels, torch.ones(b, device="cuda"), rng)
+    return step
+
+
+def _timed_steps(tr, n_steps):
+    """``n_steps`` steps of :func:`_step_fn`, after one warm-up step, each
+    timed with CUDA events: the whole step, and within it every
+    ``sample_subgraphs`` call (by sampler) and every ``induce``.  Returns
+    the medians {"step", "sample <method>", "induce <method>"} in ms and
+    the summed induction overflow."""
+    import torch
+    from shadow_gnn_torch.sampling import samplers
+    from shadow_gnn_torch.train import pipeline
+    rec, overflow = [], [0]
+
+    def timed(fn, kind, cfg_at):
+        def wrapper(*args, **kw):
+            ev = (torch.cuda.Event(enable_timing=True),
+                  torch.cuda.Event(enable_timing=True))
+            ev[0].record()
+            out = fn(*args, **kw)
+            ev[1].record()
+            rec.append((f"{kind} {args[cfg_at].method}", ev))
+            if kind == "induce":
+                overflow[0] += out.overflow
+            return out
+        return wrapper
+
+    step, steps = _step_fn(tr), []
+    tr.model.train()
+    with _Swap((pipeline, "sample_subgraphs", timed(pipeline.sample_subgraphs,
+                                                    "sample", 0)),
+               (samplers, "induce", timed(samplers.induce, "induce", 4))):
+        for i in range(n_steps + 1):
+            first = len(rec)
+            ev = (torch.cuda.Event(enable_timing=True),
+                  torch.cuda.Event(enable_timing=True))
+            ev[0].record()
+            step(i)
+            ev[1].record()
+            steps.append((ev, first, len(rec)))
+    torch.cuda.synchronize()
+    tr.model.eval()
+    per = {}
+    for ev, first, last in steps[1:]:
+        one = {"step": ev[0].elapsed_time(ev[1])}
+        for key, e in rec[first:last]:
+            one[key] = one.get(key, 0.0) + e[0].elapsed_time(e[1])
+        for key, ms in one.items():
+            per.setdefault(key, []).append(ms)
+    return {k: _median(v) for k, v in per.items()}, overflow[0]
+
+
+def _profile_steps(tr, label, wall_ms):
+    """Device-busy share of 5 steps of :func:`_step_fn` (sampling
+    included) against their unprofiled median ``wall_ms``."""
+    step = _step_fn(tr, seed=11)
+    tr.model.train()
+    step(0)                                             # warm
+    _profile(label, lambda i: step(i + 1), 5, wall_ms)
+    tr.model.eval()
+
+
+def phase_power_law(graph, profile=False):
+    """The flagship SAGE-3 (f32, packed) on the power-law flickr-scale
+    graph: the plans (TRAIN must take hub slots), cached serving against
+    the plain versions and against uncached serving, the hub-induced
+    blocks against the search strategy, 1 epoch of ``train()`` through
+    B1a/B1b, and cold (uncached) TRAIN steps with ``induce`` timed."""
+    import torch
+    from shadow_gnn_torch import TRAIN
+    from shadow_gnn_torch.ops.packed import packed_spmm, packed_spmm_t
+    tag = "[power]"
+    tr = _flagship_trainer(graph, epochs=1)
+    plans = _print_plans(tr, tag)
+    if not plans[TRAIN, 0]["hub_slots"] > 0:
+        raise AssertionError("TRAIN planned no hub slots on the power-law graph")
+    reqs, p50 = phase_serve(tr, SERVE_SIZES, packed_spmm, tag)
+    if profile:
+        phase_profile(tr, reqs, p50, (1, 256), "power")
+    launches, step_ms = phase_train(tr, reqs, packed_spmm, packed_spmm_t, tag)
+    if profile:
+        phase_profile_train(tr, step_ms, "power")
+    phase_hub_block(tr, tag)
+    phase_uncached(tr, reqs, SERVE_SIZES, packed_spmm, 0, tag)
+    tr.disable_cache(TRAIN)
+    cold, overflow = _timed_steps(tr, COLD_STEPS)
+    print(f"[induce] cold step: induce {cold['induce ppr']:.3f} ms of "
+          f"{cold['step']:.3f} ms (median of {COLD_STEPS} uncached TRAIN steps, "
+          f"B={tr.batch_size}, CUDA events; sample + induce "
+          f"{cold['sample ppr']:.3f} ms, overflow {overflow}; the cached "
+          f"step's median {step_ms:.3f} ms)")
+    if overflow:
+        raise AssertionError(f"the exact plan overflowed by {overflow}")
+    if profile:
+        _profile_steps(tr, "power cold TRAIN step (sampling included)",
+                       cold["step"])
+    del tr, reqs
+    torch.cuda.empty_cache()
+    return launches
+
+
+def _ensemble_trainer(g, epochs=EPOCHS):
+    """configs/arxiv_ensemble_ppr_khop.yml at full width (GAT, 2 heads, dim
+    256, 3 layers, hop augment, sum residue, mean pooling; a PPR-100 and a
+    khop depth-2 budget-10 branch, softmax attention over them; batch 64,
+    dropout 0.3, dropedge 0.05) on the arxiv-width power-law graph ``g``,
+    TRAIN cut to 4096 nodes, VALID 1024, TEST 2048, random weights."""
+    import torch
+    from shadow_gnn_torch import TEST, TRAIN, VALID
+    from shadow_gnn_torch.train.config import parse_config
+    from shadow_gnn_torch.train.pipeline import Trainer
+    cfg = {
+        "data": {"to_undirected": True, "transductive": True},
+        "architecture": {"dim": 256, "aggr": "gat", "heads": 2, "loss": "softmax",
+                         "num_layers": 3, "act": "relu", "feature_augment": "hops",
+                         "residue": "sum", "pooling": "mean",
+                         "ensemble_act": "leakyrelu"},
+        "hyperparameter": {"end": epochs, "lr": 0.001, "dropout": 0.3,
+                           "dropedge": 0.05, "batch_size": 64,
+                           "ensemble_dropout": "none"},
+        "sampler": [{"method": "ppr", "phase": "train", "k": [100],
+                     "epsilon": [1e-5]},
+                    {"method": "khop", "phase": "train", "depth": [2],
+                     "budget": [10]}],
+    }
+    t0 = time.perf_counter()
+    tr = Trainer("arxiv_synth", "", _own_splits(g), parse_config(cfg), seed=0,
+                 device="cuda")
+    _cut_splits(tr, ((TRAIN, GAT_TRAIN), (VALID, GAT_VALID), (TEST, GAT_TEST)))
+    torch.cuda.synchronize()
+    widths = tuple(br["cfg"][TRAIN].n_pad for br in tr.branches)
+    print(f"[ensemble] trainer {time.perf_counter() - t0:.1f}s; branches "
+          f"{[br['cfg'][TRAIN].method for br in tr.branches]}, n_pad {widths}")
+    if widths != ENSEMBLE_WIDTHS or tr.num_ensemble != 2:
+        raise AssertionError(f"the ensemble has branches of n_pad {widths}")
+    return tr
+
+
+def phase_ensemble(graph, profile=False):
+    """The two-branch PPR + khop GAT ensemble: plans, serving (kernels
+    against plain versions; the khop picks seeded per request), the first
+    TRAIN step's check, ``train()`` with B2 and B3 launched from both
+    branches, and timed steps with the khop branch's sampling and
+    induction share.  Returns (B2, B3 launches over ``train()``, by
+    block width)."""
+    import torch
+    from shadow_gnn_torch.ops.gat import gat_attention, gat_attention_bwd
+    from shadow_gnn_torch.train import pipeline
+    tag = "[ensemble]"
+    tr = _ensemble_trainer(graph)
+    _print_plans(tr, tag)
+    by_n, tally = {}, {}
+
+    def tallied(*args, **kw):
+        out = sample_subgraphs(*args, **kw)
+        n, o = tally.get(args[0].method, (0, 0))
+        tally[args[0].method] = (n + out.nodes.shape[0], o + out.overflow)
+        return out
+
+    sample_subgraphs = pipeline.sample_subgraphs
+    with _gat_launches_by_width(by_n), _Swap((pipeline, "sample_subgraphs", tallied)):
+        reqs, p50 = phase_serve(tr, GAT_SIZES, gat_attention, tag)
+        serve_n = dict(by_n)
+        by_n.clear()
+        launches, step_ms = phase_train(tr, reqs, gat_attention, gat_attention_bwd,
+                                        tag)
+    print(f"{tag} B2/B3 launches by block width: serving {serve_n}; the first "
+          f"step's checks and train() {by_n}; subgraphs sampled and their "
+          f"induction overflow by sampler {tally}")
+    want = {(k, n) for k in ("B2", "B3") for n in ENSEMBLE_WIDTHS}
+    if not all(by_n.get(key, 0) > 0 for key in want) or not all(
+            serve_n.get(("B2", n), 0) > 0 for n in ENSEMBLE_WIDTHS):
+        raise AssertionError("B2 / B3 did not launch from both branches")
+    timed, overflow = _timed_steps(tr, COLD_STEPS)
+    khop = timed["sample khop"]
+    print(f"{tag} step median {timed['step']:.3f} ms over {COLD_STEPS} TRAIN steps "
+          f"(sampling included; train()'s model-step median {step_ms:.3f} ms): "
+          f"khop sample + induce {khop:.3f} ms ({100 * khop / timed['step']:.1f}%), "
+          f"of which induce {timed['induce khop']:.3f} ms; khop overflow {overflow}")
+    if profile:
+        phase_profile(tr, reqs, p50, (1, 128), "ensemble")
+        _profile_steps(tr, "ensemble TRAIN step (sampling included)",
+                       timed["step"])
+    del tr, reqs
+    torch.cuda.empty_cache()
+    return launches, by_n
+
+
+
 def main():
     import torch
     if not torch.cuda.is_available():
@@ -1638,7 +1978,13 @@ def main():
         raise AssertionError("the feature table is not bf16")
     reqs, _ = phase_serve(tr, GAT_SIZES, b2b, "[gat bf16 act]")
     phase_train(tr, reqs, b2b, b3b, "[gat bf16 act]")
-    del tr, reqs
+    del tr, reqs, products
+    torch.cuda.empty_cache()
+
+    # the flagship on a power-law graph: hub induction, cold steps
+    phase_power_law(_flickr_power_graph(), profile)
+    # the two-branch PPR + khop GAT ensemble
+    phase_ensemble(_arxiv_graph(), profile)
     print(f"[chip_smoke] all phases passed in {time.perf_counter() - t_all:.1f}s")
     smi = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],

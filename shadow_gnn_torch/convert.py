@@ -1,19 +1,22 @@
 """Carry weights from the JAX package to the port.
 
-:func:`params_from_flax` maps the flax parameter tree of a
-single-branch ``DeepGNN`` (SAGE or GAT, as numpy arrays) to the
-``state_dict`` of :class:`shadow_gnn_torch.nn.model.DeepGNN`:
+:func:`params_from_flax` maps the flax parameter tree of a ``DeepGNN``
+(SAGE or GAT, one or more ensemble branches, as numpy arrays) to the
+``state_dict`` of :class:`shadow_gnn_torch.nn.model.DeepGNN`.  Branch
+i's modules carry the suffix ``<s>`` = ``_<i>`` (none for branch 0,
+``nn/model.py:branch_suffix``):
 
-  aug_0_<aug>/kernel [in, out]            -> aug.<aug>.weight [out, in]
-  conv_0_<l>/TorchLinear_0 (self linear)  -> convs.<l>.lin_self
-  conv_0_<l>/TorchLinear_1 (neigh linear) -> convs.<l>.lin_neigh
-  conv_0_<l>/Act_0/prelu_alpha            -> convs.<l>.act.prelu_alpha
-  conv_0_<l>/scale, offset                -> convs.<l>.scale, .offset
+  aug_<i>_<aug>/kernel [in, out]          -> aug<s>.<aug>.weight [out, in]
+  conv_<i>_<l>/TorchLinear_0 (self)       -> convs<s>.<l>.lin_self
+  conv_<i>_<l>/TorchLinear_1 (neigh)      -> convs<s>.<l>.lin_neigh
+  conv_<i>_<l>/Act_0/prelu_alpha          -> convs<s>.<l>.act.prelu_alpha
+  conv_<i>_<l>/scale, offset              -> convs<s>.<l>.scale, .offset
       ([2, dim] for SAGE, [2, H, dh] for GAT)
-  conv_0_<l>/attention [2, H, dh] (GAT)   -> convs.<l>.attention
-  res_pool_0/TorchLinear_0                -> res_pool.lin
-  res_pool_0/Act_0/prelu_alpha            -> res_pool.act.prelu_alpha
-  res_pool_0/scale, offset [dim]          -> res_pool.scale, .offset
+  conv_<i>_<l>/attention [2, H, dh] (GAT) -> convs<s>.<l>.attention
+  res_pool_<i>/TorchLinear_0              -> res_pool<s>.lin
+  res_pool_<i>/Act_0/prelu_alpha          -> res_pool<s>.act.prelu_alpha
+  res_pool_<i>/scale, offset [dim]        -> res_pool<s>.scale, .offset
+  ensembler/TorchLinear_0, Act_0, q       -> ensembler.lin, .act, .q
   classifier_<l>/TorchLinear_0            -> classifier.<l>.lin
   classifier_<l>/Act_0/prelu_alpha        -> classifier.<l>.act.prelu_alpha
   classifier_<l>/scale, offset            -> classifier.<l>.scale, .offset
@@ -24,6 +27,8 @@ from typing import Dict, Mapping
 
 import numpy as np
 import torch
+
+from shadow_gnn_torch.nn.model import branch_suffix
 
 
 def _linear(tree: Mapping, prefix: str, out: Dict[str, torch.Tensor]):
@@ -55,16 +60,19 @@ def params_from_flax(params: Mapping) -> Dict[str, torch.Tensor]:
     out: Dict[str, torch.Tensor] = {}
     for name, sub in p.items():
         parts = name.split("_")
-        branch = parts[2] if name.startswith("res_pool_") else parts[1]
-        if parts[0] in ("aug", "conv", "res") and branch != "0":
-            raise NotImplementedError("only one ensemble branch is ported")
+        if parts[0] in ("aug", "conv"):
+            sfx = branch_suffix(int(parts[1]))
+        elif name.startswith("res_pool_"):
+            sfx = branch_suffix(int(parts[2]))
         if parts[0] == "aug":
-            _linear(sub, f"aug.{'_'.join(parts[2:])}", out)
+            _linear(sub, f"aug{sfx}.{'_'.join(parts[2:])}", out)
         elif parts[0] == "conv":
-            _module(sub, f"convs.{parts[2]}",
+            _module(sub, f"convs{sfx}.{parts[2]}",
                     {"TorchLinear_0": "lin_self", "TorchLinear_1": "lin_neigh"}, out)
         elif name.startswith("res_pool_"):
-            _module(sub, "res_pool", {"TorchLinear_0": "lin"}, out)
+            _module(sub, f"res_pool{sfx}", {"TorchLinear_0": "lin"}, out)
+        elif name == "ensembler":
+            _module(sub, "ensembler", {"TorchLinear_0": "lin"}, out)
         elif parts[0] == "classifier":
             _module(sub, f"classifier.{parts[1]}", {"TorchLinear_0": "lin"}, out)
         else:

@@ -58,28 +58,50 @@ class RawGraph:
         return self.indptr_full, self.indices_full
 
 
+def plan_row_block(num_edges: int) -> int:
+    """The JAX package's neighbour-block width for a graph of
+    ``num_edges`` edges (``DeviceGraph.from_csr`` there: 128 from 2**28
+    edges on, else 32).  The port gathers no blocks; its induction plan
+    prices the JAX gather at this width, so that both choose one
+    ``deg_cap``."""
+    return 128 if num_edges >= 2**28 else 32
+
+
 @dataclass
 class DeviceGraph:
     """CSR of (a split of) the graph as int64 tensors on ``device``.
 
     ``indices`` is the CSR column array without padding; row ``v``'s
     neighbours are ``indices[indptr[v]:indptr[v+1]]``, sorted ascending.
+    ``max_deg`` is the largest row's length.
     """
 
     indptr: torch.Tensor     # [N+1] int64
     indices: torch.Tensor    # [E] int64
     num_nodes: int
     num_edges: int
+    max_deg: int = 0
 
     @classmethod
     def from_csr(cls, indptr: np.ndarray, indices: np.ndarray,
                  device="cpu") -> "DeviceGraph":
+        n = indptr.size - 1
         return cls(
             indptr=torch.as_tensor(np.asarray(indptr, np.int64), device=device),
             indices=torch.as_tensor(np.asarray(indices, np.int64), device=device),
-            num_nodes=indptr.size - 1,
+            num_nodes=n,
             num_edges=int(indices.size),
+            max_deg=int(np.diff(indptr).max()) if n > 0 else 0,
         )
+
+    @property
+    def row_block(self) -> int:
+        return plan_row_block(self.num_edges)
+
+    @property
+    def search_steps(self) -> int:
+        """Binary-search steps that cover any CSR row."""
+        return max(1, int(np.ceil(np.log2(max(2, self.max_deg + 1)))) + 1)
 
 
 def is_undirected(indptr: np.ndarray, indices: np.ndarray,

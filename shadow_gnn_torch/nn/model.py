@@ -1,10 +1,18 @@
-"""DeepGNN: the shaDow-GNN model (one ensemble branch).
+"""DeepGNN: the shaDow-GNN model, one or more ensemble branches.
 
 Per branch: masked node features (label-input columns zeroed at the
 targets in the TRAIN mode) + hop one-hot augment -> L x conv (SAGE or
-GAT; node mask after every conv) -> ResPool -> L2 normalise -> MLP
-classifier with ``norm_feat`` on the logits.  The adjacency is
-normalised and edge-dropped once per batch and reused by every conv.
+GAT; node mask after every conv) -> ResPool -> L2 normalise.  An
+ensemble combines the branches' embeddings with ``EnsembleAggregator``
+(softmax attention over the branches); then the MLP classifier with
+``norm_feat`` on the logits.  Each branch has its own augment linears,
+convs and ResPool, named ``aug``, ``convs``, ``res_pool`` for branch 0
+and with the suffix ``_<i>`` for branch i (``branch_sharing``: every
+branch runs branch 0's convs), as the JAX package's ``aug_<i>_*``,
+``conv_<i>_*``, ``res_pool_<i>``.  The adjacency is normalised and
+edge-dropped once per batch and branch and reused by every conv of the
+branch; branch i draws its dropedge mask from the forward's seed mixed
+with i (:func:`branch_seed`).
 SAGE on cached batches with ``packed_adj`` aggregates from the packed
 bits through ``ops/packed.packed_spmm``, whose backward is the
 transposed kernel ``packed_spmm_t``; otherwise it multiplies the dense
@@ -43,7 +51,7 @@ from torch import nn
 
 from shadow_gnn_torch.nn.layers import (PRECISIONS, GATConv, MLPLayer, SAGEConv,
                                         TorchLinear)
-from shadow_gnn_torch.nn.respool import ResPool
+from shadow_gnn_torch.nn.respool import EnsembleAggregator, ResPool
 from shadow_gnn_torch.ops.normalize import prepare_adj
 from shadow_gnn_torch.ops.packed import packed_spmm
 from shadow_gnn_torch.ops.precision import bf16_matmul
@@ -53,7 +61,7 @@ from shadow_gnn_torch.sampling.batch import AUG2DIM, SubgraphBatch, batch_aug_on
 @dataclasses.dataclass(frozen=True)
 class ModelConfig:
     """Static model configuration: the JAX package's fields that the
-    ported model reads (its ensemble fields come with that path)."""
+    ported model reads."""
 
     dim_feat_smooth: int
     dim_label_raw: int          # num classes
@@ -71,6 +79,9 @@ class ModelConfig:
     feature_augment: Tuple[str, ...] = ()
     feature_augment_ops: str = "sum"
     num_ensemble: int = 1
+    branch_sharing: bool = False
+    ensemble_act: str = "leakyrelu"
+    ensemble_dropout: str = "none"     # none | feat | coef
     prediction_task: str = "node"
     dropout: float = 0.0
     dropedge: float = 0.0
@@ -112,12 +123,21 @@ class ModelConfig:
                 and self.compute_dtype == "float32")
 
 
+def branch_seed(seed: int, i: int) -> int:
+    """Branch i's dropedge seed from the forward's ``seed`` (branch 0
+    uses ``seed`` itself), in [0, 2**31 - 1)."""
+    return (seed + i * 0x9E3779B1) % (2**31 - 1)
+
+
+def branch_suffix(i: int) -> str:
+    """The suffix of branch i's module names: none for branch 0."""
+    return f"_{i}" if i else ""
+
+
 class DeepGNN(nn.Module):
     def __init__(self, cfg: ModelConfig):
         super().__init__()
         unported = []
-        if cfg.num_ensemble != 1:
-            unported.append(f"{cfg.num_ensemble}-branch ensembles")
         if cfg.aggr not in ("sage", "gat"):
             unported.append(f"aggr {cfg.aggr!r}")
         if cfg.layer_norm != "norm_feat":
@@ -132,24 +152,34 @@ class DeepGNN(nn.Module):
             raise ValueError(f"unknown matmul_precision {cfg.matmul_precision!r}")
         if cfg.compute_dtype not in ("float32", "bfloat16"):
             raise ValueError(f"unknown compute_dtype {cfg.compute_dtype!r}")
+        if cfg.num_ensemble < 1:
+            raise ValueError(f"num_ensemble {cfg.num_ensemble} < 1")
         self.cfg = cfg
         prec = cfg.matmul_precision
-        self.aug = nn.ModuleDict({a: TorchLinear(AUG2DIM[a], cfg.dim_feat_in, prec)
-                                  for a in sorted(cfg.feature_augment)})
         dims = ([cfg.dim_feat_in + cfg.dim_label_smooth]
                 + [cfg.dim] * cfg.num_layers)
-        if cfg.aggr == "gat":
-            convs = [GATConv(dims[i], dims[i + 1], cfg.mulhead, act=cfg.act,
-                             dropout=cfg.dropout, precision=prec)
-                     for i in range(cfg.num_layers)]
-        else:
-            convs = [SAGEConv(dims[i], dims[i + 1], act=cfg.act,
-                              dropout=cfg.dropout, precision=prec)
-                     for i in range(cfg.num_layers)]
-        self.convs = nn.ModuleList(convs)
-        self.res_pool = ResPool(cfg.dim, cfg.num_layers, cfg.residue,
-                                cfg.type_pool, cfg.dropout, cfg.act,
-                                cfg.prediction_task, prec)
+        for i in range(cfg.num_ensemble):
+            sfx = branch_suffix(i)
+            self.add_module("aug" + sfx, nn.ModuleDict(
+                {a: TorchLinear(AUG2DIM[a], cfg.dim_feat_in, prec)
+                 for a in sorted(cfg.feature_augment)}))
+            if i == 0 or not cfg.branch_sharing:
+                if cfg.aggr == "gat":
+                    convs = [GATConv(dims[l], dims[l + 1], cfg.mulhead, act=cfg.act,
+                                     dropout=cfg.dropout, precision=prec)
+                             for l in range(cfg.num_layers)]
+                else:
+                    convs = [SAGEConv(dims[l], dims[l + 1], act=cfg.act,
+                                      dropout=cfg.dropout, precision=prec)
+                             for l in range(cfg.num_layers)]
+                self.add_module("convs" + sfx, nn.ModuleList(convs))
+            self.add_module("res_pool" + sfx, ResPool(
+                cfg.dim, cfg.num_layers, cfg.residue, cfg.type_pool, cfg.dropout,
+                cfg.act, cfg.prediction_task, prec))
+        if cfg.num_ensemble > 1:
+            self.ensembler = EnsembleAggregator(cfg.dim, cfg.dropout,
+                                                cfg.ensemble_act,
+                                                cfg.ensemble_dropout, prec)
         cls = []
         for i in range(cfg.num_cls_layers):
             last = i == cfg.num_cls_layers - 1
@@ -158,6 +188,13 @@ class DeepGNN(nn.Module):
                                 dropout=0.0 if last else cfg.dropout,
                                 precision=prec))
         self.classifier = nn.ModuleList(cls)
+
+    def branch_modules(self, i: int):
+        """(augment linears, convs, ResPool) of branch i."""
+        sfx = branch_suffix(i)
+        convs = "convs" if self.cfg.branch_sharing else "convs" + sfx
+        return (getattr(self, "aug" + sfx), getattr(self, convs),
+                getattr(self, "res_pool" + sfx))
 
     def aggregator(self, batch: SubgraphBatch, seed: int = 0):
         """What each conv aggregates through for this batch, prepared once
@@ -180,17 +217,36 @@ class DeepGNN(nn.Module):
             return adjs
         return functools.partial(_dense_aggregate, adjs[0].to(cfg.dtype), bf16)
 
-    def forward(self, batch: SubgraphBatch, feat: torch.Tensor,
-                generator: Optional[torch.Generator] = None,
+    def forward(self, batches, feats, generator: Optional[torch.Generator] = None,
                 dropedge_seed: int = 0, mode_train: bool = False
                 ) -> Tuple[torch.Tensor, List[torch.Tensor]]:
-        """feat: the gathered [B, N, F] node-feature block (features, then
-        ``dim_label_smooth`` label-input columns).  In training mode,
-        ``generator`` (on feat's device) draws the dropout masks and
-        ``dropedge_seed`` (an int in [0, 2**31 - 1), drawn on the host)
-        picks the dropedge mask.  ``mode_train`` zeroes the label inputs
-        at the targets (models.py:182-183).  Returns (logits [B, C],
-        [emb [B, dim]])."""
+        """batches / feats: one SubgraphBatch and one gathered [B, N, F]
+        node-feature block (features, then ``dim_label_smooth``
+        label-input columns) per branch, or the batch and the block of a
+        one-branch model.  In training mode, ``generator`` (on feat's
+        device) draws the dropout masks and ``dropedge_seed`` (an int in
+        [0, 2**31 - 1), drawn on the host) picks the dropedge masks.
+        ``mode_train`` zeroes the label inputs at the targets
+        (models.py:182-183).  Returns (logits [B, C], per-branch
+        embeddings [B, dim])."""
+        if isinstance(batches, SubgraphBatch):
+            batches, feats = [batches], [feats]
+        if len(batches) != self.cfg.num_ensemble:
+            raise ValueError(f"{len(batches)} batches for "
+                             f"{self.cfg.num_ensemble} branches")
+        embs = [self._branch(i, batches[i], feats[i], generator,
+                             branch_seed(dropedge_seed, i), mode_train)
+                for i in range(len(batches))]
+        h = embs[0] if len(embs) == 1 else self.ensembler(embs, generator)
+        for layer in self.classifier:
+            h = layer(h, generator)
+        return h.float(), embs
+
+    def _branch(self, i: int, batch: SubgraphBatch, feat: torch.Tensor,
+                generator: Optional[torch.Generator], seed: int,
+                mode_train: bool) -> torch.Tensor:
+        """Branch i's L2-normalised [B, dim] f32 embedding."""
+        aug, convs, res_pool = self.branch_modules(i)
         mask = batch.node_mask[..., None]
         x = (feat * mask.to(feat.dtype)).to(self.cfg.dtype)
         d_lab = self.cfg.dim_label_smooth
@@ -204,26 +260,21 @@ class DeepGNN(nn.Module):
             # JAX selects in every mode, with an f32 ``keep``: a bf16
             # block comes out f32
             x = x.float()
-        if self.aug:
-            augs = batch_aug_onehots(batch, self.aug.keys())
-            for a, lin in self.aug.items():
+        if aug:
+            augs = batch_aug_onehots(batch, aug.keys())
+            for a, lin in aug.items():
                 emb_a = lin(augs[a])                # the feature columns only
                 if d_lab > 0:
                     emb_a = torch.nn.functional.pad(emb_a, (0, d_lab))
                 x = x + emb_a
-        agg = self.aggregator(batch, dropedge_seed)
+        agg = self.aggregator(batch, seed)
         xjk = []
-        for conv in self.convs:
+        for conv in convs:
             x = conv(x, agg, generator) * mask
             xjk.append(x)
-        emb = self.res_pool(xjk, batch.targets, batch.node_mask,
-                            generator).float()
-        emb = emb / torch.clamp(torch.linalg.vector_norm(emb, dim=-1, keepdim=True),
-                                min=1e-12)
-        h = emb
-        for layer in self.classifier:
-            h = layer(h, generator)
-        return h.float(), [emb]
+        emb = res_pool(xjk, batch.targets, batch.node_mask, generator).float()
+        return emb / torch.clamp(torch.linalg.vector_norm(emb, dim=-1, keepdim=True),
+                                 min=1e-12)
 
 
 def _dense_aggregate(adj: torch.Tensor, bf16: bool, x: torch.Tensor) -> torch.Tensor:

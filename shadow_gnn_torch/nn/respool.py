@@ -11,6 +11,8 @@ center, takes the targets' residue alone) and runs the trailing Dropout
 and the link task raise at construction.  Blocks keep their dtype (a
 bf16 block pools in bf16, the mean's count too, as the JAX pools do);
 the linear takes ``precision`` (``nn/layers.py``).
+:class:`EnsembleAggregator` combines the branches' embeddings of an
+ensemble model.
 """
 from __future__ import annotations
 
@@ -20,6 +22,7 @@ import torch
 from torch import nn
 
 from shadow_gnn_torch.nn.layers import Act, TorchLinear, dropout, norm_feat
+from shadow_gnn_torch.ops.precision import bf16_matmul
 from shadow_gnn_torch.ops.segment import (masked_max_pool, masked_mean_pool,
                                           masked_sum_pool)
 
@@ -85,3 +88,40 @@ class ResPool(nn.Module):
             feat_in = torch.cat([feat_in, pool], dim=-1)
         h = dropout(feat_in, self.dropout, generator) if self.training else feat_in
         return norm_feat(self.act(self.lin(h)), self.scale, self.offset)
+
+
+class EnsembleAggregator(nn.Module):
+    """Softmax attention over the ensemble branches (reference
+    layers.py:236-296, the JAX package's ``nn/respool.py``): each
+    branch's embedding x_i scores ``act(lin(x_i)) @ q`` (``q`` starts at
+    ones), and the output is the softmax-weighted sum of the x_i.
+    ``type_dropout``: ``none``; ``feat`` drops out each x_i before it is
+    scored and summed; ``coef`` drops out only the copy that is scored.
+    Dropout masks come from the caller's generator, in training mode."""
+
+    def __init__(self, dim_hid: int, dropout: float = 0.0, act: str = "leakyrelu",
+                 type_dropout: str = "none", precision: str = "float32"):
+        super().__init__()
+        if type_dropout not in ("none", "feat", "coef"):
+            raise ValueError(f"unknown ensemble_dropout {type_dropout!r}")
+        self.act = Act(act, dim_hid)
+        self.lin = TorchLinear(dim_hid, dim_hid, precision)
+        self.q = nn.Parameter(torch.ones(dim_hid))
+        self.dropout, self.type_dropout = dropout, type_dropout
+        self.precision = precision
+
+    def forward(self, xs: Sequence[torch.Tensor],
+                generator: Optional[torch.Generator] = None) -> torch.Tensor:
+        """xs: per-branch [B, dim] -> [B, dim]."""
+        drop = self.training and self.type_dropout != "none"
+        omegas, kept = [], []
+        for x in xs:
+            x_ = dropout(x, self.dropout, generator) if drop else x
+            if self.type_dropout == "feat":
+                x = x_
+            kept.append(x)
+            h = self.act(self.lin(x_))
+            omegas.append(bf16_matmul(h, self.q[:, None])[:, 0]
+                          if self.precision == "bfloat16" else h @ self.q)
+        w = torch.softmax(torch.stack(omegas, -1), dim=-1)
+        return sum(w[:, i:i + 1] * x for i, x in enumerate(kept))

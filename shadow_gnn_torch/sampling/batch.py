@@ -47,9 +47,14 @@ class SamplerConfig:
     """Static sampler configuration of one ensemble branch in one mode.
 
     Mirrors the per-branch sampler dicts of the reference yml.  The
-    induction fields size the row induction: ``deg_cap`` must cover the
-    degree of every scope member (``hub_slots`` > 0 and the ``cand`` /
-    ``hub`` / ``search`` strategies are not ported).
+    induction fields choose and size the induction strategy, as in the
+    JAX package (``sampling/induction.py``): ``rows`` reads each member's
+    CSR slice up to ``deg_cap`` entries, and with ``hub_slots`` > 0
+    routes the members above it through a hub table (undirected graphs);
+    ``cand`` enumerates up to ``cand_cap`` candidate edges a subgraph
+    (directed graphs with hubs); ``hub`` is the candidate pass over the
+    members up to ``deg_cap`` plus the hub table; ``search`` binary
+    searches every pair, exact for any degree.
     """
 
     method: str                     # nodeIID | khop | ppr | ppr_st
@@ -75,13 +80,33 @@ class SamplerConfig:
 
 
 def default_n_pad(cfg_dict: dict, num_targets: int = 1, round_to: int = 8) -> int:
-    """Capacity bound for a PPR sampler config: at most k table entries
-    per target, plus the target."""
-    if cfg_dict["method"] not in ("ppr", "ppr_st"):
-        raise NotImplementedError(
-            f"sampler {cfg_dict['method']!r} is not ported yet (only ppr)")
-    cap = num_targets * (int(cfg_dict["k"]) + 1)
+    """Capacity bound for a sampler config, rounded up to ``round_to``.
+
+    ppr: at most k table entries per target, plus the target; khop: the
+    targets plus ``budget**l`` nodes per target at each level l; nodeIID:
+    the targets."""
+    m = cfg_dict["method"]
+    if m in ("ppr", "ppr_st"):
+        cap = num_targets * (int(cfg_dict["k"]) + 1)
+    elif m == "khop":
+        cap = lvl = num_targets
+        for _ in range(int(cfg_dict["depth"])):
+            lvl *= int(cfg_dict["budget"])
+            cap += lvl
+    elif m == "nodeIID":
+        cap = num_targets
+    else:
+        raise ValueError(f"unknown sampler {m!r}")
     return int(-(-cap // round_to) * round_to)
+
+
+def sort_dedup(x: torch.Tensor, sentinel: int) -> torch.Tensor:
+    """Sort ascending along the last axis and replace duplicates with
+    ``sentinel`` (which sorts last), sorted again."""
+    x = torch.sort(x, dim=-1)[0]
+    prev = torch.cat([torch.full_like(x[..., :1], -1), x[..., :-1]], -1)
+    return torch.sort(torch.where(x == prev, torch.full_like(x, sentinel), x),
+                      dim=-1)[0]
 
 
 DIM_1HOT_HOP = 7      # unreachable + self + hops 1..5

@@ -66,15 +66,21 @@ def build_cache(sample_fn: Callable[[torch.Tensor, torch.Tensor], SubgraphBatch]
 
     sample_fn(roots [C, T], rows [C, T]) -> SubgraphBatch;
     roots_all / rows_all: [num_roots, T] on the cache's device.
-    Chunks of up to 256 roots, fewer when one chunk's induction gather
-    would exceed ``ROWS_GATHER_BUDGET``.
+    Chunks of up to 256 roots, fewer when one chunk's induction scratch
+    would exceed ``ROWS_GATHER_BUDGET`` (the JAX package's sizing,
+    ``shadow_gnn_tpu/sampling/cache.py:86-97``).  Any overflow raises:
+    a cached subgraph must be exact.
     """
     n = cfg.n_pad
     t = roots_all.shape[0]
     dev = roots_all.device
     chunk = 256
-    if cfg.deg_cap > 0:
+    per_root = 0
+    if cfg.induction == "rows" and cfg.deg_cap > 0:
         per_root = rows_gather_bytes(1, n, cfg.deg_cap)
+    elif cfg.induction in ("cand", "hub") and cfg.cand_cap > 0:
+        per_root = 2 * cfg.cand_cap * n * 2
+    if per_root > 0:
         chunk = min(chunk, max(8, ROWS_GATHER_BUDGET // per_root))
     nodes = torch.empty((t, n), dtype=torch.int32, device=dev)
     bits = torch.empty((t, n, math.ceil(n / 8)), dtype=torch.uint8, device=dev)
@@ -86,7 +92,8 @@ def build_cache(sample_fn: Callable[[torch.Tensor, torch.Tensor], SubgraphBatch]
         e = min(s + chunk, t)
         b = sample_fn(roots_all[s:e], rows_all[s:e])
         if b.overflow:
-            raise RuntimeError(f"induction dropped {b.overflow} over-degree rows")
+            raise RuntimeError(f"induction overflowed by {b.overflow} in a "
+                               "cached subgraph")
         nodes[s:e] = b.nodes
         bits[s:e] = pack_bits(b.adj)
         targets[s:e] = b.targets

@@ -2,14 +2,14 @@
 -> model -> loops.
 
 The port of the JAX package's ``train/pipeline.py`` Trainer for the
-node task: per-mode device graphs, per-mode PPR top-k tables (native
-host push + the reference's bin cache), the bit-packed subgraph cache
-of the deterministic PPR sampler, the preprocessing (label inputs and
-feature / label smoothening, ``train/preproc.py``), training
-(:meth:`Trainer.train`:
-epochs of TRAIN and VALID, best-model selection, final passes) and
-point-query serving (:meth:`Trainer.predict_nodes` /
-:meth:`Trainer.embed_nodes`).
+node task: per-mode device graphs, per-branch samplers (``ppr``,
+``khop``, ``nodeIID``) and their induction plans, per-mode PPR top-k
+tables (native host push + the reference's bin cache), the bit-packed
+subgraph cache of each deterministic PPR branch, the preprocessing
+(label inputs and feature / label smoothening, ``train/preproc.py``),
+training (:meth:`Trainer.train`: epochs of TRAIN and VALID, best-model
+selection, final passes) and point-query serving
+(:meth:`Trainer.predict_nodes` / :meth:`Trainer.embed_nodes`).
 
 Differences from the JAX Trainer:
 * everything runs eagerly on ``device`` (default ``"cuda"``; CUDA
@@ -24,7 +24,11 @@ Differences from the JAX Trainer:
   is not ported);
 * serving builds the mode's subgraph cache on the first request (the
   JAX Trainer builds it in its first epoch of that mode);
-* samplers other than deterministic ``ppr`` are not ported;
+* a ``khop`` branch draws its picks from the epoch's sampling
+  generator (TRAIN and evaluation passes) and, in serving, from a
+  generator seeded with ``SERVE_SEED`` on every request, so the same
+  ids get the same answer; only ``ppr`` branches are cached, the others
+  sample and induce every batch;
 * the precision trade (``matmul_precision``, ``compute_dtype``,
   ``feat_dtype``) is carried by ``ModelConfig`` and the feature table,
   never by a global flag; ``matmul_precision="tensorfloat32"`` is not
@@ -47,13 +51,16 @@ from shadow_gnn_torch.nn.model import DeepGNN, ModelConfig, predict_fn, row_loss
 from shadow_gnn_torch.sampling import cache as cache_mod
 from shadow_gnn_torch.sampling import ppr as ppr_mod
 from shadow_gnn_torch.sampling.batch import SamplerConfig, SubgraphBatch, default_n_pad
-from shadow_gnn_torch.sampling.induction import bucket_cap, plan_ppr_induction
+from shadow_gnn_torch.sampling.induction import (PLAN_GATHER_BUDGET, bucket_cap,
+                                                 plan_gather_bytes,
+                                                 plan_ppr_induction)
 from shadow_gnn_torch.sampling.samplers import PPRTables, sample_subgraphs
 from shadow_gnn_torch.train.config import DATA_METRIC, decouple_ensemble
 from shadow_gnn_torch.train.logger import Logger
 from shadow_gnn_torch.train.metrics import Metrics
 
 CLIP_NORM = 5.0                 # reference models.py:223
+SERVE_SEED = 0                  # the khop picks of every request
 
 
 def resolve_device(device) -> torch.device:
@@ -101,15 +108,18 @@ def make_optimizer(params, lr: float) -> torch.optim.Optimizer:
 @dataclasses.dataclass
 class EpochRNG:
     """One epoch's random streams: dropout masks on the device, dropedge
-    seeds on the host (drawn without a device sync)."""
+    seeds on the host (drawn without a device sync), and the khop
+    samplers' picks on the device."""
 
     dropout: torch.Generator
     dropedge: torch.Generator
+    sample: torch.Generator
 
     @classmethod
     def from_seed(cls, seed: int, device: torch.device) -> "EpochRNG":
         return cls(torch.Generator(device=device).manual_seed(seed),
-                   torch.Generator().manual_seed(seed ^ 0x5BD1E995))
+                   torch.Generator().manual_seed(seed ^ 0x5BD1E995),
+                   torch.Generator(device=device).manual_seed(seed ^ 0x2545F491))
 
     def dropedge_seed(self) -> int:
         return int(torch.randint(0, 2**31 - 1, (), generator=self.dropedge))
@@ -212,6 +222,9 @@ class Trainer:
             feature_augment=tuple(self.arch["feature_augment"]),
             feature_augment_ops=self.arch["feature_augment_ops"],
             num_ensemble=self.num_ensemble,
+            branch_sharing=bool(self.arch["branch_sharing"]),
+            ensemble_act=self.arch["ensemble_act"],
+            ensemble_dropout=self.params_train.get("ensemble_dropout", "none"),
             prediction_task=self.task,
             dropout=float(self.params_train["dropout"]),
             dropedge=float(self.params_train.get("dropedge", 0.0)),
@@ -231,15 +244,19 @@ class Trainer:
 
     # ------------------------------------------------------------------
     def _build_branches(self) -> List[Dict[str, Any]]:
-        """Decoupled per-branch sampler dicts -> per-mode SamplerConfigs."""
+        """Decoupled per-branch sampler dicts -> per-mode SamplerConfigs.
+        A ``khop`` branch's induction is sized here from the mode's
+        degrees (``_plan_khop``); a ``ppr`` branch's when its tables are
+        built (``_ensure_tables``)."""
         branches = []
         aug = tuple(self.arch["feature_augment"])
         for cfg_d in decouple_ensemble(self.sampler_cfg_train["configs"]):
-            if cfg_d["method"] != "ppr":
+            method = cfg_d["method"]
+            if method not in ("ppr", "khop", "nodeIID"):
                 raise NotImplementedError(
-                    f"sampler {cfg_d['method']!r} is not ported yet (only ppr)")
+                    f"sampler {method!r} is not ported yet (ppr, khop, nodeIID)")
             common = dict(
-                method="ppr",
+                method=method,
                 n_pad=default_n_pad(cfg_d, self.num_targets),
                 num_targets=self.num_targets,
                 depth=int(cfg_d.get("depth", 2)),
@@ -252,9 +269,42 @@ class Trainer:
                 include_target_conn=bool(cfg_d.get("include_target_conn", False)),
                 aug_feats=aug,
             )
-            branches.append({"raw": cfg_d, "cfg": {
-                m: SamplerConfig(**common) for m in (TRAIN, VALID, TEST)}})
+            cfg_mode = {}
+            for m in (TRAIN, VALID, TEST):
+                plan = (self._plan_khop(m, common["n_pad"]) if method == "khop"
+                        else {})
+                cfg_mode[m] = SamplerConfig(**common, **plan)
+            branches.append({"raw": cfg_d, "cfg": cfg_mode})
         return branches
+
+    def _plan_khop(self, mode: int, n_pad: int) -> dict:
+        """Induction fields of a khop branch in ``mode``, by the JAX
+        package's rules (``shadow_gnn_tpu/train/pipeline.py:354-387``):
+        a power-law or over-budget undirected graph gets capped rows and
+        a hub table; a graph of max degree up to 4096 within the budget
+        exact rows; a directed over-budget one the pairwise search; a
+        directed one with larger degrees candidate enumeration at an
+        estimated cap.  The budget test is JAX's footprint formula
+        (``plan_gather_bytes`` at the graph's ``row_block``)."""
+        deg = np.diff(self._host_adj[mode][0]).astype(np.float64)
+        max_deg = float(deg.max()) if deg.size else 1.0
+        mean_deg = float(deg.mean()) if deg.size else 1.0
+        over_budget = plan_gather_bytes(
+            max(self.batch_size, 256), n_pad, int(max_deg),
+            self.graph[mode].row_block) > PLAN_GATHER_BUDGET
+        if self.undirected and (max_deg > 8 * mean_deg or over_budget):
+            return dict(induction="rows",
+                        deg_cap=bucket_cap(int(max(64.0, 8.0 * mean_deg))),
+                        hub_slots=max(8, n_pad // 8))
+        if max_deg <= 4096 and not over_budget:
+            return dict(induction="rows", deg_cap=bucket_cap(int(max_deg)))
+        if max_deg <= 4096:
+            return dict(induction="search")
+        # E[deg of a sampled node] is size-biased; x3 slack, the overflow
+        # is reported every epoch
+        biased = float((deg ** 2).sum() / max(deg.sum(), 1))
+        est = min(max_deg, 3.0 * biased + 16.0)
+        return dict(induction="cand", cand_cap=bucket_cap(int(n_pad * est)))
 
     # ------------------------------------------------------------------
     def _ppr_targets(self, mode: int) -> np.ndarray:
@@ -269,6 +319,9 @@ class Trainer:
         tabs = []
         for br in self.branches:
             cfg = br["cfg"][mode]
+            if cfg.method != "ppr":
+                tabs.append(None)
+                continue
             targets = self._ppr_targets(mode)
             neighs, scores = self._compute_ppr(mode, cfg, cfg.k, targets)
             tab_n, tab_s = ppr_mod.ppr_topk_tables(neighs, scores, cfg.k)
@@ -277,7 +330,7 @@ class Trainer:
             fields = plan_ppr_induction(
                 scope_deg, deg[targets], n_pad=cfg.n_pad,
                 num_targets=self.num_targets, batch_size=self.batch_size,
-                undirected=self.undirected)
+                undirected=self.undirected, row_block=self.graph[mode].row_block)
             br["cfg"][mode] = dataclasses.replace(cfg, **fields)
             tabs.append(PPRTables(
                 torch.as_tensor(tab_n.astype(np.int64), device=self.device),
@@ -319,8 +372,9 @@ class Trainer:
 
     # ------------------------------------------------------------------
     def _ensure_caches(self, mode: int):
-        """Build each branch's bit-packed subgraph cache for ``mode``
-        (memory-gated; a branch over budget samples every request)."""
+        """Build each ppr branch's bit-packed subgraph cache for ``mode``
+        (memory-gated; a branch over budget samples every request, and so
+        does every other sampler)."""
         if mode in self.caches or mode in self.nocache_modes:
             self.caches.setdefault(mode, [None] * self.num_ensemble)
             return
@@ -329,6 +383,8 @@ class Trainer:
         ent = self._ppr_targets(mode)
         for i, br in enumerate(self.branches):
             cfg = br["cfg"][mode]
+            if cfg.method != "ppr":
+                continue
             est = cache_mod.estimate_bytes(ent.size, cfg.n_pad)
             if est > self.cache_budget_bytes:
                 print(f"[cache] branch {i} mode {MODE2STR[mode]}: "
@@ -354,8 +410,11 @@ class Trainer:
         self.caches[mode] = [None] * self.num_ensemble
 
     def _sample_branch_batches(self, mode: int, roots: torch.Tensor,
-                               rows: torch.Tensor
+                               rows: torch.Tensor,
+                               generator: Optional[torch.Generator] = None
                                ) -> Tuple[List[SubgraphBatch], List[torch.Tensor]]:
+        """Every branch's batch (gathered from its cache, or sampled and
+        induced; the khop picks from ``generator``) and feature block."""
         batches, feats = [], []
         for i, br in enumerate(self.branches):
             cfg = br["cfg"][mode]
@@ -367,7 +426,7 @@ class Trainer:
                     unpack=not self.model_cfg.reads_packed_bits)
             else:
                 batch = sample_subgraphs(cfg, self.graph[mode], roots, rows,
-                                         self.tables[mode][i])
+                                         self.tables[mode][i], generator)
             feats.append(self.feat_tab[torch.clamp(
                 batch.nodes, 0, self.num_nodes - 1)].to(self.model_cfg.dtype))
             batches.append(batch)
@@ -409,7 +468,7 @@ class Trainer:
             gen = rng.dropout
             if self.model_cfg.dropedge > 0.0:
                 seed = rng.dropedge_seed()
-        logits, _ = self.model(batches[0], feats[0], gen, seed, mode_train)
+        logits, _ = self.model(batches, feats, gen, seed, mode_train)
         return weighted_loss_fn(self.model_cfg, logits, labels, w), logits
 
     def _train_step(self, batches, feats, labels, w, rng: EpochRNG):
@@ -443,8 +502,8 @@ class Trainer:
         for i in range(nb):
             sl = slice(i * b, (i + 1) * b)
             with torch.no_grad():
-                batches, feats = self._sample_branch_batches(mode, roots_d[sl],
-                                                             rows_d[sl])
+                batches, feats = self._sample_branch_batches(
+                    mode, roots_d[sl], rows_d[sl], rng.sample)
             ovf += sum(bt.overflow for bt in batches)
             if train:
                 loss, pred = self._train_step(batches, feats, lab_d[sl], w_d[sl], rng)
@@ -555,8 +614,9 @@ class Trainer:
         with torch.inference_mode():
             batches, feats = self._sample_branch_batches(
                 mode, torch.as_tensor(ids[:, None], device=self.device),
-                torch.as_tensor(rows[:, None], device=self.device))
-            logits, emb_ens = self.model(batches[0], feats[0])
+                torch.as_tensor(rows[:, None], device=self.device),
+                torch.Generator(device=self.device).manual_seed(SERVE_SEED))
+            logits, emb_ens = self.model(batches, feats)
             probs = predict_fn(self.model_cfg, logits)[:n].cpu().numpy()
             embs = torch.stack(emb_ens)[:, :n].cpu().numpy()
         return probs, embs

@@ -87,17 +87,20 @@ def test_bucket_cap_matches_jax(n):
 
 @pytest.mark.parametrize("cfg", [
     {"method": "ppr", "k": 200}, {"method": "ppr", "k": 16},
-    {"method": "ppr_st", "k": 50}])
+    {"method": "ppr_st", "k": 50}, {"method": "khop", "depth": 2, "budget": 10},
+    {"method": "nodeIID"}])
 @pytest.mark.parametrize("num_targets", [1, 2])
 def test_default_n_pad_matches_jax(cfg, num_targets):
     assert (tbatch.default_n_pad(cfg, num_targets)
             == jbatch.default_n_pad(cfg, num_targets))
 
 
-@pytest.mark.parametrize("cfg", [{"method": "khop", "depth": 2, "budget": 10},
-                                 {"method": "nodeIID"}])
+@pytest.mark.parametrize("cfg", [{"method": "full"}, {"method": "bogus"}])
 def test_default_n_pad_unported_sampler_raises(cfg):
-    with pytest.raises(NotImplementedError, match="not ported"):
+    """A method without a capacity rule raises in both packages."""
+    with pytest.raises(ValueError):
+        jbatch.default_n_pad(cfg)
+    with pytest.raises(ValueError, match="unknown sampler"):
         tbatch.default_n_pad(cfg)
 
 

@@ -283,7 +283,7 @@ def test_packed_path_equals_dense_path():
 def test_unported_branches_raise():
     _, tcfg = _configs(False)
     import dataclasses
-    for bad in (dict(aggr="gcn"), dict(aggr="gatscat"), dict(num_ensemble=2),
+    for bad in (dict(aggr="gcn"), dict(aggr="gatscat"), dict(aggr="gin"),
                 dict(pooling="sort-5"), dict(layer_norm="pairnorm"),
                 dict(act="softplus")):
         with pytest.raises(NotImplementedError):

@@ -110,28 +110,39 @@ def test_plan_ppr_induction_fields(trainers):
 HUB_DEGREES = (100, 200, 230, 235, 600, 5000)
 
 
+@pytest.mark.parametrize("row_block", [32, 128])
 @pytest.mark.parametrize("undirected", [True, False])
 @pytest.mark.parametrize("n_pad", [24, 158, 208])
 @pytest.mark.parametrize("num_targets", [1, 2])
-def test_plan_ppr_induction_grid(undirected, n_pad, num_targets):
+def test_plan_ppr_induction_grid(undirected, n_pad, num_targets, row_block):
     """The plan against JAX's over degree tables of every scope degree
-    10 but one member: the same dict wherever JAX plans hub-free rows,
-    NotImplementedError wherever it plans hub rows or ``cand``."""
+    10 but one member: the same dict on every case, hub-free rows, hub
+    rows and ``cand`` alike, at the JAX package's block widths for
+    graphs below and from 2**28 edges (``row_block`` 32 and 128)."""
     k = n_pad - 8 if n_pad > 24 else 16
     root_deg = np.full(40, 10)
+    kinds = set()
     for batch in (64, 128, 256):
         for hub in HUB_DEGREES:
             scope_deg = np.full((40, k), 10)
             scope_deg[3, 5] = hub
             kw = dict(n_pad=n_pad, num_targets=num_targets, batch_size=batch,
-                      undirected=undirected)
+                      undirected=undirected, row_block=row_block)
             want = j_plan(scope_deg, root_deg, **kw)
-            if want["induction"] == "rows" and want["hub_slots"] == 0:
-                got = tinduction.plan_ppr_induction(scope_deg, root_deg, **kw)
-                assert got == want, (batch, hub)
-            else:
-                with pytest.raises(NotImplementedError):
-                    tinduction.plan_ppr_induction(scope_deg, root_deg, **kw)
+            assert tinduction.plan_ppr_induction(scope_deg, root_deg, **kw) == want, (
+                batch, hub)
+            kinds.add(want["induction"] + ("+hub" if want.get("hub_slots") else ""))
+    if n_pad > 24:
+        assert kinds == {"rows", "rows+hub" if undirected else "cand"}
+
+
+def test_plan_row_block_rule():
+    """The JAX package's block width rule (C4): 128 from 2**28 edges."""
+    from shadow_gnn_tpu.data.graph import DeviceGraph as JGraph
+    from shadow_gnn_torch.data.graph import plan_row_block
+    indptr = np.array([0, 1, 2]); indices = np.array([1, 0])
+    assert JGraph.from_csr(indptr, indices).row_block == plan_row_block(2) == 32
+    assert plan_row_block(2**28 - 1) == 32 and plan_row_block(2**28) == 128
 
 
 def test_plan_ppr_induction_hub_row_repro():
