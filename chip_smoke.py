@@ -161,7 +161,32 @@ Phases, each fatal on failure (an uncaught exception, non-zero exit):
              on the card (``ensemble_multirun``, one run of 5 epochs), and
              ``inference`` of VALID and TEST (6 B2 launches a batch).
              Each part prints its nodes per second and its seconds;
-13. profile (``--profile`` only) — torch.profiler over cached requests
+13. link    — ``configs/collab_sage_pprst_leaderboard.yml`` at full width
+             (SAGE, 5 layers, dim 256, elu, DRNL one-hots concatenated,
+             concat residue, sort-25 pooling; ppr_st k 200, threshold
+             0.01, eps 1e-6, n_pad 408; batch 16, dropout 0.25, dropedge
+             0.1, 10% of TRAIN an epoch; ``packed_adj`` on) on the
+             collab-shape synthetic link graph of
+             ``scripts/cold_bench.py`` (235,000 nodes, avg deg 10, 128
+             features, seed 0), TRAIN positives cut to 20,480 edges of
+             the message graph (256 steps an epoch with the trainer's
+             negatives), 2 epochs: one host PPR push over every node at
+             k_tab 400, shared by the three modes (seconds printed), the
+             plans; one TRAIN batch through the port on the card and on
+             the CPU with the same parameters, roots and ppr_st uniforms
+             at dropout and dropedge 0 (node tables, blocks, targets and
+             DRNL equal bit for bit; loss within 1e-5 relative and each
+             gradient within 1e-4 of its max on a batch whose sort-pool
+             ranks do not swap; swaps counted); ``train()`` and then
+             ``inference`` of VALID and TEST with every kernel count set
+             to 0 just before and read as 0 just after (a link batch is
+             never cached, so it takes the dense ``torch.bmm``), finite
+             losses, every parameter moved, hits@50 in [0, 1], the final
+             stats reproduced by ``inference``, its edges per second;
+             then 10 timed TRAIN steps (sampling included) with the share
+             of sampling, induction and DRNL, and their device-busy share
+             (torch.profiler; its top operations under ``--profile``);
+14. profile (``--profile`` only) — torch.profiler over cached requests
              (flagship 1 and 256 ids, GAT 128 ids, the power-law flagship
              1 and 256, the ensemble 1 and 128) and over 5 TRAIN steps of
              each model, f32 and at bf16 precision (the power-law
@@ -213,6 +238,10 @@ GAT_DROPEDGE = 0.1              # configs/products_gat_5_ppr_leaderboard.yml
 KINKED_ACTS = ("relu", "prelu", "prelu+", "leakyrelu")   # derivative jumps at 0
 COLD_STEPS = 10                 # timed TRAIN steps of the power-law and ensemble phases
 ENSEMBLE_WIDTHS = (104, 112)    # n_pad of the PPR-100 and the khop 2 x 10 branches
+LINK_TRAIN_POS = 20_480         # TRAIN positives, edges of the collab-shape message graph
+LINK_K_TAB = 400                # ppr_st k 200: the race's 2k pool
+LINK_N_PAD = 408                # 2 targets x (k + 1), rounded up to 8
+LINK_CHECK_TRIES = 4            # batches tried for a card-vs-CPU step without rank swaps
 
 
 def _median(xs):
@@ -1377,10 +1406,10 @@ def phase_time_train(bits, launches, max_abs_err, bf16=False):
     return rows
 
 
-def _profile(label, fn, n, wall_ms):
+def _profile(label, fn, n, wall_ms, top=True):
     """torch.profiler over n calls of fn: device-busy time per call, its
-    share of the unprofiled ``wall_ms``, and the top kernels and host
-    operations."""
+    share of the unprofiled ``wall_ms``, and (``top``) the top kernels
+    and host operations."""
     import torch
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
@@ -1407,6 +1436,8 @@ def _profile(label, fn, n, wall_ms):
           f"{sum(c for c, _ in kern.values()) / n:.0f} device events per call; "
           f"unprofiled {wall_ms:.2f} ms -> device busy share "
           f"{busy_ms / wall_ms:.3f}")
+    if not top:
+        return
     for name, (cnt, us) in sorted(kern.items(), key=lambda kv: -kv[1][1])[:8]:
         print(f"[profile]   device {us / 1e3 / n:8.4f} ms/call "
               f"{cnt / n:5.1f}x  {name[:90]}")
@@ -1712,8 +1743,23 @@ def _step_fn(tr, seed=5):
     import torch
     from shadow_gnn_torch import TRAIN
     from shadow_gnn_torch.train.pipeline import EpochRNG
-    b, ent = tr.batch_size, np.asarray(tr.entity_set[TRAIN])
+    b = tr.batch_size
     rng = EpochRNG.from_seed(seed, tr.device)
+    if tr.task == "link":
+        # the batches of one epoch's arrays: edges and negatives, [M, 2]
+        nb, roots, rows, labels, w = tr._epoch_arrays(TRAIN)
+
+        def step(i):
+            sl = slice((i % nb) * b, (i % nb + 1) * b)
+            with torch.no_grad():
+                batches, feats = tr._sample_branch_batches(
+                    TRAIN, torch.as_tensor(roots[sl], device="cuda"),
+                    torch.as_tensor(rows[sl], device="cuda"), rng.sample)
+            tr._train_step(batches, feats,
+                           torch.as_tensor(labels[sl].astype(np.float32), device="cuda"),
+                           torch.as_tensor(w[sl], device="cuda"), rng)
+        return step
+    ent = np.asarray(tr.entity_set[TRAIN])
 
     def step(i):
         lo = (i * b) % (ent.size - b + 1)
@@ -1730,11 +1776,12 @@ def _step_fn(tr, seed=5):
 def _timed_steps(tr, n_steps):
     """``n_steps`` steps of :func:`_step_fn`, after one warm-up step, each
     timed with CUDA events: the whole step, and within it every
-    ``sample_subgraphs`` call (by sampler) and every ``induce``.  Returns
-    the medians {"step", "sample <method>", "induce <method>"} in ms and
-    the summed induction overflow."""
+    ``sample_subgraphs`` call (by sampler), every ``induce`` and every
+    ``drnl_labels`` (link task).  Returns the medians {"step", "sample
+    <method>", "induce <method>", "drnl"} in ms and the summed induction
+    overflow."""
     import torch
-    from shadow_gnn_torch.sampling import samplers
+    from shadow_gnn_torch.sampling import induction, samplers
     from shadow_gnn_torch.train import pipeline
     rec, overflow = [], [0]
 
@@ -1745,7 +1792,8 @@ def _timed_steps(tr, n_steps):
             ev[0].record()
             out = fn(*args, **kw)
             ev[1].record()
-            rec.append((f"{kind} {args[cfg_at].method}", ev))
+            rec.append((kind if cfg_at is None else f"{kind} {args[cfg_at].method}",
+                         ev))
             if kind == "induce":
                 overflow[0] += out.overflow
             return out
@@ -1755,7 +1803,8 @@ def _timed_steps(tr, n_steps):
     tr.model.train()
     with _Swap((pipeline, "sample_subgraphs", timed(pipeline.sample_subgraphs,
                                                     "sample", 0)),
-               (samplers, "induce", timed(samplers.induce, "induce", 4))):
+               (samplers, "induce", timed(samplers.induce, "induce", 4)),
+               (induction, "drnl_labels", timed(induction.drnl_labels, "drnl", None))):
         for i in range(n_steps + 1):
             first = len(rec)
             ev = (torch.cuda.Event(enable_timing=True),
@@ -1776,13 +1825,13 @@ def _timed_steps(tr, n_steps):
     return {k: _median(v) for k, v in per.items()}, overflow[0]
 
 
-def _profile_steps(tr, label, wall_ms):
+def _profile_steps(tr, label, wall_ms, top=True):
     """Device-busy share of 5 steps of :func:`_step_fn` (sampling
     included) against their unprofiled median ``wall_ms``."""
     step = _step_fn(tr, seed=11)
     tr.model.train()
     step(0)                                             # warm
-    _profile(label, lambda i: step(i + 1), 5, wall_ms)
+    _profile(label, lambda i: step(i + 1), 5, wall_ms, top)
     tr.model.eval()
 
 
@@ -2154,6 +2203,339 @@ def phase_infer_ensemble(tr):
     print(f"{tag} ensemble part {time.perf_counter() - t_phase:.1f}s")
 
 
+def _card():
+    """The card's name and power limit, as nvidia-smi gives them."""
+    smi = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+        capture_output=True, text=True, timeout=60, check=True)
+    return smi.stdout.strip().splitlines()[0]
+
+
+def _collab_graph():
+    """scripts/cold_bench.py's ``collab_lead`` shape: 235,000 nodes, avg
+    deg 10, 128 features, seed 0, the synthetic link splits (VALID and
+    TEST positives held out of the message graph)."""
+    return _synthetic_graph("[link]", num_nodes=235_000, avg_deg=10.0, num_feat=128,
+                            seed=0, task="link")
+
+
+def _link_trainer(g, epochs=EPOCHS):
+    """configs/collab_sage_pprst_leaderboard.yml at full width (SAGE, 5
+    layers, dim 256, elu, sigmoid loss, DRNL one-hots concatenated, concat
+    residue, sort-25 pooling; ppr_st k 200, threshold 0.01, eps 1e-6;
+    batch 16, dropout 0.25, dropedge 0.1, lr 2e-5, 10% of TRAIN an epoch)
+    on the collab-shape graph ``g``, ``packed_adj`` on; TRAIN positives
+    cut to ``LINK_TRAIN_POS`` edges of the message graph (a seeded
+    permutation; the trainer draws as many negatives), VALID and TEST the
+    synthetic held-out sets; random weights from seed 0."""
+    import dataclasses
+    import numpy as np
+    import torch
+    from shadow_gnn_torch import TRAIN
+    from shadow_gnn_torch.train.config import parse_config
+    from shadow_gnn_torch.train.pipeline import Trainer
+    cfg = {
+        "data": {"to_undirected": True, "transductive": True},
+        "architecture": {"dim": 256, "aggr": "sage", "loss": "sigmoid",
+                         "num_layers": 5, "act": "elu", "feature_augment": "drnls",
+                         "feature_augment_ops": "concat", "residue": "concat",
+                         "pooling": "sort-25"},
+        "hyperparameter": {"end": epochs, "lr": 2e-5, "dropout": 0.25,
+                           "dropedge": 0.1, "batch_size": 16,
+                           "percent_per_epoch": {"train": 0.1, "valid": 1, "test": 1}},
+        "sampler": [{"method": "ppr_st", "phase": "train", "k": [200],
+                     "threshold": [0.01], "epsilon": [1e-6]}],
+    }
+    t0 = time.perf_counter()
+    src = np.repeat(np.arange(g.num_nodes), np.diff(g.indptr_full))
+    upper = src < g.indices_full
+    pool = np.stack([src[upper], g.indices_full[upper]], 1).astype(np.int64)
+    pick = np.random.default_rng(0).permutation(pool.shape[0])[:LINK_TRAIN_POS]
+    edge_set = dict(g.edge_set)
+    edge_set[TRAIN] = {"pos": pool[pick]}
+    tr = Trainer("collab", "", dataclasses.replace(g, edge_set=edge_set),
+                 parse_config(cfg), seed=0, device="cuda", packed_adj=True)
+    torch.cuda.synchronize()
+    n_params = sum(p.numel() for p in tr.model.parameters())
+    print(f"[link] trainer {time.perf_counter() - t0:.1f}s; {n_params} parameters, "
+          f"nn_pool {tuple(tr.model.res_pool.nn_pool.weight.shape)}; metric "
+          f"{tr.metrics.name}")
+    return tr
+
+
+def _kernel_counts():
+    """Every kernel level's launch counter, by name: (wrapper, attribute)."""
+    from shadow_gnn_torch.ops.gat import gat_attention, gat_attention_bwd
+    from shadow_gnn_torch.ops.packed import packed_spmm, packed_spmm_t
+    return {"B1a": (packed_spmm, "launches"), "B1b": (packed_spmm_t, "launches"),
+            "B1c": (packed_spmm, "launches_bf16"),
+            "B1c transposed": (packed_spmm_t, "launches_bf16"),
+            "B2": (gat_attention, "launches"), "B2b": (gat_attention, "launches_bf16"),
+            "B3": (gat_attention_bwd, "launches"),
+            "B3b": (gat_attention_bwd, "launches_bf16")}
+
+
+@contextlib.contextmanager
+def _no_kernel_launches(what):
+    """Every kernel count set to 0 on entry; any launch within the block
+    fails it."""
+    counts = _kernel_counts()
+    for fn, attr in counts.values():
+        setattr(fn, attr, 0)
+    yield
+    got = {k: getattr(fn, attr) for k, (fn, attr) in counts.items()}
+    print(f"[link] kernel launches over {what}: {got}")
+    if any(got.values()):
+        raise AssertionError(f"{what} launched a packed or GAT kernel: {got}")
+
+
+def _link_sort_order(res_pool, args):
+    """The sort pool's ranking of each subgraph's nodes (its first k
+    places), from ResPool's inputs."""
+    import torch
+    from shadow_gnn_torch.nn.respool import f_residue
+    feats_l, _, node_mask = args[:3]
+    block = feats_l[-1] if res_pool.type_res == "none" else f_residue(feats_l,
+                                                                      res_pool.type_res)
+    key = torch.where(node_mask, block[..., -1].detach(), -1e30)
+    return torch.sort(-key, dim=-1, stable=True)[1][:, :res_pool.sort_k]
+
+
+def _link_step(model, cfg, sampler_cfg, graph, tables, roots, rows, u, feat_tab,
+               labels):
+    """One TRAIN batch of the link model on ``graph``'s device, sampled with
+    the uniforms ``u``, forward and backward at dropout and dropedge 0
+    (eval mode): (batch, loss, gradients, the sort pool's ranking)."""
+    import torch
+    from shadow_gnn_torch.sampling.samplers import sample_subgraphs
+    from shadow_gnn_torch.train.pipeline import weighted_loss_fn
+    with torch.no_grad():
+        batch = sample_subgraphs(sampler_cfg, graph, roots, rows, tables, u=u)
+    feat = feat_tab[torch.clamp(batch.nodes, max=graph.num_nodes - 1)]
+    order = []
+    hook = model.res_pool.register_forward_pre_hook(
+        lambda m, a: order.append(_link_sort_order(m, a)))
+    try:
+        model.eval()
+        model.zero_grad(set_to_none=True)
+        logits, _ = model(batch, feat, None, 0, True)
+        loss = weighted_loss_fn(cfg, logits, labels, torch.ones_like(labels[:, 0]))
+        loss.backward()
+    finally:
+        hook.remove()
+    return batch, loss.item(), {k: p.grad.detach().clone()
+                                for k, p in model.named_parameters()}, order[0]
+
+
+def _link_card_vs_cpu(tr, tag):
+    """One TRAIN batch (8 positives, 8 random pairs) through the port on
+    the card and on the CPU, with the same parameters, roots and ppr_st
+    uniforms, dropout and dropedge 0: the node tables, blocks, targets and
+    DRNL labels equal bit for bit; the loss within 1e-5 relative and each
+    gradient within 1e-4 of its max.  The sort pool's ranking is a
+    discontinuity: the rank swaps between the two sides are counted, and
+    the loss and gradients are held on the first of ``LINK_CHECK_TRIES``
+    batches without a swap."""
+    import copy
+    import numpy as np
+    import torch
+    from shadow_gnn_torch import TRAIN
+    from shadow_gnn_torch.data.graph import DeviceGraph
+    from shadow_gnn_torch.sampling.samplers import PPRTables
+    t0 = time.perf_counter()
+    cfg = tr.branches[0]["cfg"][TRAIN]
+    tab = tr.tables[TRAIN][0]
+    g_cpu = DeviceGraph.from_csr(*tr._host_adj[TRAIN], "cpu")
+    model_cpu = copy.deepcopy(tr.model).cpu()
+    feat_cpu = tr.feat_tab.cpu()
+    b, n = tr.batch_size, tr.num_nodes
+    pos = tr.entity_set[TRAIN]["pos"]
+    rng = np.random.default_rng(1)
+    labels = torch.as_tensor(np.repeat([1.0, 0.0], [b // 2, b - b // 2])[:, None],
+                             dtype=torch.float32)
+    for attempt in range(LINK_CHECK_TRIES):
+        roots = np.concatenate([pos[attempt * (b // 2):(attempt + 1) * (b // 2)],
+                                rng.integers(0, n, (b - b // 2, 2))]).astype(np.int64)
+        roots_d = torch.as_tensor(roots, device="cuda")
+        gen = torch.Generator(device="cuda").manual_seed(attempt)
+        u = torch.clamp(torch.rand((2 * b, tab.neighs.shape[1]), generator=gen,
+                                   device="cuda") * (1.0 - 1e-12) + 1e-12, min=1e-12)
+        flat = roots_d.reshape(-1)
+        tab_cpu = PPRTables(tab.neighs[flat].cpu(), tab.scores[flat].cpu())
+        rows_cpu = torch.arange(2 * b).reshape(b, 2)
+        gb, g_loss, g_grads, g_order = _link_step(
+            tr.model, tr.model_cfg, cfg, tr.graph[TRAIN], tab, roots_d, roots_d, u,
+            tr.feat_tab, labels.to("cuda"))
+        cb, c_loss, c_grads, c_order = _link_step(
+            model_cpu, tr.model_cfg, cfg, g_cpu, tab_cpu, torch.as_tensor(roots),
+            rows_cpu, u.cpu(), feat_cpu, labels)
+        for f in ("nodes", "adj", "targets", "drnl", "node_mask"):
+            if not torch.equal(getattr(gb, f).cpu(), getattr(cb, f)):
+                raise AssertionError(f"the card's batch differs from the CPU's in {f}")
+        swaps = int((g_order.cpu() != c_order).sum())
+        rel = abs(g_loss - c_loss) / abs(c_loss)
+        err, name = _grad_error({k: v.cpu() for k, v in g_grads.items()}, c_grads)
+        print(f"{tag} card vs CPU, batch {attempt}: nodes, blocks, targets and DRNL "
+              f"equal ({int(gb.size.sum())} nodes, {int(gb.adj.sum())} edges, DRNL "
+              f"max {int(gb.drnl[gb.node_mask].max())}); sort-pool rank swaps "
+              f"{swaps} of {g_order.numel()}; loss {g_loss:.7f} vs {c_loss:.7f} "
+              f"(rel {rel:.2e}); worst gradient error {err:.2e} of its max ({name})"
+              + (" (not held: ranks swapped)" if swaps else ""))
+        if swaps:
+            continue
+        if rel > 1e-5 or err > 1e-4:
+            raise AssertionError("the card's link step differs from the CPU's")
+        break
+    else:
+        raise AssertionError(f"every one of {LINK_CHECK_TRIES} batches swapped ranks")
+    tr.model.zero_grad(set_to_none=True)
+    print(f"{tag} card vs CPU check {time.perf_counter() - t0:.1f}s")
+
+
+def _time_optimizer(tr, tag):
+    """The clip and Adam update of one step (the gradients of the last
+    step in place), timed with CUDA events over 10 calls, beside the
+    least time for their bytes: Adam reads a parameter, its gradient and
+    two moments and writes three, the clip reads the gradients twice and
+    writes them once (40 bytes a parameter)."""
+    import torch
+    from shadow_gnn_torch.train.pipeline import CLIP_NORM, clip_grad_global_norm_
+    params = list(tr.model.parameters())
+    n = sum(p.numel() for p in params)
+
+    def update():
+        clip_grad_global_norm_(params, CLIP_NORM)
+        tr.optimizer.step()
+
+    for _ in range(2):
+        update()
+    ev = (torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True))
+    ev[0].record()
+    for _ in range(10):
+        update()
+    ev[1].record()
+    torch.cuda.synchronize()
+    ms = ev[0].elapsed_time(ev[1]) / 10
+    bound = 40.0 * n / HBM_BYTES_PER_S * 1e3
+    print(f"{tag} clip + Adam over {n} parameters ({tr.model.res_pool.nn_pool.weight.numel()}"
+          f" of them nn_pool's): {ms:.3f} ms a step (CUDA events, 10 calls), bound "
+          f"{bound:.3f} ms (40 bytes a parameter at {HBM_BYTES_PER_S / 1e12:.2f} TB/s)")
+
+
+def phase_link(graph, profile=False):
+    """The collab SAGE-5 ppr_st + DRNL + sort-25 link model on the
+    collab-shape graph: the shared PPR push and the plans, the card
+    against the CPU on one batch, ``Trainer.train()`` (2 epochs) and
+    ``inference`` of VALID and TEST (edges/s; the final stats again) with
+    no packed or GAT kernel launched, then 10 timed TRAIN steps (sampling
+    included) and their device-busy share."""
+    import numpy as np
+    import torch
+    from shadow_gnn_torch import MODE2STR, TEST, TRAIN, VALID
+    tag = "[link]"
+    card = _card()
+    tr = _link_trainer(graph)
+    calls = []
+    compute_ppr = tr._compute_ppr
+    tr._compute_ppr = lambda *a, **kw: calls.append(a[2]) or compute_ppr(*a, **kw)
+    t0 = time.perf_counter()
+    try:
+        plans = _print_plans(tr, tag)
+    finally:
+        del tr._compute_ppr
+    ppr_s = time.perf_counter() - t0
+    tab = tr.tables[TRAIN][0]
+    print(f"{tag} PPR tables: {len(calls)} host push over {tr.num_nodes} nodes at "
+          f"k_tab {calls[0] if calls else None}, shared by TRAIN, VALID and TEST, "
+          f"with the plans: {ppr_s:.1f}s ({card})")
+    if (calls != [LINK_K_TAB] or not tab is tr.tables[VALID][0] is tr.tables[TEST][0]
+            or tuple(tab.neighs.shape) != (tr.num_nodes, LINK_K_TAB)):
+        raise AssertionError(f"the PPR tables are not one shared push: {calls}")
+    if ([plans[m, 0]["method"] for m in (TRAIN, VALID, TEST)] != ["ppr_st", "ppr", "ppr"]
+            or plans[TRAIN, 0]["n_pad"] != LINK_N_PAD):
+        raise AssertionError(f"unexpected plans {plans}")
+    _link_card_vs_cpu(tr, tag)
+
+    steps, losses = [], []
+    train_step = tr._train_step
+
+    def timed_step(*args, **kw):
+        ev = (torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True))
+        ev[0].record()
+        out = train_step(*args, **kw)
+        ev[1].record()
+        steps.append(ev)
+        losses.append(out[0])
+        return out
+
+    tr._train_step = timed_step
+    p0 = {k: v.clone() for k, v in tr.model.state_dict().items()}
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    try:
+        # the main path: counts at 0 just before, read just after
+        with _no_kernel_launches("train()"):
+            t0 = time.perf_counter()
+            final = tr.train()
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+    finally:
+        del tr._train_step
+    peak = torch.cuda.max_memory_allocated()
+    n_epochs = int(tr.params_train["end"])
+    nb = -(-int(np.ceil(0.1 * 2 * LINK_TRAIN_POS)) // tr.batch_size)
+    if len(steps) != n_epochs * nb:
+        raise AssertionError(f"{len(steps)} TRAIN steps, want {n_epochs * nb}")
+    if not bool(torch.isfinite(torch.stack(losses)).all()):
+        raise AssertionError("a training loss is not finite")
+    if not all(np.isfinite(st["loss"]) and 0.0 <= st["hits50"] <= 1.0
+               for st in final.values()):
+        raise AssertionError(f"final stats out of range: {final}")
+    moved = sum(not torch.equal(p0[k], v) for k, v in tr.model.state_dict().items())
+    if moved != len(p0):
+        raise AssertionError(f"training moved {moved} of {len(p0)} parameters")
+    step_ms = [a.elapsed_time(b) for a, b in steps]
+    print(f"{tag} train(): {n_epochs} epochs of {nb} TRAIN steps (B={tr.batch_size} "
+          f"edges, n_pad {LINK_N_PAD}) in {wall:.2f}s; step (CUDA events) median "
+          f"{_median(step_ms):.3f} ms, epoch-1 median {_median(step_ms[nb:]):.3f} ms; "
+          f"peak device memory {peak / 2**30:.2f} GiB; {moved} parameters moved; "
+          f"final " + "; ".join(f"{MODE2STR[m]} loss {st['loss']:.5f} hits50 "
+                                f"{st['hits50']:.5f}" for m, st in final.items())
+          + f" ({card})")
+
+    # inference of the trained model: the final VALID and TEST stats again
+    n_eval = sum(len(tr.entity_set[m]["pos"]) + len(tr.entity_set[m]["neg"])
+                 for m in (VALID, TEST))
+    with _no_kernel_launches("inference"):
+        t0 = time.perf_counter()
+        summary = tr.inference()
+        torch.cuda.synchronize()
+        secs = time.perf_counter() - t0
+    print(f"{tag} inference VALID + TEST: {n_eval} edges in {secs:.3f}s, "
+          f"{n_eval / secs:.0f} edges/s ({card}); {summary}")
+    again = tr.logger.final_stats
+    if any(again[m]["hits50"] != final[m]["hits50"]
+           or abs(again[m]["loss"] - final[m]["loss"]) > 1e-6 * abs(final[m]["loss"])
+           for m in (VALID, TEST)):
+        raise AssertionError("inference does not reproduce the final stats")
+
+    timed, overflow = _timed_steps(tr, COLD_STEPS)
+    share = timed["sample ppr_st"]
+    print(f"{tag} step median {timed['step']:.3f} ms over {COLD_STEPS} TRAIN steps "
+          f"(sampling included, CUDA events): sample + induce + drnl "
+          f"{share:.3f} ms ({100 * share / timed['step']:.1f}%), of which induce "
+          f"{timed['induce ppr_st']:.3f} ms, drnl {timed['drnl']:.3f} ms; overflow "
+          f"{overflow}; {tr.batch_size / timed['step'] * 1e3:.0f} edges/s ({card})")
+    if overflow:
+        raise AssertionError(f"the exact plan overflowed by {overflow}")
+    _profile_steps(tr, "link TRAIN step (sampling included)", timed["step"],
+                   top=profile)
+    _time_optimizer(tr, tag)
+
+    del tr
+    torch.cuda.empty_cache()
+
+
 def main():
     import torch
     if not torch.cuda.is_available():
@@ -2260,11 +2642,10 @@ def main():
     phase_power_law(_flickr_power_graph(), profile)
     # the two-branch PPR + khop GAT ensemble
     phase_ensemble(_arxiv_graph(), profile)
+    # the collab link model: no kernel of the repo on its path
+    phase_link(_collab_graph(), profile)
     print(f"[chip_smoke] all phases passed in {time.perf_counter() - t_all:.1f}s")
-    smi = subprocess.run(
-        ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
-        capture_output=True, text=True, timeout=60, check=True)
-    print(smi.stdout.strip().splitlines()[0])
+    print(_card())
     print(json.dumps({"kernels": rows}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -7,6 +7,7 @@ i's modules carry the suffix ``<s>`` = ``_<i>`` (none for branch 0,
 ``nn/model.py:branch_suffix``):
 
   aug_<i>_<aug>/kernel [in, out]          -> aug<s>.<aug>.weight [out, in]
+      (out = dim_feat_in, or dim under feature_augment_ops: concat)
   conv_<i>_<l>/TorchLinear_0 (self)       -> convs<s>.<l>.lin_self
   conv_<i>_<l>/TorchLinear_1 (neigh)      -> convs<s>.<l>.lin_neigh
   conv_<i>_<l>/Act_0/prelu_alpha          -> convs<s>.<l>.act.prelu_alpha
@@ -14,12 +15,16 @@ i's modules carry the suffix ``<s>`` = ``_<i>`` (none for branch 0,
       ([2, dim] for SAGE, [2, H, dh] for GAT)
   conv_<i>_<l>/attention [2, H, dh] (GAT) -> convs<s>.<l>.attention
   res_pool_<i>/TorchLinear_0              -> res_pool<s>.lin
+      (sort-k pooling: TorchLinear_0 -> res_pool<s>.nn_pool, the
+      [k*F, F] linear, and TorchLinear_1 -> res_pool<s>.lin)
   res_pool_<i>/Act_0/prelu_alpha          -> res_pool<s>.act.prelu_alpha
   res_pool_<i>/scale, offset [dim]        -> res_pool<s>.scale, .offset
   ensembler/TorchLinear_0, Act_0, q       -> ensembler.lin, .act, .q
   classifier_<l>/TorchLinear_0            -> classifier.<l>.lin
   classifier_<l>/Act_0/prelu_alpha        -> classifier.<l>.act.prelu_alpha
   classifier_<l>/scale, offset            -> classifier.<l>.scale, .offset
+      (dropped for the link task: JAX makes them, its classifier never
+      reads them, and the port's has none)
 
 :func:`post_ens_params_from_flax` maps the tree of the post-ensemble's
 ``ModelPostEns`` (``postproc/ens.py``):
@@ -60,7 +65,8 @@ def _module(tree: Mapping, prefix: str, linears: Mapping[str, str],
             out[f"{prefix}.{key}"] = torch.as_tensor(np.array(sub))
 
 
-def params_from_flax(params: Mapping) -> Dict[str, torch.Tensor]:
+def params_from_flax(params: Mapping, prediction_task: str = "node"
+                     ) -> Dict[str, torch.Tensor]:
     """flax ``params`` tree (``{"params": {...}}`` or its inner dict) of
     numpy arrays -> the port's ``state_dict``."""
     p = params.get("params", params)
@@ -77,10 +83,15 @@ def params_from_flax(params: Mapping) -> Dict[str, torch.Tensor]:
             _module(sub, f"convs{sfx}.{parts[2]}",
                     {"TorchLinear_0": "lin_self", "TorchLinear_1": "lin_neigh"}, out)
         elif name.startswith("res_pool_"):
-            _module(sub, f"res_pool{sfx}", {"TorchLinear_0": "lin"}, out)
+            lins = ({"TorchLinear_0": "nn_pool", "TorchLinear_1": "lin"}
+                    if "TorchLinear_1" in sub else {"TorchLinear_0": "lin"})
+            _module(sub, f"res_pool{sfx}", lins, out)
         elif name == "ensembler":
             _module(sub, "ensembler", {"TorchLinear_0": "lin"}, out)
         elif parts[0] == "classifier":
+            if prediction_task == "link":
+                sub = {k: v for k, v in sub.items()
+                       if k not in ("scale", "offset")}
             _module(sub, f"classifier.{parts[1]}", {"TorchLinear_0": "lin"}, out)
         else:
             raise NotImplementedError(f"no port of parameter group {name!r}")

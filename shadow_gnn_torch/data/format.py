@@ -5,6 +5,7 @@ and writes:
 
     <prefix>/<name>/adj_full_raw.npz|npy      scipy-CSR or {indptr,indices[,data]}
     <prefix>/<name>/adj_train_raw.*           (inductive only)
+    <prefix>/<name>/adj_full_raw_with_val.*   (link: VALID edges as input)
     <prefix>/<name>/adj_*_undirected.npy      cached undirected conversion
     <prefix>/<name>/feat_full.npy             [N, F] float32
     <prefix>/<name>/label_full.npy            [N] int  or  [N, C] multilabel
@@ -47,7 +48,9 @@ def _save_adj_npy(path: str, indptr: np.ndarray, indices: np.ndarray):
 def load_adj(prefix: str, dataset: str, type_: str, split_: str,
              suffix: str = "") -> Optional[Tuple[np.ndarray, np.ndarray]]:
     """Load an adjacency as (indptr, indices), or None if absent.  Reads
-    both the .npz (scipy.save_npz) and the .npy (dict) encodings."""
+    both the .npz (scipy.save_npz) and the .npy (dict) encodings;
+    ``suffix="_with_val"`` selects a link task's message graph that also
+    holds the VALID edges."""
     if split_ not in ("full", "train") or type_ not in ("raw", "undirected"):
         raise ValueError(f"bad adjacency kind {split_}/{type_}")
     base = f"{prefix}/{dataset}/adj_{split_}_{type_}{suffix}"
@@ -78,13 +81,19 @@ def write_bin_csr(dir_cpp: str, split_: str, type_: str,
 
 def save_shadow_format(prefix: str, name: str, *, indptr, indices, feat, label,
                        node_set=None, edge_set=None, indptr_train=None,
-                       indices_train=None, write_bin: bool = True):
-    """Write a dataset directory in shaDow format."""
+                       indices_train=None, indptr_with_val=None,
+                       indices_with_val=None, write_bin: bool = True):
+    """Write a dataset directory in shaDow format.  ``indptr_with_val``
+    / ``indices_with_val`` give a link task's second message graph,
+    which also holds the VALID edges (``adj_full_raw_with_val``)."""
     d = f"{prefix}/{name}"
     os.makedirs(d, exist_ok=True)
     _save_adj_npy(f"{d}/adj_full_raw.npy", indptr, indices)
     if indptr_train is not None:
         _save_adj_npy(f"{d}/adj_train_raw.npy", indptr_train, indices_train)
+    if indptr_with_val is not None:
+        _save_adj_npy(f"{d}/adj_full_raw_with_val.npy", indptr_with_val,
+                      indices_with_val)
     np.save(f"{d}/feat_full.npy", np.asarray(feat, dtype=np.float32))
     if label is not None:
         np.save(f"{d}/label_full.npy", label)

@@ -3,7 +3,7 @@
 Undirected conversion with an on-disk cache, transductive/inductive
 adjacency selection, and StandardScaler-equivalent feature
 normalisation fit on the train nodes (inductive) or all nodes
-(transductive).  Node-task splits only; the link task comes later.
+(transductive), node and link splits.
 """
 from __future__ import annotations
 
@@ -36,33 +36,47 @@ def load_data(prefix: str, dataset: str, config_data: Dict[str, Any],
     role = np.load(f"{d}/split.npy", allow_pickle=True)
     if isinstance(role, np.ndarray):
         role = role[()]
+    # node task: mode -> node ids; link task: mode -> {'pos', 'neg'}
+    node_set = edge_set = label_full = None
+    suffix = ""
     if isinstance(next(iter(role.values())), dict):
-        raise NotImplementedError("link-task datasets are not ported yet")
-    node_set = {m: np.asarray(role[m], dtype=np.int64) for m in (TRAIN, VALID, TEST)}
-    label_full = np.load(f"{d}/label_full.npy")
+        # a link task is transductive; valedges_as_input reads the
+        # message graph that also holds the VALID edges
+        config_data = dict(config_data, transductive=True)
+        if config_data.get("valedges_as_input", False):
+            suffix = "_with_val"
+        edge_set = {
+            m: {k: np.asarray(v, dtype=np.int64) for k, v in role[m].items()}
+            for m in (TRAIN, VALID, TEST)}
+    else:
+        node_set = {m: np.asarray(role[m], dtype=np.int64)
+                    for m in (TRAIN, VALID, TEST)}
+        label_full = np.load(f"{d}/label_full.npy")
 
-    def load_und(split_: str):
+    def load_und(split_: str, sfx: str = ""):
         """undirected adjacency with a disk cache"""
-        adj = fmt.load_adj(prefix, dataset, "undirected", split_)
+        adj = fmt.load_adj(prefix, dataset, "undirected", split_, suffix=sfx)
         if adj is None:
-            raw = fmt.load_adj(prefix, dataset, "raw", split_)
+            raw = fmt.load_adj(prefix, dataset, "raw", split_, suffix=sfx)
             if raw is None:
-                raise FileNotFoundError(f"missing adjacency for split {split_}")
+                raise FileNotFoundError(
+                    f"missing adjacency for split {split_}{sfx}")
             adj = fmt.to_undirected_csr(*raw)
-            np.save(f"{d}/adj_{split_}_undirected.npy",
+            np.save(f"{d}/adj_{split_}_undirected{sfx}.npy",
                     {"indptr": adj[0], "indices": adj[1]}, allow_pickle=True)
         return adj
 
     has_train = (os.path.isfile(f"{d}/adj_train_raw.npy")
                  or os.path.isfile(f"{d}/adj_train_raw.npz"))
     if config_data.get("to_undirected", False):
-        indptr_full, indices_full = load_und("full")
+        indptr_full, indices_full = load_und("full", suffix)
         if config_data.get("transductive", False) or not has_train:
             indptr_train = indices_train = None
         else:
             indptr_train, indices_train = load_und("train")
     else:
-        indptr_full, indices_full = fmt.load_adj(prefix, dataset, "raw", "full")
+        indptr_full, indices_full = fmt.load_adj(prefix, dataset, "raw",
+                                                 "full", suffix=suffix)
         if config_data.get("transductive", False):
             indptr_train = indices_train = None
         else:
@@ -90,5 +104,5 @@ def load_data(prefix: str, dataset: str, config_data: Dict[str, Any],
         feat_full=feats,
         label_full=label_full,
         node_set=node_set,
-        edge_set=None,
+        edge_set=edge_set,
     )

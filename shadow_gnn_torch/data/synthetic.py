@@ -49,15 +49,15 @@ def make_synthetic_dataset(
     task: str = "node",
     power_law: bool = False,
 ) -> RawGraph:
-    """Random graph + community-correlated features/labels (node task).
+    """Random graph + community-correlated features/labels.
 
     Labels are planted from a random community assignment, then smoothed
-    one step over the graph so that aggregation beats an MLP.
+    one step over the graph so that aggregation beats an MLP.  With
+    ``task="link"`` the splits are edges instead (512 / 128 / 128
+    positives, random VALID/TEST negatives) and the held-out positives
+    leave the message graph, as ogbl-collab's ``adj_full`` holds only
+    the training edges.
     """
-    if task != "node":
-        raise NotImplementedError(
-            "the PyTorch port has no link task yet: synthetic link "
-            "datasets come with the link-task slice")
     rng = np.random.default_rng(seed + 1)
     indptr, indices = make_random_graph(num_nodes, avg_deg, seed, power_law)
     comm = rng.integers(0, num_classes, size=num_nodes)
@@ -83,6 +83,34 @@ def make_synthetic_dataset(
         VALID: np.sort(perm[n_tr:n_tr + n_va]).astype(np.int64),
         TEST: np.sort(perm[n_tr + n_va:]).astype(np.int64),
     }
+    edge_set = None
+    if task == "link":
+        n_pos = {TRAIN: 512, VALID: 128, TEST: 128}
+        all_src = np.repeat(np.arange(num_nodes), np.diff(indptr))
+        upper = all_src < indices  # each undirected edge once
+        pool = np.stack([all_src[upper], indices[upper]], 1)
+        sel = rng.permutation(pool.shape[0])
+        ofs = 0
+        edge_set = {}
+        for m in (TRAIN, VALID, TEST):
+            pos = pool[sel[ofs:ofs + n_pos[m]]].astype(np.int64)
+            ofs += n_pos[m]
+            if m == TRAIN:
+                edge_set[m] = {"pos": pos}
+            else:
+                neg = rng.integers(0, num_nodes, size=pos.shape).astype(np.int64)
+                edge_set[m] = {"pos": pos, "neg": neg}
+        node_set = None
+        label = None
+        held = np.concatenate([edge_set[VALID]["pos"], edge_set[TEST]["pos"]])
+        key_held = np.concatenate([held[:, 0] * num_nodes + held[:, 1],
+                                   held[:, 1] * num_nodes + held[:, 0]])
+        key_all = all_src.astype(np.int64) * num_nodes + indices
+        keep = ~np.isin(key_all, key_held)
+        indices = indices[keep]
+        indptr = np.concatenate([
+            [0], np.cumsum(np.bincount(all_src[keep],
+                                       minlength=num_nodes))]).astype(indptr.dtype)
     return RawGraph(
         indptr_full=indptr,
         indices_full=indices,
@@ -91,7 +119,7 @@ def make_synthetic_dataset(
         feat_full=feat,
         label_full=label,
         node_set=node_set,
-        edge_set=None,
+        edge_set=edge_set,
     )
 
 

@@ -12,7 +12,8 @@ reference ``shaDow/layers.py``):
   the masked softmax aggregation of ``ops/gat.py``, per-head norms
   (``scale[0]`` on the aggregate, ``scale[1]`` on the self term, the
   opposite of SAGE's order), ``(self + aggregate) / 2``;
-* MLP — linear -> act -> norm, ignoring the adjacency;
+* MLP — linear -> act -> norm (none for the link task's classifier),
+  ignoring the adjacency;
 * activations — ``Act`` owns PReLU's slope (``prelu``: one, ``prelu+``:
   one per channel, both initialised to 0.25); one ``Act`` serves both
   linears of a conv, as the flax module ``Act_0`` does;
@@ -223,19 +224,27 @@ class GATConv(nn.Module):
 
 
 class MLPLayer(nn.Module):
-    """MLP layer (the classifier stack): linear -> act -> norm."""
+    """MLP layer (the classifier stack): linear -> act -> norm, where
+    ``norm="none"`` (the link task's classifier) skips the norm and has
+    no norm parameters."""
 
     def __init__(self, dim_in: int, dim_out: int, act: str = "relu",
-                 dropout: float = 0.0, precision: str = "float32"):
+                 dropout: float = 0.0, precision: str = "float32",
+                 norm: str = "norm_feat"):
         super().__init__()
+        if norm not in ("norm_feat", "none"):
+            raise ValueError(f"unknown MLP norm {norm!r}")
         self.act = Act(act, dim_out)
         self.dropout = dropout
         self.lin = TorchLinear(dim_in, dim_out, precision)
-        self.scale = nn.Parameter(torch.ones(dim_out))
-        self.offset = nn.Parameter(torch.zeros(dim_out))
+        self.norm = norm
+        if norm == "norm_feat":
+            self.scale = nn.Parameter(torch.ones(dim_out))
+            self.offset = nn.Parameter(torch.zeros(dim_out))
 
     def forward(self, feat: torch.Tensor,
                 generator: Optional[torch.Generator] = None) -> torch.Tensor:
         if self.training:
             feat = dropout(feat, self.dropout, generator)
-        return norm_feat(self.act(self.lin(feat)), self.scale, self.offset)
+        h = self.act(self.lin(feat))
+        return h if self.norm == "none" else norm_feat(h, self.scale, self.offset)

@@ -1,11 +1,14 @@
 """DeepGNN: the shaDow-GNN model, one or more ensemble branches.
 
 Per branch: masked node features (label-input columns zeroed at the
-targets in the TRAIN mode) + hop one-hot augment -> L x conv (SAGE or
-GAT; node mask after every conv) -> ResPool -> L2 normalise.  An
-ensemble combines the branches' embeddings with ``EnsembleAggregator``
-(softmax attention over the branches); then the MLP classifier with
-``norm_feat`` on the logits.  Each branch has its own augment linears,
+targets in the TRAIN mode) + the one-hot augments (hop, DRNL: each one's
+linear added to the feature columns, or with ``feature_augment_ops:
+concat`` appended) -> L x conv (SAGE or GAT; node mask after every conv)
+-> ResPool -> L2 normalise.  An ensemble combines the branches'
+embeddings with ``EnsembleAggregator`` (softmax attention over the
+branches); then the MLP classifier with ``norm_feat`` on the logits
+(no norm on the link task's, whose subgraphs each hold an edge's two
+targets and give one logit).  Each branch has its own augment linears,
 convs and ResPool, named ``aug``, ``convs``, ``res_pool`` for branch 0
 and with the suffix ``_<i>`` for branch i (``branch_sharing``: every
 branch runs branch 0's convs), as the JAX package's ``aug_<i>_*``,
@@ -98,6 +101,12 @@ class ModelConfig:
         return self.pooling.split("-")[0]
 
     @property
+    def sort_k(self) -> int:
+        """k of ``pooling: sort-<k>`` (0 otherwise)."""
+        parts = self.pooling.split("-")
+        return int(parts[1]) if len(parts) > 1 else 0
+
+    @property
     def sigmoid_loss(self) -> bool:
         return self.loss == "sigmoid"
 
@@ -142,8 +151,6 @@ class DeepGNN(nn.Module):
             unported.append(f"aggr {cfg.aggr!r}")
         if cfg.layer_norm != "norm_feat":
             unported.append(f"layer norm {cfg.layer_norm!r}")
-        if cfg.feature_augment_ops != "sum" and cfg.feature_augment:
-            unported.append(f"feature_augment_ops {cfg.feature_augment_ops!r}")
         if cfg.matmul_precision == "tensorfloat32":
             unported.append("matmul_precision 'tensorfloat32'")
         if unported:
@@ -152,16 +159,23 @@ class DeepGNN(nn.Module):
             raise ValueError(f"unknown matmul_precision {cfg.matmul_precision!r}")
         if cfg.compute_dtype not in ("float32", "bfloat16"):
             raise ValueError(f"unknown compute_dtype {cfg.compute_dtype!r}")
+        if cfg.feature_augment_ops not in ("sum", "concat"):
+            raise ValueError(f"unknown feature_augment_ops {cfg.feature_augment_ops!r}")
         if cfg.num_ensemble < 1:
             raise ValueError(f"num_ensemble {cfg.num_ensemble} < 1")
         self.cfg = cfg
         prec = cfg.matmul_precision
-        dims = ([cfg.dim_feat_in + cfg.dim_label_smooth]
+        # "sum" adds each augment's linear (to dim_feat_in) to the
+        # feature columns; "concat" appends each one's (to dim)
+        concat = cfg.feature_augment_ops == "concat"
+        dim_aug = cfg.dim if concat else cfg.dim_feat_in
+        dims = ([cfg.dim_feat_in + cfg.dim_label_smooth
+                 + (dim_aug * len(cfg.feature_augment) if concat else 0)]
                 + [cfg.dim] * cfg.num_layers)
         for i in range(cfg.num_ensemble):
             sfx = branch_suffix(i)
             self.add_module("aug" + sfx, nn.ModuleDict(
-                {a: TorchLinear(AUG2DIM[a], cfg.dim_feat_in, prec)
+                {a: TorchLinear(AUG2DIM[a], dim_aug, prec)
                  for a in sorted(cfg.feature_augment)}))
             if i == 0 or not cfg.branch_sharing:
                 if cfg.aggr == "gat":
@@ -175,7 +189,7 @@ class DeepGNN(nn.Module):
                 self.add_module("convs" + sfx, nn.ModuleList(convs))
             self.add_module("res_pool" + sfx, ResPool(
                 cfg.dim, cfg.num_layers, cfg.residue, cfg.type_pool, cfg.dropout,
-                cfg.act, cfg.prediction_task, prec))
+                cfg.act, cfg.prediction_task, prec, cfg.sort_k))
         if cfg.num_ensemble > 1:
             self.ensembler = EnsembleAggregator(cfg.dim, cfg.dropout,
                                                 cfg.ensemble_act,
@@ -186,7 +200,9 @@ class DeepGNN(nn.Module):
             cls.append(MLPLayer(cfg.dim, cfg.dim_label_raw if last else cfg.dim,
                                 act="I" if last else cfg.act,
                                 dropout=0.0 if last else cfg.dropout,
-                                precision=prec))
+                                precision=prec,
+                                norm="norm_feat" if cfg.prediction_task == "node"
+                                else "none"))
         self.classifier = nn.ModuleList(cls)
 
     def branch_modules(self, i: int):
@@ -263,8 +279,11 @@ class DeepGNN(nn.Module):
         if aug:
             augs = batch_aug_onehots(batch, aug.keys())
             for a, lin in aug.items():
-                emb_a = lin(augs[a])                # the feature columns only
-                if d_lab > 0:
+                emb_a = lin(augs[a])
+                if self.cfg.feature_augment_ops == "concat":
+                    x = torch.cat([x, emb_a], dim=-1)
+                    continue
+                if d_lab > 0:                       # the feature columns only
                     emb_a = torch.nn.functional.pad(emb_a, (0, d_lab))
                 x = x + emb_a
         agg = self.aggregator(batch, seed)

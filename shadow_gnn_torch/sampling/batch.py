@@ -110,7 +110,7 @@ def sort_dedup(x: torch.Tensor, sentinel: int) -> torch.Tensor:
 
 
 DIM_1HOT_HOP = 7      # unreachable + self + hops 1..5
-AUG2DIM = {"hops": DIM_1HOT_HOP}
+DIM_1HOT_DRNL = 26    # unreachable + drnl 1..25
 
 
 def hop2onehot(hop: torch.Tensor, dim: int = DIM_1HOT_HOP) -> torch.Tensor:
@@ -126,13 +126,26 @@ def hop2onehot(hop: torch.Tensor, dim: int = DIM_1HOT_HOP) -> torch.Tensor:
     return oh * valid.unsqueeze(-1)
 
 
+def drnl2onehot(drnl: torch.Tensor, dim: int = DIM_1HOT_DRNL) -> torch.Tensor:
+    """[..., N] int -> [..., N, dim] f32 one-hot; col 0 takes the
+    unreachable (255), negative and out-of-range labels."""
+    d = torch.where((drnl >= 255) | (drnl > dim - 1) | (drnl < 0), 0, drnl)
+    return torch.nn.functional.one_hot(d, dim).float()
+
+
+AUG2DIM = {"hops": DIM_1HOT_HOP, "drnls": DIM_1HOT_DRNL}
+
+
 def batch_aug_onehots(batch: SubgraphBatch, aug_feats) -> dict:
     """Requested one-hot augmentations of a batch, masked to valid nodes."""
     out = {}
     m = batch.node_mask.unsqueeze(-1)
     for a in aug_feats:
-        if a != "hops":
+        if a == "hops":
+            out[a] = hop2onehot(batch.hop) * m
+        elif a == "drnls":
+            out[a] = drnl2onehot(batch.drnl) * m
+        else:
             raise NotImplementedError(
-                f"feature augment {a!r} is not ported yet (only 'hops')")
-        out["hops"] = hop2onehot(batch.hop) * m
+                f"feature augment {a!r} is not ported yet (hops, drnls)")
     return out

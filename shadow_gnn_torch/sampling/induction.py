@@ -3,8 +3,9 @@
 Given the sorted, padded node table of each subgraph, build the dense
 induced adjacency (reference ``_node_induced_subgraph``,
 ``ParallelSampler.cpp:350-453``), the local target indices, and the BFS
-hop annotation.  Four strategies, chosen by ``SamplerConfig.induction``
-as in the JAX package, each giving JAX's 0/1 block and ``overflow``:
+hop (one target) or DRNL (two targets, the link task) annotation.  Four
+strategies, chosen by ``SamplerConfig.induction`` as in the JAX
+package, each giving JAX's 0/1 block and ``overflow``:
 
 * ``rows`` (``deg_cap`` > 0) — every member of degree at most
   ``deg_cap`` reads its CSR neighbour slice and locates each neighbour
@@ -315,18 +316,40 @@ def bfs_hops(adj: torch.Tensor, start_local: torch.Tensor,
              node_mask: torch.Tensor) -> torch.Tensor:
     """Batched BFS distance from a start node over dense blocks, along
     out-edges.  Returns [B, N] int64 with -1 for unreachable/padding."""
-    b, n, _ = adj.shape
+    return bfs_hops_multi(adj, start_local[:, None], node_mask)[:, 0]
+
+
+def bfs_hops_multi(adj: torch.Tensor, starts_local: torch.Tensor,
+                   node_mask: torch.Tensor) -> torch.Tensor:
+    """Batched multi-source BFS: [B, S] start nodes -> [B, S, N] distances
+    (-1 for unreachable/padding).  All sources advance in one loop, so a
+    batch pays max(levels) host syncs, not their sum."""
+    n = adj.shape[1]
     ar = torch.arange(n, device=adj.device)
-    frontier = ar[None, :] == start_local[:, None]
+    frontier = ar[None, None, :] == starts_local[..., None]
     dist = torch.where(frontier, 0, -1)
     lvl = 0
     while bool(frontier.any()):
-        nxt = torch.bmm(frontier.float().unsqueeze(1), adj).squeeze(1) > 0
-        new = nxt & (dist < 0) & node_mask
+        nxt = torch.bmm(frontier.float(), adj) > 0
+        new = nxt & (dist < 0) & node_mask[:, None, :]
         dist = torch.where(new, lvl + 1, dist)
         frontier = new
         lvl += 1
     return dist
+
+
+def drnl_labels(adj: torch.Tensor, targets: torch.Tensor,
+                node_mask: torch.Tensor) -> torch.Tensor:
+    """Double-radius node labels of 2-target (link) subgraphs: 255 when
+    either target is unreachable, else 1 + min(dx, dy) + (d/2)((d/2) +
+    (d%2) - 1) with d = dx + dy (Graph.cpp:66-73)."""
+    d2 = bfs_hops_multi(adj, targets[:, :2], node_mask)
+    dx = torch.where(d2[:, 0] < 0, 255, d2[:, 0])
+    dy = torch.where(d2[:, 1] < 0, 255, d2[:, 1])
+    d = dx + dy
+    half = d // 2
+    val = 1 + torch.minimum(dx, dy) + half * (half + d % 2 - 1)
+    return torch.where((dx >= 255) | (dy >= 255), 255, val)
 
 
 def induce(graph: DeviceGraph, nodes: torch.Tensor, ppr_vals: torch.Tensor,
@@ -353,21 +376,27 @@ def induce(graph: DeviceGraph, nodes: torch.Tensor, ppr_vals: torch.Tensor,
         adj, overflow = membership_matrix(graph, nodes), 0
     # local target indices: left search in the sorted node table
     targets = torch.searchsorted(nodes, roots)
-    # remove target<->target edges (kept for T == 1)
+    # remove target<->target edges (kept for T == 1); the indicator is
+    # the sum of the targets' one-hots, as JAX's (2 where a negative
+    # edge repeats its node)
     if cfg.num_targets > 1 and not cfg.include_target_conn:
-        t_any = torch.zeros_like(node_mask, dtype=adj.dtype).scatter_(1, targets, 1.0)
+        t_any = torch.zeros_like(node_mask, dtype=adj.dtype).scatter_add_(
+            1, targets, torch.ones(targets.shape, dtype=adj.dtype,
+                                   device=adj.device))
         adj = adj * (1.0 - t_any[:, :, None] * t_any[:, None, :])
     if cfg.add_self_edge:
         eye = torch.eye(nodes.shape[1], device=adj.device)
         adj = torch.maximum(adj, eye[None] * node_mask[:, None, :] * node_mask[:, :, None])
     hop = torch.full_like(nodes, -1)
     drnl = torch.zeros_like(nodes)
-    for a in cfg.aug_feats:
-        if a != "hops":
-            raise NotImplementedError(f"augment {a!r} is not ported yet")
+    if "hops" in cfg.aug_feats:
         if cfg.num_targets != 1:
             raise ValueError("hops augment needs a single target")
         hop = bfs_hops(adj, targets[:, 0], node_mask)
+    if "drnls" in cfg.aug_feats:
+        if cfg.num_targets != 2:
+            raise ValueError("drnls augment needs two targets")
+        drnl = drnl_labels(adj, targets, node_mask)
     return SubgraphBatch(
         nodes=nodes,
         node_mask=node_mask,

@@ -6,12 +6,13 @@ Each sampler dedups its scope into a sorted, padded node table that
 sampler  reference                     here
 -------  ----------------------------  ---------------------------------
 ppr      ParallelSampler.cpp:565-595   top-k table row gather, threshold
+ppr_st   cpp:603-650                   exponential race over a 2k pool
 khop     cpp:510-556                   per-level budgeted random picks
 nodeIID  cpp:498-508                   the targets only
 
-The khop picks come from an explicit ``torch.Generator`` on the graph's
-device, or are passed in (``picks``), so that a test can hand the port
-the JAX package's own draws.
+The khop picks and the ppr_st uniforms come from an explicit
+``torch.Generator`` on the graph's device, or are passed in (``picks``,
+``u``), so that a test can hand the port the JAX package's own draws.
 """
 from __future__ import annotations
 
@@ -117,6 +118,45 @@ def sample_nodes_ppr(cfg: SamplerConfig, graph: DeviceGraph,
     return _dedup_with_scores(ids, sc, sent, cfg.n_pad)
 
 
+def sample_nodes_ppr_st(cfg: SamplerConfig, graph: DeviceGraph,
+                        roots: torch.Tensor, table_rows: torch.Tensor,
+                        tables: PPRTables,
+                        generator: Optional[torch.Generator] = None,
+                        u: Optional[torch.Tensor] = None
+                        ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Stochastic PPR scope (cpp:603-650): ``n_keep`` table entries
+    drawn with probability proportional to their score, by the
+    exponential race (top of log(u)/s), plus the target, which is forced
+    in.  ``n_keep = min(n_pass + 1, min(avail, k))``: the C++ counts the
+    first entry that fails the threshold too.  The race runs over the
+    whole (2k-wide) row; only its first k places can be kept.  ``u``
+    [B*T, width] in [1e-12, 1) comes from ``generator`` or is passed in.
+    """
+    b, t = roots.shape
+    flat = table_rows.reshape(-1)
+    neighs, scores = tables.neighs[flat], tables.scores[flat]
+    avail = (neighs >= 0).sum(-1)
+    n_pass = _ppr_keep_mask(scores, avail, cfg.threshold, cfg.k).sum(-1)
+    n_keep = torch.minimum(n_pass + 1, torch.clamp(avail, max=cfg.k))
+    if u is None:
+        u = torch.rand(scores.shape, generator=generator, device=scores.device)
+        u = torch.clamp(u * (1.0 - 1e-12) + 1e-12, min=1e-12)
+    else:
+        u = u.to(scores.device, torch.float32)
+    key = torch.where(scores > 0, torch.log(u) / torch.clamp(scores, min=1e-30),
+                      torch.full_like(scores, -float("inf")))
+    # race order, best first; ties are score-0 padding, beyond n_keep
+    _, ids_r, sc_r = _stable_sort_by(-key, neighs, scores)
+    ids_r, sc_r = ids_r[..., :cfg.k], sc_r[..., :cfg.k]
+    sel = torch.arange(ids_r.shape[-1], device=ids_r.device)[None, :] < n_keep[:, None]
+    sent = graph.num_nodes
+    ids = torch.where(sel, ids_r, torch.full_like(ids_r, sent)).reshape(b, -1)
+    sc = torch.where(sel, sc_r, torch.zeros_like(sc_r)).reshape(b, -1)
+    ids = torch.cat([roots, ids], -1)
+    sc = torch.cat([torch.full((b, t), -1.0, device=sc.device), sc], -1)
+    return _dedup_with_scores(ids, sc, sent, cfg.n_pad)
+
+
 def sample_nodes_khop(cfg: SamplerConfig, graph: DeviceGraph,
                       roots: torch.Tensor,
                       generator: Optional[torch.Generator] = None,
@@ -172,12 +212,17 @@ def sample_subgraphs(cfg: SamplerConfig, graph: DeviceGraph,
                      roots: torch.Tensor, table_rows: Optional[torch.Tensor] = None,
                      tables: Optional[PPRTables] = None,
                      generator: Optional[torch.Generator] = None,
-                     picks: Optional[List[torch.Tensor]] = None) -> SubgraphBatch:
+                     picks: Optional[List[torch.Tensor]] = None,
+                     u: Optional[torch.Tensor] = None) -> SubgraphBatch:
     """Sample + induce one batch of subgraphs: ``ppr`` reads the tables
-    at ``table_rows``, ``khop`` draws from ``generator`` (or takes
-    ``picks``), ``nodeIID`` needs neither."""
+    at ``table_rows``, ``ppr_st`` races over them with uniforms from
+    ``generator`` (or takes ``u``), ``khop`` draws from ``generator`` (or
+    takes ``picks``), ``nodeIID`` needs neither."""
     if cfg.method == "ppr":
         nodes, ppr_vals = sample_nodes_ppr(cfg, graph, roots, table_rows, tables)
+    elif cfg.method == "ppr_st":
+        nodes, ppr_vals = sample_nodes_ppr_st(cfg, graph, roots, table_rows,
+                                              tables, generator, u)
     elif cfg.method == "khop":
         nodes, ppr_vals = sample_nodes_khop(cfg, graph, roots, generator, picks)
     elif cfg.method == "nodeIID":

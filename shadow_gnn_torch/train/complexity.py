@@ -5,8 +5,8 @@ main.py:299-331 and the layers' ``complexity()`` methods): sample real
 evaluation batches, count each layer's operations from the sampled
 subgraphs' node and edge counts, and report the mean inference cost per
 root.  Edges are counted from the dense block, or from the packed bits
-of a cached batch.  Sort pooling has no estimator here: the port has no
-sort pooling.
+of a cached batch.  A link task's root is an edge (one subgraph of its
+two targets).
 """
 from __future__ import annotations
 
@@ -47,6 +47,10 @@ def _respool_ops(cfg: ModelConfig, n_roots: float, n_nodes: float) -> float:
         ops += n_nodes * f * mult
         dim_in = 2 * f * (l if cfg.residue in ("cat", "concat") else 1)
         ops += n_roots * dim_in * f
+    elif cfg.type_pool == "sort":
+        dim = f * (l if cfg.residue in ("cat", "concat") else 1)
+        ops += n_roots * cfg.sort_k * dim * dim        # nn_pool linear
+        ops += n_roots * 2 * dim * f
     elif cfg.residue != "none":                # center + JK
         dim_in = f * (l if cfg.residue in ("cat", "concat") else 1)
         ops += n_roots * dim_in * f

@@ -2,10 +2,11 @@
 -> model -> loops.
 
 The port of the JAX package's ``train/pipeline.py`` Trainer for the
-node task: per-mode device graphs, per-branch samplers (``ppr``,
-``khop``, ``nodeIID``) and their induction plans, per-mode PPR top-k
-tables (native host push + the reference's bin cache), the bit-packed
-subgraph cache of each deterministic PPR branch, the preprocessing
+node and link tasks: per-mode device graphs, per-branch samplers
+(``ppr``, ``ppr_st``, ``khop``, ``nodeIID``) and their induction plans,
+per-mode PPR top-k tables (native host push + the reference's bin
+cache), the bit-packed subgraph cache of each deterministic PPR branch
+of the node task, the preprocessing
 (label inputs and feature / label smoothening, ``train/preproc.py``),
 training (:meth:`Trainer.train`: epochs of TRAIN and VALID, best-model
 selection, final passes), point-query serving
@@ -34,6 +35,15 @@ Differences from the JAX Trainer:
   full-graph passes, from a generator seeded with ``SERVE_SEED`` on
   every request or call, so the same ids get the same answer; only
   ``ppr`` branches are cached, the others sample and induce every batch;
+* the link task (``edge_set`` splits: an entity is an edge, whose two
+  end nodes are a subgraph's targets) trains and evaluates: it samples
+  every batch (nothing is cached, as in JAX), its PPR tables cover every
+  node, indexed by node id and shared by the modes, and a ``ppr_st``
+  branch races over 2k-wide tables in TRAIN (its uniforms from the
+  epoch's sampling generator) and reads them as ``ppr`` in VALID/TEST.
+  TRAIN negatives come from the JAX Trainer's own numpy stream, drawn
+  in its order (without its prefetch thread).  Serving and the
+  full-graph passes refuse it, as JAX asserts;
 * checkpoints are the port's own ``torch.save`` files; a run dir of
   the JAX package is refused (``train/logger.py:find_checkpoint``);
 * the precision trade (``matmul_precision``, ``compute_dtype``,
@@ -164,10 +174,13 @@ class Trainer:
         self.sampler_cfg_preproc = parsed["config_sampler_preproc"]
         self.config_data = parsed["config_data"]
         self.task = raw.prediction_task
-        if self.task != "node":
-            raise NotImplementedError("the link task is not ported yet")
         self.seed = seed
         self.rng_np = np.random.default_rng(seed)
+        # link-task negatives: their own stream (the JAX Trainer's) and
+        # the sorted keys of the TRAIN graph's edges, built on first use
+        self._neg_rng = np.random.default_rng(
+            np.random.SeedSequence([seed, 0x9e3779b9]))
+        self._neg_edge_keys: Optional[np.ndarray] = None
         self.batch_size = self.sampler_cfg_train["batch_size"]
         self.is_transductive = raw.is_transductive
         g_full = DeviceGraph.from_csr(raw.indptr_full, raw.indices_full,
@@ -183,12 +196,14 @@ class Trainer:
         self.dim_feat_raw = self.dim_feat_smooth = self.feat_np.shape[1]
         self.dim_label_smooth = 0
         self.label_np = label = raw.label_full
-        self.entity_set = raw.node_set
-        if label.ndim == 1:
-            self.num_classes = int(label[~np.isnan(label.astype(np.float64))].max()) + 1
+        if self.task == "link":
+            self.entity_set, self.num_classes = raw.edge_set, 1
         else:
-            self.num_classes = label.shape[1]
-        self.num_targets = 1
+            self.entity_set = raw.node_set
+            self.num_classes = (
+                int(label[~np.isnan(label.astype(np.float64))].max()) + 1
+                if label.ndim == 1 else label.shape[1])
+        self.num_targets = 2 if self.task == "link" else 1
         # preprocessing before the feature table is frozen: widens
         # feat_np and sets dim_feat_smooth / dim_label_smooth
         self.preproc_log: Dict[str, float] = {}
@@ -208,7 +223,9 @@ class Trainer:
         self.num_ensemble = len(self.branches)
         self.tables: Dict[int, List[PPRTables]] = {}
         self.caches: Dict[int, list] = {}
-        self.nocache_modes = set()
+        # the link task never caches (minibatch.py:213)
+        self.nocache_modes = set() if self.task == "node" else {TRAIN, VALID, TEST}
+        self._ppr_memo: Dict[tuple, tuple] = {}
         self.cache_budget_bytes = 2 << 30
         self.model_cfg = ModelConfig(
             dim_feat_smooth=self.dim_feat_smooth,
@@ -265,19 +282,21 @@ class Trainer:
 
     # ------------------------------------------------------------------
     def _build_branches(self) -> List[Dict[str, Any]]:
-        """Decoupled per-branch sampler dicts -> per-mode SamplerConfigs.
-        A ``khop`` branch's induction is sized here from the mode's
-        degrees (``_plan_khop``); a ``ppr`` branch's when its tables are
-        built (``_ensure_tables``)."""
+        """Decoupled per-branch sampler dicts -> per-mode SamplerConfigs
+        (``ppr_st`` reads its tables as ``ppr`` in VALID/TEST,
+        minibatch.py:366-370; the link task never keeps target-target
+        edges).  A ``khop`` branch's induction is sized here from the
+        mode's degrees (``_plan_khop``); a PPR branch's when its tables
+        are built (``_ensure_tables``)."""
         branches = []
         aug = tuple(self.arch["feature_augment"])
         for cfg_d in decouple_ensemble(self.sampler_cfg_train["configs"]):
             method = cfg_d["method"]
-            if method not in ("ppr", "khop", "nodeIID"):
+            if method not in ("ppr", "ppr_st", "khop", "nodeIID"):
                 raise NotImplementedError(
-                    f"sampler {method!r} is not ported yet (ppr, khop, nodeIID)")
+                    f"sampler {method!r} is not ported yet "
+                    "(ppr, ppr_st, khop, nodeIID)")
             common = dict(
-                method=method,
                 n_pad=default_n_pad(cfg_d, self.num_targets),
                 num_targets=self.num_targets,
                 depth=int(cfg_d.get("depth", 2)),
@@ -287,14 +306,16 @@ class Trainer:
                 epsilon=float(cfg_d.get("epsilon", 1e-5)),
                 threshold=float(cfg_d.get("threshold", 0.0)),
                 add_self_edge=bool(cfg_d.get("add_self_edge", False)),
-                include_target_conn=bool(cfg_d.get("include_target_conn", False)),
+                include_target_conn=(self.task == "node" and bool(
+                    cfg_d.get("include_target_conn", False))),
                 aug_feats=aug,
             )
             cfg_mode = {}
             for m in (TRAIN, VALID, TEST):
                 plan = (self._plan_khop(m, common["n_pad"]) if method == "khop"
                         else {})
-                cfg_mode[m] = SamplerConfig(**common, **plan)
+                method_m = "ppr" if method == "ppr_st" and m != TRAIN else method
+                cfg_mode[m] = SamplerConfig(method=method_m, **common, **plan)
             branches.append({"raw": cfg_d, "cfg": cfg_mode})
         return branches
 
@@ -329,33 +350,47 @@ class Trainer:
 
     # ------------------------------------------------------------------
     def _ppr_targets(self, mode: int) -> np.ndarray:
-        """Nodes that need PPR rows: the mode's node set."""
-        return np.asarray(self.entity_set[mode], dtype=np.int64)
+        """Nodes that need PPR rows (minibatch.py:383-389): the mode's
+        node set, or every node for the link task (whose table rows are
+        then node ids)."""
+        if self.task == "node":
+            return np.asarray(self.entity_set[mode], dtype=np.int64)
+        return np.arange(self.num_nodes, dtype=np.int64)
 
     def _ensure_tables(self, mode: int):
         """PPR top-k tables of every branch for ``mode``, on the device,
-        and the exact induction sizing of each branch's scope."""
+        and the exact induction sizing of each branch's scope.  A
+        ``ppr_st`` branch's tables are 2k wide (its race's pool) in every
+        mode.  Modes of one adjacency and one target set (the link task's
+        three) share one push, its tables and its plan."""
         if mode in self.tables:
             return
         tabs = []
-        for br in self.branches:
+        for i_br, br in enumerate(self.branches):
             cfg = br["cfg"][mode]
-            if cfg.method != "ppr":
+            if cfg.method not in ("ppr", "ppr_st"):
                 tabs.append(None)
                 continue
+            k_tab = cfg.k * (2 if br["cfg"][TRAIN].method == "ppr_st" else 1)
             targets = self._ppr_targets(mode)
-            neighs, scores = self._compute_ppr(mode, cfg, cfg.k, targets)
-            tab_n, tab_s = ppr_mod.ppr_topk_tables(neighs, scores, cfg.k)
-            deg = np.diff(self._host_adj[mode][0]).astype(np.int64)
-            scope_deg = deg[np.clip(tab_n, 0, self.num_nodes - 1)] * (tab_n >= 0)
-            fields = plan_ppr_induction(
-                scope_deg, deg[targets], n_pad=cfg.n_pad,
-                num_targets=self.num_targets, batch_size=self.batch_size,
-                undirected=self.undirected, row_block=self.graph[mode].row_block)
+            memo_key = (i_br, k_tab, cfg.alpha, cfg.epsilon,
+                        id(self._host_adj[mode][0]), hash(targets.tobytes()))
+            if memo_key not in self._ppr_memo:
+                neighs, scores = self._compute_ppr(mode, cfg, k_tab, targets)
+                tab_n, tab_s = ppr_mod.ppr_topk_tables(neighs, scores, k_tab)
+                deg = np.diff(self._host_adj[mode][0]).astype(np.int64)
+                scope_deg = deg[np.clip(tab_n, 0, self.num_nodes - 1)] * (tab_n >= 0)
+                fields = plan_ppr_induction(
+                    scope_deg, deg[targets], n_pad=cfg.n_pad,
+                    num_targets=self.num_targets, batch_size=self.batch_size,
+                    undirected=self.undirected,
+                    row_block=self.graph[mode].row_block)
+                self._ppr_memo[memo_key] = (PPRTables(
+                    torch.as_tensor(tab_n.astype(np.int64), device=self.device),
+                    torch.as_tensor(tab_s, device=self.device)), fields)
+            tab, fields = self._ppr_memo[memo_key]
             br["cfg"][mode] = dataclasses.replace(cfg, **fields)
-            tabs.append(PPRTables(
-                torch.as_tensor(tab_n.astype(np.int64), device=self.device),
-                torch.as_tensor(tab_s, device=self.device)))
+            tabs.append(tab)
         self.tables[mode] = tabs
 
     def _compute_ppr(self, mode: int, cfg: SamplerConfig, k_tab: int,
@@ -457,20 +492,36 @@ class Trainer:
     # Training
     def _epoch_arrays(self, mode: int, ordered: bool = False):
         """Shuffled, percent-sampled, batch-padded root / row / label /
-        weight arrays of one epoch (numpy; the node task).  ``ordered``:
-        the drawn roots in node-set order, so that a full set gives the
-        same batches on every call."""
+        weight arrays of one epoch (numpy).  Node task: roots [M, 1],
+        rows their places in the node set.  Link task: the mode's
+        positive edges and its negatives (TRAIN draws them,
+        :meth:`_negative_sample`), roots [M, 2], which are also the table
+        rows, labels 1.0 / 0.0 [M, 1].  ``ordered``: the drawn roots in
+        entity-set order, so that a full set gives the same batches on
+        every call."""
         b = self.batch_size
-        ent = np.asarray(self.entity_set[mode])
-        perm = self.rng_np.permutation(ent.size)
         pct = float(self.params_train["percent_per_epoch"][MODE2STR[mode]])
+        if self.task == "node":
+            ent = np.asarray(self.entity_set[mode])
+            perm = self.rng_np.permutation(ent.size)
+        else:
+            es = self.entity_set[mode]
+            pos = es["pos"]
+            neg = es["neg"] if "neg" in es else self._negative_sample(pos.shape[0])
+            ent = np.concatenate([pos, neg], 0)
+            lab_all = np.repeat([1.0, 0.0], [pos.shape[0], neg.shape[0]])[:, None]
+            perm = self.rng_np.permutation(ent.shape[0])
         if pct < 1.0:
             perm = perm[:int(np.ceil(pct * perm.size))]
         if ordered:
             perm = np.sort(perm)
-        roots = ent[perm][:, None]                        # [M, 1]
-        rows = perm[:, None]                              # table rows
-        labels = self.label_np[ent[perm]]
+        if self.task == "node":
+            roots = ent[perm][:, None]                    # [M, 1]
+            rows = perm[:, None]                          # table rows
+            labels = self.label_np[ent[perm]]
+        else:
+            roots = rows = ent[perm]                      # [M, 2] node ids
+            labels = lab_all[perm]
         m = roots.shape[0]
         nb = -(-m // b)
         pad = nb * b - m
@@ -479,6 +530,43 @@ class Trainer:
         rows = np.concatenate([rows, np.repeat(rows[:1], pad, 0)])
         labels = np.concatenate([labels, np.repeat(labels[:1], pad, 0)])
         return nb, roots, rows, labels, w
+
+    def _negative_sample(self, n: int) -> np.ndarray:
+        """``n`` uniform edges [n, 2] that are neither self loops nor
+        edges of the TRAIN graph (minibatch.py:287-293), by rejection
+        against the sorted edge keys u * num_nodes + v, drawn from
+        ``_neg_rng`` as the JAX Trainer draws them.  JAX computes the
+        next epoch's sample ahead on a thread; with the same ``n`` on
+        every call (only TRAIN draws) its stream is this sequence."""
+        nn_ = self.num_nodes
+        if self._neg_edge_keys is None:
+            indptr, indices = self._host_adj[TRAIN]
+            indptr = np.asarray(indptr, dtype=np.int64)
+            src = np.repeat(np.arange(nn_, dtype=np.int64), np.diff(indptr))
+            keys = src * nn_ + np.asarray(indices, dtype=np.int64)
+            if np.any(np.diff(keys) < 0):
+                keys = np.sort(keys)
+            self._neg_edge_keys = keys
+        keys = self._neg_edge_keys
+        out, filled = None, 0
+        while filled < n:
+            # rejection is rare ((m + N) / N^2): a ~2% overshoot mostly
+            # finishes in one pass
+            size = (n - filled) + ((n - filled) >> 6) + 16
+            cand = self._neg_rng.integers(0, nn_, size=(size, 2), dtype=np.int64)
+            ck = cand[:, 0] * nn_ + cand[:, 1]
+            at = np.searchsorted(keys, ck)
+            bad = (cand[:, 0] == cand[:, 1]) | (
+                (at < keys.size) & (keys[np.minimum(at, keys.size - 1)] == ck))
+            good = cand[~bad]
+            if out is None:
+                if good.shape[0] >= n:
+                    return good[:n]
+                out = np.empty((n, 2), np.int64)
+            take = min(n - filled, good.shape[0])
+            out[filled:filled + take] = good[:take]
+            filled += take
+        return out
 
     def _forward_loss(self, batches: List[SubgraphBatch],
                       feats: List[torch.Tensor], labels: torch.Tensor,
@@ -615,6 +703,13 @@ class Trainer:
 
     # ------------------------------------------------------------------
     # Full-graph passes (the post-processing's inputs)
+    def _node_task_only(self, what: str):
+        if self.task != "node":
+            raise NotImplementedError(
+                f"{what} serves the node task only (the JAX Trainer "
+                "asserts task == 'node'); a link model is evaluated by "
+                "run_epoch / inference")
+
     def _full_pass(self, modes, embed: bool) -> List[torch.Tensor]:
         """Every node of each mode's node set through the evaluation path
         (a mode's cache where one is built, else sampling), in node-set
@@ -623,6 +718,7 @@ class Trainer:
         device, [probabilities [num_nodes, C]] or, with ``embed``, the
         per-branch embeddings [num_nodes, dim]; rows no mode covers are
         zero."""
+        self._node_task_only("embed_full" if embed else "predict_full")
         if embed:
             out = [torch.zeros(self.num_nodes, self.model_cfg.dim, device=self.device)
                    for _ in range(self.num_ensemble)]
@@ -678,7 +774,8 @@ class Trainer:
             self._lookup[mode] = lk
         return self._lookup[mode]
 
-    def _serve_batch(self, ids, mode: int):
+    def _serve_batch(self, ids, mode: int, what: str):
+        self._node_task_only(what)
         ids = np.asarray(ids, dtype=np.int64).ravel()
         if ids.size == 0:
             raise ValueError("empty id batch")
@@ -710,9 +807,9 @@ class Trainer:
         """Point-query serving: class probabilities [len(ids), C] for node
         ids of the mode's node set (PPR-row gather -> cached subgraph ->
         forward)."""
-        return self._serve_batch(ids, mode)[0]
+        return self._serve_batch(ids, mode, "predict_nodes")[0]
 
     def embed_nodes(self, ids, mode: int = TEST) -> List[np.ndarray]:
         """Point-query embeddings: per-ensemble-branch [len(ids), dim]."""
-        embs = self._serve_batch(ids, mode)[1]
+        embs = self._serve_batch(ids, mode, "embed_nodes")[1]
         return [embs[i] for i in range(self.num_ensemble)]

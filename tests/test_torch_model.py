@@ -284,8 +284,7 @@ def test_unported_branches_raise():
     _, tcfg = _configs(False)
     import dataclasses
     for bad in (dict(aggr="gcn"), dict(aggr="gatscat"), dict(aggr="gin"),
-                dict(pooling="sort-5"), dict(layer_norm="pairnorm"),
-                dict(act="softplus")):
+                dict(layer_norm="pairnorm"), dict(act="softplus")):
         with pytest.raises(NotImplementedError):
             tmodel.DeepGNN(dataclasses.replace(tcfg, **bad))
     # training mode with dropout needs its generator
