@@ -82,7 +82,25 @@ Phases, each fatal on failure (an uncaught exception, non-zero exit):
              versions as in phase 4, B1c timed beside ``torch.bmm`` on
              the bf16 operands with an f32 output, with the cast of its f32
              operands in the timed call and without it;
-8. gat     — the products GAT-5 leaderboard model at full width
+8. matrix  — the rest of the model matrix on the same flickr-scale graph,
+             each model ``configs/flickr_sage_3_ppr.yml`` with only
+             ``aggr`` changed (the same cuts, 2 epochs, ``packed_adj``):
+             GCN-3 (self edges forced, the packed kernels in ``sym``),
+             GIN-3 (``gin``) and GATScatter-3 (4 heads, dh 64: B2/B3 with
+             att_self = 0) each serve (``phase_serve``), train
+             (``phase_train``: the first step against the plain versions,
+             GIN's eps gradient within 1e-4 of the sum of the |terms|
+             of its reduction, every other gradient of its max,
+             every step's launches counted per norm, every other kernel
+             count 0 over ``train()``) and serve uncached at 256 ids;
+             then SIGN (``sym-3-concat`` smoothening on the card, 2,000
+             input columns, no augment, the ``full`` train sampler, so
+             nodeIID batches of one node) trains with every kernel
+             count 0; final stats finite, accuracies in [0, 1], the
+             parameters moved; B1a/B1b timed in ``sym`` and ``gin`` on
+             the GCN and GIN TRAIN bits (``phase_time_train``); the
+             phase's seconds printed (at most 200);
+9. gat     — the products GAT-5 leaderboard model at full width
              (``configs/products_gat_5_ppr_leaderboard.yml``: dim 512, 4
              heads, 5 layers, prelu, max residue and pooling, ppr-
              smoothened label inputs, PPR k=150, batch 128, dropout 0.4,
@@ -107,7 +125,7 @@ Phases, each fatal on failure (an uncaught exception, non-zero exit):
              ``scaled_dot_product_attention``; their per-phase device
              clocks from an instrumented build of the same source, and
              their times with clusters of 1, 2 and 4 CTAs;
-9. gat bf16 — the same with ``matmul_precision="bfloat16"`` (serving,
+10. gat bf16 — the same with ``matmul_precision="bfloat16"`` (serving,
              first step, ``train()``: 5 B2b and 5 B3b launches per TRAIN
              step, 5 B2b per evaluation batch and request; B2b/B3b timed
              beside SDPA on bf16 operands, with and without the cast of its
@@ -115,7 +133,7 @@ Phases, each fatal on failure (an uncaught exception, non-zero exit):
              ``compute_dtype="bfloat16"`` and ``feat_dtype="bfloat16"``
              as well (a bf16 feature table, the dense path): serving, the
              first step and 1 epoch;
-10. power   — the flagship SAGE-3 (f32, ``packed_adj``) on a power-law
+11. power   — the flagship SAGE-3 (f32, ``packed_adj``) on a power-law
              graph of the flickr scale (89,250 nodes, avg deg 10, 500
              features, 7 classes, seed 0, ``power_law=True``; max degree
              9,444), the same cuts, 1 epoch: each mode's induction plan
@@ -126,7 +144,7 @@ Phases, each fatal on failure (an uncaught exception, non-zero exit):
              serving against cached, then 10 cold (uncached) TRAIN steps
              with ``induce`` timed against the whole step (CUDA events),
              printed as ``[induce] cold step: induce X ms of Y ms``;
-11. ensemble — ``configs/arxiv_ensemble_ppr_khop.yml`` at full width
+12. ensemble — ``configs/arxiv_ensemble_ppr_khop.yml`` at full width
              (GAT, 2 heads, dim 256, 3 layers; a PPR-100 branch, n_pad
              104, and a khop depth-2 budget-10 branch, n_pad 112, softmax
              attention over the two) on an arxiv-width power-law graph
@@ -137,7 +155,7 @@ Phases, each fatal on failure (an uncaught exception, non-zero exit):
              launched from both branches (counted by block width), the
              khop overflow, and 10 timed TRAIN steps with the khop
              branch's sampling and induction share;
-12. infer   — reload, inference and post-processing, each part run on
+13. infer   — reload, inference and post-processing, each part run on
              the trainer of its model right after that model's training
              phase: the flagship (f32, its three caches built):
              ``predict_full`` over TRAIN, VALID and TEST from the caches
@@ -161,7 +179,7 @@ Phases, each fatal on failure (an uncaught exception, non-zero exit):
              on the card (``ensemble_multirun``, one run of 5 epochs), and
              ``inference`` of VALID and TEST (6 B2 launches a batch).
              Each part prints its nodes per second and its seconds;
-13. link    — ``configs/collab_sage_pprst_leaderboard.yml`` at full width
+14. link    — ``configs/collab_sage_pprst_leaderboard.yml`` at full width
              (SAGE, 5 layers, dim 256, elu, DRNL one-hots concatenated,
              concat residue, sort-25 pooling; ppr_st k 200, threshold
              0.01, eps 1e-6, n_pad 408; batch 16, dropout 0.25, dropedge
@@ -186,7 +204,7 @@ Phases, each fatal on failure (an uncaught exception, non-zero exit):
              then 10 timed TRAIN steps (sampling included) with the share
              of sampling, induction and DRNL, and their device-busy share
              (torch.profiler; its top operations under ``--profile``);
-14. profile (``--profile`` only) — torch.profiler over cached requests
+15. profile (``--profile`` only) — torch.profiler over cached requests
              (flagship 1 and 256 ids, GAT 128 ids, the power-law flagship
              1 and 256, the ensemble 1 and 128) and over 5 TRAIN steps of
              each model, f32 and at bf16 precision (the power-law
@@ -418,7 +436,9 @@ def _print_packed_launches():
 
 def phase_kernels():
     """Every kernel against its plain version on the card; returns the
-    worst max |kernel - plain| of each kernel."""
+    worst max |kernel - plain| of each kernel, over every norm (and of
+    each direction in the ``sym`` and ``gin`` norms, as
+    ``packed_spmm_sym`` ...)."""
     import torch
     from shadow_gnn_torch.ops.packed import (packed_spmm, packed_spmm_plain,
                                              packed_spmm_t)
@@ -445,8 +465,11 @@ def phase_kernels():
                         if not rel <= 1e-4:
                             raise AssertionError(f"{name} {norm} N={n} F={f} p={p}: "
                                                  f"rel error {rel} > 1e-4")
-                        w_abs, w_rel = worst[name]
-                        worst[name] = (max(w_abs, err), max(w_rel, rel))
+                        keys = [name] + ([f"{name}_{norm}"]
+                                         if norm in ("sym", "gin") else [])
+                        for key in keys:
+                            w_abs, w_rel = worst.get(key, (0.0, 0.0))
+                            worst[key] = (max(w_abs, err), max(w_rel, rel))
         del bits
     # beyond the transposed kernel's limit it raises
     x = torch.zeros(1, 3593, 8, device="cuda")
@@ -790,10 +813,12 @@ def _products_graph():
                             num_classes=47, seed=0, power_law=False)
 
 
-def _flagship_trainer(g, epochs=EPOCHS, **precision):
+def _flagship_trainer(g, epochs=EPOCHS, arch=None, sampler=None, tag="[serve]",
+                      **precision):
     """The flagship SAGE-3 trainer on the graph ``g``, ``epochs`` epochs;
-    ``precision``: the Trainer's ``matmul_precision`` / ``compute_dtype``
-    / ``feat_dtype``."""
+    ``arch``: architecture keys that replace the yml's, ``sampler``: a
+    sampler list that replaces its; ``precision``: the Trainer's
+    ``matmul_precision`` / ``compute_dtype`` / ``feat_dtype``."""
     import torch
     from shadow_gnn_torch import TEST, TRAIN, VALID
     from shadow_gnn_torch.train.config import parse_config
@@ -814,11 +839,15 @@ def _flagship_trainer(g, epochs=EPOCHS, **precision):
         "sampler": [{"method": "ppr", "phase": "train", "k": [200],
                      "epsilon": [1e-6]}],
     }
+    cfg["architecture"].update(arch or {})
+    if sampler is not None:
+        cfg["sampler"] = sampler
     tr = Trainer("flickr_synth", "", _own_splits(g), parse_config(cfg), seed=0,
                  device="cuda", packed_adj=True, **precision)
     _cut_splits(tr, ((TRAIN, TRAIN_NODES), (VALID, VALID_NODES), (TEST, TEST_NODES)))
     torch.cuda.synchronize()
-    print(f"[serve] trainer {time.perf_counter() - t0:.1f}s {precision}")
+    print(f"{tag} trainer {time.perf_counter() - t0:.1f}s {precision or ''}"
+          f"{arch or ''}")
     return tr
 
 
@@ -996,10 +1025,52 @@ def _train_batch(tr, lo):
     return batches, feats, labels, torch.ones(b, device="cuda")
 
 
-def _grad_error(grads, want):
-    """(worst max |g - want| / max |want| over the parameters, its name)."""
+def _grad_error(grads, want, scales=None):
+    """(worst max |g - want| / scale over the parameters, its name); the
+    scale is max |want| of the parameter, or ``scales[name]`` where given
+    (GIN's eps: ``_eps_terms``)."""
+    scales = scales or {}
     return max(((grads[k] - want[k]).abs().max().item()
-                / max(want[k].abs().max().item(), 1e-30), k) for k in want)
+                / max(scales.get(k, want[k].abs().max().item()), 1e-30), k)
+               for k in want)
+
+
+@contextlib.contextmanager
+def _eps_terms(model):
+    """Within the block, a dict that a forward and backward of ``model``
+    fill with the scale of each GIN conv's eps gradient: the sum of the
+    |terms| of the reduction it is, sum |x * dz| over the batch, where x
+    is the conv's input after dropout and z = A_gin @ x + (1 + eps) x
+    the first linear's input.  eps's gradient is that sum, whose terms
+    cancel, so its own size is no scale for their rounding."""
+    from shadow_gnn_torch.nn.layers import GINConv
+    xs, dzs, out, hooks = {}, {}, {}, []
+    convs = [(n, m) for n, m in model.named_modules() if isinstance(m, GINConv)]
+
+    def take(name, drop):
+        def wrapped(feat, generator):
+            x = drop(feat, generator)
+            xs[name] = x.detach()
+            return x
+        return wrapped
+
+    def grad_of_z(name):
+        def hook(mod, args):
+            args[0].register_hook(lambda g: dzs.__setitem__(name, g.detach()))
+        return hook
+
+    for name, m in convs:
+        m._drop = take(name, m._drop)
+        hooks.append(m.lin1.register_forward_pre_hook(grad_of_z(name)))
+    try:
+        yield out
+        out.update({f"{n}.eps": (xs[n].float() * dzs[n].float()).abs().sum().item()
+                    for n, _ in convs if n in dzs})
+    finally:
+        for h in hooks:
+            h.remove()
+        for _, m in convs:
+            del m._drop
 
 
 def _readout_argmax(feats_l, targets, node_mask, *_):
@@ -1048,7 +1119,8 @@ def _first_step(tr, fwd, bwd, rng_seed):
                 lambda m, a: kinks.extend(zip(("max residue", "max pooling"),
                                               _readout_argmax(*a)))))
         try:
-            with _Swap((layers, "gat_attention", recorded)):
+            with _Swap((layers, "gat_attention", recorded)), \
+                    _eps_terms(tr.model) as terms:
                 tr.model.load_state_dict(state)
                 tr.model.train()
                 tr.model.zero_grad(set_to_none=True)
@@ -1060,18 +1132,18 @@ def _first_step(tr, fwd, bwd, rng_seed):
             for h in hooks:
                 h.remove()
         return loss.item(), {k: p.grad.clone()
-                             for k, p in tr.model.named_parameters()}, kinks
+                             for k, p in tr.model.named_parameters()}, kinks, terms
 
     n_layers = _per_pass(tr)
     before = (fwd.launches, bwd.launches)
-    loss_k, grads_k, kinks_k = one_step()
+    loss_k, grads_k, kinks_k, _ = one_step()
     got = (fwd.launches - before[0], bwd.launches - before[1])
     if got != (n_layers, n_layers):
         raise AssertionError(f"a kernel step launched {got} (forward, backward)")
     with _plain_versions(_rounded(tr)):
-        loss_p, grads_p, kinks_p = one_step()
+        loss_p, grads_p, kinks_p, terms_p = one_step()
     with _plain_backwards():
-        loss_b, grads_b, _ = one_step()
+        loss_b, grads_b, _, terms_b = one_step()
     tr.model.load_state_dict(state)
     tr.model.zero_grad(set_to_none=True)
     tr.model.eval()
@@ -1079,10 +1151,12 @@ def _first_step(tr, fwd, bwd, rng_seed):
     for (kind, x), (_, y) in zip(kinks_k, kinks_p):
         n, total = crossed.get(kind, (0, 0))
         crossed[kind] = (n + int((x != y).sum()), total + x.numel())
+    eps = [(k, (grads_k[k] - grads_p[k]).abs().item(), grads_p[k].abs().item(), t)
+           for k, t in terms_p.items()]
     return dict(loss_k=loss_k, loss_p=loss_p, loss_b=loss_b,
-                err_p=_grad_error(grads_k, grads_p),
-                err_b=_grad_error(grads_k, grads_b), n_grads=len(grads_p),
-                crossed=crossed)
+                err_p=_grad_error(grads_k, grads_p, terms_p),
+                err_b=_grad_error(grads_k, grads_b, terms_b), n_grads=len(grads_p),
+                crossed=crossed, eps=eps)
 
 
 def _first_step_agreement(tr, fwd, bwd, tag):
@@ -1090,11 +1164,12 @@ def _first_step_agreement(tr, fwd, bwd, tag):
     within 1e-5 relative; the gradients of the backward kernels within
     1e-4 of their max of the plain backwards' under the kernels' own
     forward; and the all-plain gradients within 1e-4 of their max when
-    the two forwards crossed no kink.  Where they did, the all-plain
-    gradients are held instead on a witness: the same model with a
-    smooth activation (elu) and no max readout (residue none, center
-    pooling), its weights drawn from seed 0, at the first of three
-    dropout seeds whose step crosses no kink.  A model at the bf16 levels
+    the two forwards crossed no kink (GIN's eps within 1e-4 of the sum
+    of the |terms| of its reduction instead: ``_eps_terms``).  Where
+    they did, the all-plain gradients are held instead on a witness: the
+    same model with a smooth activation (elu) and no max readout
+    (residue none, center pooling), its weights drawn from seed 0, at
+    the first of three dropout seeds whose step crosses no kink.  A model at the bf16 levels
     is held at ``TOLS_BF16`` instead."""
     if _check_step(tr, fwd, bwd, tag, 7):
         return
@@ -1121,6 +1196,10 @@ def _check_step(tr, fwd, bwd, tag, rng_seed):
           f"{err_b:.2e} ({name_b}); kinks the two forwards cross: "
           + (", ".join(f"{kind} {n} of {total}"
                        for kind, (n, total) in r["crossed"].items()) or "none"))
+    for name, diff, own, terms in r["eps"]:
+        print(f"{tag} {name}: |kernel - plain| {diff:.3e}, plain gradient "
+              f"{own:.3e}, sum of |terms| {terms:.3e} (its scale): "
+              f"{diff / max(terms, 1e-30):.2e}")
     _, tol_loss, tol_grad = _tols(tr)
     if not (rel_loss <= tol_loss
             and abs(r["loss_b"] - r["loss_k"]) <= 1e-6 * abs(r["loss_k"])
@@ -1132,17 +1211,20 @@ def _check_step(tr, fwd, bwd, tag, rng_seed):
 @contextlib.contextmanager
 def _smooth_witness(tr):
     """Within the block the trainer holds a model of its configuration
-    with the elu activation (the ensemble aggregator's too), residue none
-    and center pooling, its random weights drawn from seed 0 as the
-    trainer's were."""
+    with the elu activation (the ensemble aggregator's and GIN's inner
+    one too), residue none and center pooling, its random weights drawn
+    from seed 0 as the trainer's were."""
     import dataclasses
     import torch
-    from shadow_gnn_torch.nn.layers import init_params
+    from shadow_gnn_torch.nn.layers import Act, GINConv, init_params
     from shadow_gnn_torch.nn.model import DeepGNN
     saved = tr.model_cfg, tr.model
     tr.model_cfg = dataclasses.replace(tr.model_cfg, act="elu", residue="none",
                                        pooling="center", ensemble_act="elu")
     tr.model = DeepGNN(tr.model_cfg)
+    for m in tr.model.modules():
+        if isinstance(m, GINConv):
+            m.inner_act = Act("elu")
     init_params(tr.model, torch.Generator().manual_seed(0))
     tr.model.to(tr.device).eval()
     try:
@@ -1151,10 +1233,11 @@ def _smooth_witness(tr):
         tr.model_cfg, tr.model = saved
 
 
-def phase_train(tr, reqs, fwd, bwd, tag):
+def phase_train(tr, reqs, fwd, bwd, tag, others=()):
     """Trainer.train() on the card through the kernels (the main path of
-    training), with every step's launches of ``fwd`` and ``bwd`` checked.
-    Returns (launches per kernel, epoch-1 median step ms)."""
+    training), with every step's launches of ``fwd`` and ``bwd`` checked,
+    and the counts ``others`` held at 0.  Returns (launches per kernel,
+    epoch-1 median step ms)."""
     import numpy as np
     import torch
     from shadow_gnn_torch import MODE2STR, TEST, TRAIN, VALID
@@ -1200,6 +1283,8 @@ def phase_train(tr, reqs, fwd, bwd, tag):
     torch.cuda.reset_peak_memory_stats()
     # the main path: counts at 0 just before, read just after
     fwd.launches = bwd.launches = 0
+    for c in others:
+        c.launches = 0
     t0 = time.perf_counter()
     try:
         final = tr.train()
@@ -1208,7 +1293,10 @@ def phase_train(tr, reqs, fwd, bwd, tag):
         del tr._train_step, tr._eval_step, tr.run_epoch
     wall = time.perf_counter() - t0
     launches = {fwd.__name__: fwd.launches, bwd.__name__: bwd.launches}
+    stray = {c.__name__: c.launches for c in others if c.launches}
     peak = torch.cuda.max_memory_allocated()
+    if stray:
+        raise AssertionError(f"train() launched other kernels: {stray}")
 
     nbs = {m: -(-len(tr.entity_set[m]) // tr.batch_size)
            for m in (TRAIN, VALID, TEST)}
@@ -1246,7 +1334,8 @@ def phase_train(tr, reqs, fwd, bwd, tag):
     print(f"{tag} launches over train(): {fwd.__name__} {launches[fwd.__name__]}"
           f" ({n_layers} per step and per eval batch), {bwd.__name__} "
           f"{launches[bwd.__name__]} ({n_layers} per step); {moved} parameters "
-          f"moved")
+          f"moved" + (f"; 0 launches of {', '.join(c.__name__ for c in others)}"
+                      if others else ""))
 
     # serving still answers, through the kernel, after training
     before = fwd.launches
@@ -1357,19 +1446,20 @@ def phase_time(bits_all, bf16=False):
                       f"{ops / 1e9:.3f} GFLOP)")
 
 
-def phase_time_train(bits, launches, max_abs_err, bf16=False):
+def phase_time_train(bits, launches, max_abs_err, bf16=False, norm="rw"):
     """Both kernels at the training batch (B=64) on the cached TRAIN
-    bits, rw norm, dropedge 0.05 (``bf16``: their bf16 mode, B1c); the
-    JSON rows come from F=500."""
+    bits, dropedge 0.05, in the ``norm`` of the model that trained on
+    them (rw: SAGE, sym: GCN, gin: GIN; ``bf16``: their bf16 mode, B1c);
+    the JSON rows come from F=500, named ``packed_spmm[_t][_<norm>]``
+    (no suffix for rw)."""
     import torch
-    from shadow_gnn_torch.ops.normalize import adj_norm_rw
-    from shadow_gnn_torch.ops.packed import (packed_spmm, packed_spmm_plain,
-                                             packed_spmm_t)
+    from shadow_gnn_torch.ops.packed import (_DENSE_NORM, packed_spmm,
+                                             packed_spmm_plain, packed_spmm_t)
     from shadow_gnn_torch.sampling.cache import unpack_bits
     gen = torch.Generator(device="cuda").manual_seed(2)
     b, n, nbytes = bits.shape
     seed = 12345
-    adj_n = adj_norm_rw(unpack_bits(bits, n), seed, DROPEDGE)
+    adj_n = _DENSE_NORM[norm](unpack_bits(bits, n), seed, DROPEDGE)
     adj_t = adj_n.transpose(1, 2)
     nnz = int((adj_n > 0).sum())
     rows = []
@@ -1377,17 +1467,18 @@ def phase_time_train(bits, launches, max_abs_err, bf16=False):
         x = torch.randn(b, n, f, device="cuda", generator=gen)
         for name, fn, lib, t in (("packed_spmm", packed_spmm, adj_n, False),
                                  ("packed_spmm_t", packed_spmm_t, adj_t, True)):
-            ms = _time_ms(lambda: fn(bits, x, "rw", DROPEDGE, seed, bf16=bf16))
-            plain_ms = _time_ms(lambda: packed_spmm_plain(bits, x, "rw", DROPEDGE,
+            ms = _time_ms(lambda: fn(bits, x, norm, DROPEDGE, seed, bf16=bf16))
+            plain_ms = _time_ms(lambda: packed_spmm_plain(bits, x, norm, DROPEDGE,
                                                           seed, t, bf16))
             library_ms, call_ms = _library_ms(lib, x, bf16)
-            name += "_bf16" if bf16 else ""
+            name += ("" if norm == "rw" else f"_{norm}") + ("_bf16" if bf16 else "")
             byts = b * (n * nbytes + 2 * n * f * 4)
-            # forward: gather-adds + the 1/deg scale; transposed: a
-            # multiply-add per surviving entry
-            ops = 2 * nnz * f if t else nnz * f + b * n * f
+            # forward: gather-adds (sym: a multiply-add, the column scale)
+            # + the row scale; transposed: a multiply-add per surviving entry
+            ops = (2 * nnz * f if t
+                   else (2 if norm == "sym" else 1) * nnz * f + b * n * f)
             bound_ms, bound_by = _bound(byts, ops)
-            print(f"[time] {name:13s} rw p={DROPEDGE} B={b} N={n} F={f} "
+            print(f"[time] {name:17s} {norm} p={DROPEDGE} B={b} N={n} F={f} "
                   f"nnz={nnz}: kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, "
                   f"torch.bmm {library_ms:.4f} ms{_cast_note(bf16, call_ms)}, bound "
                   f"{bound_ms:.4f} ms ({bound_by}: {byts / 1e6:.1f} MB, "
@@ -1399,7 +1490,8 @@ def phase_time_train(bits, launches, max_abs_err, bf16=False):
                     "replaces": "shadow_gnn_tpu/ops/pallas_packed.py:"
                                 + {(0, 0): "83", (1, 0): "153", (0, 1): "90",
                                    (1, 1): "155"}[t, bf16],
-                    "launches": launches[name], "max_abs_err": max_abs_err[name],
+                    "launches": launches[name],
+                    "max_abs_err": max_abs_err[name],
                     "ms": ms, "plain_ms": plain_ms, "bound_ms": bound_ms,
                     "bound_by": bound_by, "library_ms": library_ms,
                     "library_call_ms": call_ms})
@@ -1643,6 +1735,138 @@ def phase_profile_train(tr, step_ms, tag):
     _profile(f"{tag} TRAIN step (B={tr.batch_size})",
              lambda i: tr._train_step(*batches[i], rng), 5, step_ms)
     tr.model.eval()
+
+
+class _NormLaunches:
+    """One norm's launch count of a packed kernel (both modes), read and
+    set as ``.launches``, named ``<wrapper>_<norm>``."""
+
+    def __init__(self, fn, norm):
+        self.fn, self.norm, self.__name__ = fn, norm, f"{fn.__name__}_{norm}"
+
+    @property
+    def launches(self):
+        return self.fn.launches_by_norm[self.norm]
+
+    @launches.setter
+    def launches(self, value):
+        self.fn.launches_by_norm[self.norm] = value
+
+
+def _matrix_counts(fwd, bwd):
+    """Every kernel count but ``fwd``'s and ``bwd``'s: the packed kernels
+    per norm (both directions) and B2, B3."""
+    from shadow_gnn_torch.ops.gat import gat_attention, gat_attention_bwd
+    from shadow_gnn_torch.ops.packed import NORMS, packed_spmm, packed_spmm_t
+    counts = [_NormLaunches(fn, n) for fn in (packed_spmm, packed_spmm_t)
+              for n in NORMS]
+    counts += [gat_attention, gat_attention_bwd]
+    return [c for c in counts if c.__name__ not in (fwd.__name__, bwd.__name__)]
+
+
+def _check_final(tr, tag):
+    """The final stats of ``train()``: finite losses, accuracies in [0, 1]."""
+    import numpy as np
+    from shadow_gnn_torch import MODE2STR
+    final = tr.logger.final_stats
+    for mode, st in final.items():
+        if not (np.isfinite(st["loss"]) and 0.0 <= st["accuracy"] <= 1.0):
+            raise AssertionError(f"{tag} bad final stats {final}")
+    print(f"{tag} final stats: " + "; ".join(
+        f"{MODE2STR[m]}: loss {st['loss']:.4f}, accuracy {st['accuracy']:.4f}"
+        for m, st in final.items()))
+
+
+MATRIX_BUDGET_S = 200
+
+
+def phase_matrix(g, max_abs_err, profile=False):
+    """[matrix]: GCN-3, GIN-3 and GATScatter-3 serve, train and serve
+    uncached through their kernels on the flickr-scale graph ``g``, with
+    every other kernel count held at 0 over ``train()``; SIGN trains
+    through the ``full`` sampler with no kernel; B1a/B1b timed in ``sym``
+    and ``gin``.  Returns the kernel rows of those two norms."""
+    import numpy as np
+    import torch
+    from shadow_gnn_torch import TRAIN
+    from shadow_gnn_torch.ops.gat import gat_attention, gat_attention_bwd
+    from shadow_gnn_torch.ops.packed import packed_spmm, packed_spmm_t
+    t_phase = time.perf_counter()
+    rows = []
+    for aggr, arch in (("gcn", {"aggr": "gcn"}), ("gin", {"aggr": "gin"}),
+                       ("gatscat", {"aggr": "gatscat", "heads": 4})):
+        tag = f"[matrix {aggr}]"
+        t0 = time.perf_counter()
+        tr = _flagship_trainer(g, arch=arch, tag=tag)
+        cfg = tr.model_cfg
+        if (cfg.aggr != aggr or cfg.reads_packed_bits == (aggr == "gatscat")
+                or tr.branches[0]["cfg"][TRAIN].add_self_edge == (aggr == "gin")):
+            raise AssertionError(f"{tag} trainer: aggr {cfg.aggr}, packed "
+                                 f"{cfg.reads_packed_bits}, self edges "
+                                 f"{tr.branches[0]['cfg'][TRAIN].add_self_edge}")
+        if aggr == "gatscat":
+            fwd, bwd, uncached = gat_attention, gat_attention_bwd, _per_pass(tr)
+        else:
+            norm = {"gcn": "sym", "gin": "gin"}[aggr]
+            fwd, bwd = _NormLaunches(packed_spmm, norm), _NormLaunches(packed_spmm_t,
+                                                                       norm)
+            # an uncached batch aggregates its dense block with torch.bmm
+            uncached = 0
+        reqs, _ = phase_serve(tr, SERVE_SIZES, fwd, tag)
+        launches, step_ms = phase_train(tr, reqs, fwd, bwd, tag,
+                                        others=_matrix_counts(fwd, bwd))
+        _check_final(tr, tag)
+        if profile:
+            phase_profile_train(tr, step_ms, f"matrix {aggr}")
+        if aggr != "gatscat":
+            rows += phase_time_train(
+                tr.caches[TRAIN][0].adj_bits[:tr.batch_size].contiguous(), launches,
+                max_abs_err, norm=norm)
+        phase_uncached(tr, reqs, SERVE_SIZES, fwd, uncached, tag)
+        print(f"{tag} part {time.perf_counter() - t0:.1f}s")
+        del tr, reqs
+        torch.cuda.empty_cache()
+
+    # SIGN: the propagation runs in the preprocessing, on the card; the
+    # full train sampler gives nodeIID batches; no kernel on its path
+    tag = "[matrix sign]"
+    t0 = time.perf_counter()
+    tr = _flagship_trainer(
+        g, arch={"aggr": "sign", "feature_smoothen": "sym-3-concat",
+                 "feature_augment": "none"},
+        sampler=[{"method": "full", "phase": "train"}], tag=tag)
+    log = tr.preproc_log
+    print(f"{tag} preprocessing: feature smoothening {log['feature_smoothen_s']:.2f}s"
+          f", {log['feature_smoothen_steps']} steps; {tr.dim_feat_smooth} input "
+          f"columns, feature table {tr.feat_tab.numel() * 4 / 1e6:.0f} MB")
+    if (tr.dim_feat_smooth != 4 * tr.dim_feat_raw
+            or tr.branches[0]["cfg"][TRAIN].method != "nodeIID"):
+        raise AssertionError(f"{tag} {tr.dim_feat_smooth} columns, sampler "
+                             f"{tr.branches[0]['cfg'][TRAIN].method}")
+    p0 = {k: v.clone() for k, v in tr.model.state_dict().items()}
+    with _no_kernel_launches("train() and 64-id requests", tag):
+        t1 = time.perf_counter()
+        tr.train()
+        torch.cuda.synchronize()
+        secs = time.perf_counter() - t1
+        ids = np.asarray(tr.entity_set[TRAIN])[:EMBED_SIZE]
+        _check_probs(tr.predict_nodes(ids, TRAIN), EMBED_SIZE, tr.num_classes)
+    moved = sum(not torch.equal(p0[k], v) for k, v in tr.model.state_dict().items())
+    if moved != len(p0):
+        raise AssertionError(f"{tag} training moved {moved} of {len(p0)} parameters")
+    _check_final(tr, tag)
+    nb = -(-len(tr.entity_set[TRAIN]) // tr.batch_size)
+    print(f"{tag} train() {secs:.2f}s ({int(tr.params_train['end'])} epochs of "
+          f"{nb} nodeIID steps, n_pad {tr.branches[0]['cfg'][TRAIN].n_pad}, and "
+          f"the evaluation passes); part {time.perf_counter() - t0:.1f}s")
+    del tr
+    torch.cuda.empty_cache()
+    wall = time.perf_counter() - t_phase
+    print(f"[matrix] phase {wall:.1f}s (budget {MATRIX_BUDGET_S} s)")
+    if wall > MATRIX_BUDGET_S:
+        raise AssertionError(f"[matrix] took {wall:.1f}s, over its "
+                             f"{MATRIX_BUDGET_S} s budget")
+    return rows
 
 
 def _flickr_power_graph():
@@ -2276,7 +2500,7 @@ def _kernel_counts():
 
 
 @contextlib.contextmanager
-def _no_kernel_launches(what):
+def _no_kernel_launches(what, tag="[link]"):
     """Every kernel count set to 0 on entry; any launch within the block
     fails it."""
     counts = _kernel_counts()
@@ -2284,7 +2508,7 @@ def _no_kernel_launches(what):
         setattr(fn, attr, 0)
     yield
     got = {k: getattr(fn, attr) for k, (fn, attr) in counts.items()}
-    print(f"[link] kernel launches over {what}: {got}")
+    print(f"{tag} kernel launches over {what}: {got}")
     if any(got.values()):
         raise AssertionError(f"{what} launched a packed or GAT kernel: {got}")
 
@@ -2592,7 +2816,12 @@ def main():
     phase_time(serve_bits, bf16=True)
     rows += phase_time_train(tr.caches[TRAIN][0].adj_bits[:tr.batch_size].contiguous(),
                              train_launches, max_abs_err, bf16=True)
-    del tr, reqs, serve_bits, flickr
+    del tr, reqs, serve_bits
+    torch.cuda.empty_cache()
+
+    # GCN-3, GIN-3, GATScatter-3 and SIGN on the same graph
+    rows += phase_matrix(flickr, max_abs_err, profile)
+    del flickr
     torch.cuda.empty_cache()
 
     # the products GAT-5: serving, training, uncached serving, B2/B3 times

@@ -1,19 +1,26 @@
 """Carry weights from the JAX package to the port.
 
 :func:`params_from_flax` maps the flax parameter tree of a ``DeepGNN``
-(SAGE or GAT, one or more ensemble branches, as numpy arrays) to the
+(any backbone, one or more ensemble branches, as numpy arrays) to the
 ``state_dict`` of :class:`shadow_gnn_torch.nn.model.DeepGNN`.  Branch
 i's modules carry the suffix ``<s>`` = ``_<i>`` (none for branch 0,
 ``nn/model.py:branch_suffix``):
 
   aug_<i>_<aug>/kernel [in, out]          -> aug<s>.<aug>.weight [out, in]
       (out = dim_feat_in, or dim under feature_augment_ops: concat)
-  conv_<i>_<l>/TorchLinear_0 (self)       -> convs<s>.<l>.lin_self
-  conv_<i>_<l>/TorchLinear_1 (neigh)      -> convs<s>.<l>.lin_neigh
+  conv_<i>_<l>/TorchLinear_<j>            -> convs<s>.<l>.<CONV_LINEARS[aggr][j]>
+      (SAGE and GAT lin_self, lin_neigh; GIN lin1, lin2; GCN and the
+      MLP conv of mlp/sgc/sign lin)
   conv_<i>_<l>/Act_0/prelu_alpha          -> convs<s>.<l>.act.prelu_alpha
   conv_<i>_<l>/scale, offset              -> convs<s>.<l>.scale, .offset
-      ([2, dim] for SAGE, [2, H, dh] for GAT)
-  conv_<i>_<l>/attention [2, H, dh] (GAT) -> convs<s>.<l>.attention
+      ([2, dim] for SAGE, [2, H, dh] for GAT, [dim] otherwise; dropped
+      under layer_norm pairnorm: JAX makes them, pairnorm never reads
+      them, and the port's pairnorm convs have none)
+  conv_<i>_<l>/attention                  -> convs<s>.<l>.attention
+      ([2, H, dh] for GAT, [1, H, dh] for GATScatter)
+  conv_<i>_<l>/eps [1] (GIN)              -> convs<s>.<l>.eps
+  conv_<i>_<l>/w_src, w_dst [in, out], b_src, b_dst (GATScatter)
+                                          -> convs<s>.<l>.w_src, ... as they are
   res_pool_<i>/TorchLinear_0              -> res_pool<s>.lin
       (sort-k pooling: TorchLinear_0 -> res_pool<s>.nn_pool, the
       [k*F, F] linear, and TorchLinear_1 -> res_pool<s>.lin)
@@ -65,10 +72,24 @@ def _module(tree: Mapping, prefix: str, linears: Mapping[str, str],
             out[f"{prefix}.{key}"] = torch.as_tensor(np.array(sub))
 
 
-def params_from_flax(params: Mapping, prediction_task: str = "node"
+CONV_LINEARS = {
+    "sage": ("lin_self", "lin_neigh"), "gat": ("lin_self", "lin_neigh"),
+    "gin": ("lin1", "lin2"), "gcn": ("lin",), "mlp": ("lin",), "sgc": ("lin",),
+    "sign": ("lin",), "gatscat": (),
+}
+
+
+def params_from_flax(params: Mapping, prediction_task: str = "node",
+                     aggr: str = "sage", layer_norm: str = "norm_feat"
                      ) -> Dict[str, torch.Tensor]:
     """flax ``params`` tree (``{"params": {...}}`` or its inner dict) of
-    numpy arrays -> the port's ``state_dict``."""
+    numpy arrays -> the port's ``state_dict``.  ``aggr`` and
+    ``layer_norm`` are the model's (the conv tree alone does not tell
+    SAGE from GIN)."""
+    if aggr not in CONV_LINEARS:
+        raise ValueError(f"unknown aggr {aggr!r}")
+    conv_lins = {f"TorchLinear_{j}": name
+                 for j, name in enumerate(CONV_LINEARS[aggr])}
     p = params.get("params", params)
     out: Dict[str, torch.Tensor] = {}
     for name, sub in p.items():
@@ -80,8 +101,10 @@ def params_from_flax(params: Mapping, prediction_task: str = "node"
         if parts[0] == "aug":
             _linear(sub, f"aug{sfx}.{'_'.join(parts[2:])}", out)
         elif parts[0] == "conv":
-            _module(sub, f"convs{sfx}.{parts[2]}",
-                    {"TorchLinear_0": "lin_self", "TorchLinear_1": "lin_neigh"}, out)
+            if layer_norm == "pairnorm":
+                sub = {k: v for k, v in sub.items()
+                       if k not in ("scale", "offset")}
+            _module(sub, f"convs{sfx}.{parts[2]}", conv_lins, out)
         elif name.startswith("res_pool_"):
             lins = ({"TorchLinear_0": "nn_pool", "TorchLinear_1": "lin"}
                     if "TorchLinear_1" in sub else {"TorchLinear_0": "lin"})

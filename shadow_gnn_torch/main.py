@@ -22,6 +22,10 @@ The flags of those paths are the JAX CLI's (the precision trade
 ``--matmul_precision bfloat16``, ``--compute_dtype bfloat16``,
 ``--feat_dtype bfloat16`` among them), plus ``--device`` (default
 ``cuda``; ``cpu`` runs the plain PyTorch versions of the kernels).
+``--fused_gat auto|on|off`` is accepted; in JAX ``off`` picks XLA's
+dense score chain over the Pallas kernel, the same function, and the
+port has one implementation of it on the card, the CUDA kernels, which
+every value launches.
 ``--gpu N`` (a no-op in the JAX CLI, kept for the reference CLI) selects
 ``cuda:N`` when ``--device`` is not given.  ``--device_ppr auto`` and
 ``host`` both run the host PPR push, the only PPR the port has.  The
@@ -84,9 +88,11 @@ def build_argparser():
                         "(the CUDA packed_spmm kernels on the card)")
     p.add_argument("--fused_gat", default="auto", nargs="?", const="on",
                    choices=["auto", "on", "off"],
-                   help="GAT attention through the fused kernels (ops/gat.py), "
-                        "which the port always launches on the card; 'off' "
-                        "(the dense score chain) is not ported")
+                   help="accepted as the JAX CLI accepts it, where 'off' picks "
+                        "XLA's dense score chain over the Pallas kernel (the "
+                        "same function); the port has one implementation of "
+                        "the gat/gatscat attention on the card, the CUDA "
+                        "kernels of ops/gat.py, and every value launches them")
     p.add_argument("--matmul_precision", type=str, default=None,
                    choices=["bfloat16", "tensorfloat32", "float32"],
                    help="precision of the f32 products: bfloat16 rounds their "
@@ -153,8 +159,6 @@ def parse_args(argv=None):
     parser = build_argparser()
     args = parser.parse_args(argv)
     given = [n for n in UNPORTED_FLAGS if getattr(args, n) not in (None, False)]
-    if args.fused_gat == "off":
-        given.append("fused_gat off")
     if args.matmul_precision == "tensorfloat32":
         given.append("matmul_precision tensorfloat32")
     if args.device_ppr == "device":

@@ -12,8 +12,20 @@ reference ``shaDow/layers.py``):
   the masked softmax aggregation of ``ops/gat.py``, per-head norms
   (``scale[0]`` on the aggregate, ``scale[1]`` on the self term, the
   opposite of SAGE's order), ``(self + aggregate) / 2``;
+* GCN — dropout, ``A_sym @ x``, one linear, act, norm;
+* GIN — ``A_gin @ x + (1 + eps) x``, linear, relu, linear, act, norm
+  (``eps`` a parameter of shape [1], initialised to 0);
+* GATScatter — the DGL-style GAT: raw ``w_src``/``w_dst`` [in, out] and
+  biases, one attention vector [1, H, dh] on the source features only
+  (``att_self = 0``), the same masked softmax aggregation, then
+  ``act(aggregate + x @ w_dst + b_dst)`` and a norm over [dim];
 * MLP — linear -> act -> norm (none for the link task's classifier),
-  ignoring the adjacency;
+  ignoring the adjacency; as a conv (``MLPConv``) the layer of the
+  ``mlp``, ``sgc`` and ``sign`` backbones;
+* the norm of a conv (``norm``) — ``norm_feat``, ``pairnorm`` (the
+  corrected PairNorm-SI of :func:`pairnorm`, which needs the node mask
+  and has no parameters) or ``none``; GAT takes pairnorm flat, on the
+  aggregate and on the self term;
 * activations — ``Act`` owns PReLU's slope (``prelu``: one, ``prelu+``:
   one per channel, both initialised to 0.25); one ``Act`` serves both
   linears of a conv, as the flax module ``Act_0`` does;
@@ -28,12 +40,13 @@ reference ``shaDow/layers.py``):
   product (the linears, GAT's attention-vector contraction) rounds its
   operands to bf16 and sums in f32 (``ops/precision.py``).
 
-SAGE aggregates through a callable ``agg(x) -> A @ x``: a dense
-``torch.bmm`` on the uncached path, or the packed kernel
-(``ops/packed.py``) on cached batches.  GAT takes the pair
-``(adj_norm, adj_struct)`` of dense blocks.  ``norm_feat``'s backward
-is autograd's; the JAX package's custom VJP computes the same gradients
-in fewer passes.
+SAGE, GCN and GIN aggregate through a callable ``agg(x) -> A @ x``: a
+dense ``torch.bmm`` on the uncached path, or the packed kernel
+(``ops/packed.py``) on cached batches.  GAT and GATScatter take the pair
+``(adj_norm, adj_struct)`` of dense blocks; the MLP conv takes nothing.
+Every conv is called as ``conv(feat, agg, generator=None,
+node_mask=None)``.  ``norm_feat``'s backward is autograd's; the JAX
+package's custom VJP computes the same gradients in fewer passes.
 """
 from __future__ import annotations
 
@@ -79,12 +92,21 @@ def glorot_bound(shape) -> float:
     return math.sqrt(6.0 / (shape[-2] * field + shape[-1] * field))
 
 
+def xavier_normal_std(shape, gain: float) -> float:
+    """Standard deviation of the JAX GATScatter's xavier-normal draw:
+    gain * sqrt(2 / (fan_in + fan_out)), fan_in = shape[0], fan_out =
+    shape[-1]."""
+    return gain * math.sqrt(2.0 / (shape[0] + shape[-1]))
+
+
 @torch.no_grad()
 def init_params(module: nn.Module, generator: torch.Generator):
     """Re-draw every linear layer's weight and bias from ``generator``
     with nn.Linear's default distribution, U(-1/sqrt(fan_in),
-    1/sqrt(fan_in)), and every GAT attention vector glorot-uniform;
-    norm scales stay 1, offsets 0 and PReLU slopes 0.25."""
+    1/sqrt(fan_in)), every GAT attention vector glorot-uniform, and
+    GATScatter's ``w_src``, ``w_dst`` and attention xavier-normal (its
+    biases 0); norm scales stay 1, offsets 0, GIN's eps 0 and PReLU
+    slopes 0.25."""
     for m in module.modules():
         if isinstance(m, nn.Linear):
             bound = 1.0 / m.in_features ** 0.5
@@ -94,6 +116,12 @@ def init_params(module: nn.Module, generator: torch.Generator):
         elif isinstance(m, GATConv):
             bound = glorot_bound(m.attention.shape)
             m.attention.uniform_(-bound, bound, generator=generator)
+        elif isinstance(m, GATScatterConv):
+            for w in (m.w_src, m.w_dst, m.attention):
+                w.normal_(0.0, xavier_normal_std(w.shape, m.gain),
+                          generator=generator)
+            m.b_src.zero_()
+            m.b_dst.zero_()
 
 
 def get_act(name: str) -> Callable[[torch.Tensor], torch.Tensor]:
@@ -153,60 +181,148 @@ def norm_feat(feat: torch.Tensor, scale: torch.Tensor,
     return ((f32 - mean) * scale * torch.rsqrt(var) + offset).to(feat.dtype)
 
 
-class SAGEConv(nn.Module):
-    def __init__(self, dim_in: int, dim_out: int, act: str = "relu",
-                 dropout: float = 0.0, precision: str = "float32"):
+def pairnorm(feat: torch.Tensor, node_mask: torch.Tensor) -> torch.Tensor:
+    """PairNorm-SI per subgraph block (the JAX package's corrected form):
+    centre each column over the subgraph's valid rows, then scale each
+    row to unit L2 norm (1e-12 under the square root); a row whose
+    centred values are all zero passes through unchanged; padding rows
+    come out zero.  feat [B, N, F], node_mask [B, N]."""
+    m = node_mask[..., None].to(feat.dtype)
+    cnt = torch.clamp(m.sum(-2, keepdim=True), min=1.0)
+    mean = (feat * m).sum(-2, keepdim=True) / cnt
+    centered = (feat - mean) * m
+    null = centered.abs().sum(-1, keepdim=True) == 0
+    centered = torch.where(null, feat, centered)
+    norm = torch.sqrt((centered ** 2).sum(-1, keepdim=True) + 1e-12)
+    return centered / norm * m
+
+
+NORMS = ("norm_feat", "pairnorm", "none")
+
+
+class _ConvBase(nn.Module):
+    """A conv's dropout rate and norm choice: ``norm_feat`` owns
+    ``scale``/``offset`` of ``norm_shape``; ``pairnorm`` and ``none``
+    have no parameters."""
+
+    def __init__(self, dropout: float, norm: str, norm_shape):
         super().__init__()
-        self.act = Act(act, dim_out)
+        if norm not in NORMS:
+            raise ValueError(f"unknown layer norm {norm!r}")
         self.dropout = dropout
+        self.norm = norm
+        if norm == "norm_feat":
+            self.scale = nn.Parameter(torch.ones(norm_shape))
+            self.offset = nn.Parameter(torch.zeros(norm_shape))
+
+    def _drop(self, feat, generator):
+        return dropout(feat, self.dropout, generator) if self.training else feat
+
+    def _norm(self, feat: torch.Tensor, node_mask: Optional[torch.Tensor],
+              i: Optional[int] = None) -> torch.Tensor:
+        """The norm over the last axis (``norm_feat`` with the ``i``-th
+        slice of the norm parameters when ``i`` is given)."""
+        if self.norm == "none":
+            return feat
+        if self.norm == "pairnorm":
+            if node_mask is None:
+                raise ValueError("pairnorm needs the node mask")
+            return pairnorm(feat, node_mask)
+        if i is None:
+            return norm_feat(feat, self.scale, self.offset)
+        return norm_feat(feat, self.scale[i], self.offset[i])
+
+
+class SAGEConv(_ConvBase):
+    def __init__(self, dim_in: int, dim_out: int, act: str = "relu",
+                 dropout: float = 0.0, precision: str = "float32",
+                 norm: str = "norm_feat"):
+        super().__init__(dropout, norm, (2, dim_out))
+        self.act = Act(act, dim_out)
         self.lin_self = TorchLinear(dim_in, dim_out, precision)
         self.lin_neigh = TorchLinear(dim_in, dim_out, precision)
-        self.scale = nn.Parameter(torch.ones(2, dim_out))
-        self.offset = nn.Parameter(torch.zeros(2, dim_out))
 
     def forward(self, feat: torch.Tensor, agg: Callable,
-                generator: Optional[torch.Generator] = None) -> torch.Tensor:
+                generator: Optional[torch.Generator] = None,
+                node_mask: Optional[torch.Tensor] = None) -> torch.Tensor:
         """One dropout draw on the input feeds both linears and the
         aggregation (in training mode only)."""
-        if self.training:
-            feat = dropout(feat, self.dropout, generator)
+        feat = self._drop(feat, generator)
         h_self = self.act(self.lin_self(feat))
         h_neigh = self.act(self.lin_neigh(agg(feat)))
-        return (norm_feat(h_self, self.scale[0], self.offset[0])
-                + norm_feat(h_neigh, self.scale[1], self.offset[1]))
+        return self._norm(h_self, node_mask, 0) + self._norm(h_neigh, node_mask, 1)
 
 
-class GATConv(nn.Module):
+class GCNConv(_ConvBase):
+    def __init__(self, dim_in: int, dim_out: int, act: str = "relu",
+                 dropout: float = 0.0, precision: str = "float32",
+                 norm: str = "norm_feat"):
+        super().__init__(dropout, norm, (dim_out,))
+        self.act = Act(act, dim_out)
+        self.lin = TorchLinear(dim_in, dim_out, precision)
+
+    def forward(self, feat: torch.Tensor, agg: Callable,
+                generator: Optional[torch.Generator] = None,
+                node_mask: Optional[torch.Tensor] = None) -> torch.Tensor:
+        """act(lin(A_sym @ dropout(x))), then the norm."""
+        feat = self._drop(feat, generator)
+        return self._norm(self.act(self.lin(agg(feat))), node_mask)
+
+
+class GINConv(_ConvBase):
+    def __init__(self, dim_in: int, dim_out: int, act: str = "relu",
+                 dropout: float = 0.0, precision: str = "float32",
+                 norm: str = "norm_feat"):
+        super().__init__(dropout, norm, (dim_out,))
+        self.act = Act(act, dim_out)
+        self.eps = nn.Parameter(torch.zeros(1))
+        self.lin1 = TorchLinear(dim_in, dim_out, precision)
+        self.lin2 = TorchLinear(dim_out, dim_out, precision)
+        # the relu between the two linears (a module, so that it can be
+        # told apart from the conv's own activation)
+        self.inner_act = Act("relu")
+
+    def forward(self, feat: torch.Tensor, agg: Callable,
+                generator: Optional[torch.Generator] = None,
+                node_mask: Optional[torch.Tensor] = None) -> torch.Tensor:
+        """act(lin2(relu(lin1(A_gin @ x + (1 + eps) x)))), then the norm;
+        an f32 ``eps`` makes a bf16 block f32, as in JAX."""
+        feat = self._drop(feat, generator)
+        h = self.lin1(agg(feat) + (1.0 + self.eps) * feat)
+        return self._norm(self.act(self.lin2(self.inner_act(h))), node_mask)
+
+
+class GATConv(_ConvBase):
     """Multi-head GAT over dense blocks.  The flat feature index of the
     linears' outputs is ``head * dh + d``."""
 
     def __init__(self, dim_in: int, dim_out: int, heads: int, act: str = "relu",
-                 dropout: float = 0.0, precision: str = "float32"):
-        super().__init__()
+                 dropout: float = 0.0, precision: str = "float32",
+                 norm: str = "norm_feat"):
         if dim_out % heads:
             raise ValueError(f"dim {dim_out} is not a multiple of {heads} heads")
+        shape = (2, heads, dim_out // heads)
+        super().__init__(dropout, norm, shape)
         self.heads = heads
         self.act = Act(act, dim_out)
-        self.dropout = dropout
         self.precision = precision
         self.lin_self = TorchLinear(dim_in, dim_out, precision)
         self.lin_neigh = TorchLinear(dim_in, dim_out, precision)
-        shape = (2, heads, dim_out // heads)
         self.attention = nn.Parameter(torch.empty(shape))
         nn.init.uniform_(self.attention, -glorot_bound(shape), glorot_bound(shape))
-        self.scale = nn.Parameter(torch.ones(shape))
-        self.offset = nn.Parameter(torch.zeros(shape))
 
     def forward(self, feat: torch.Tensor, adjs: Tuple[torch.Tensor, torch.Tensor],
-                generator: Optional[torch.Generator] = None) -> torch.Tensor:
+                generator: Optional[torch.Generator] = None,
+                node_mask: Optional[torch.Tensor] = None) -> torch.Tensor:
         """adjs: (adj_norm, adj_struct) [B, N, N] f32; one dropout draw on
         the input (training mode only), no dropout on the attention.  The
         attention runs at its bf16 levels (both) under bf16 precision or
         on bf16 values, as layers.py:501-508 decides; its f32 output is
-        cast back to the input's dtype."""
+        cast back to the input's dtype.  ``norm_feat`` normalises each
+        head (``scale[0]`` the aggregate, ``scale[1]`` the self term),
+        ``pairnorm`` the flat [B, N, H * dh] rows."""
         adj_norm, adj_struct = adjs
-        if self.training:
-            feat = dropout(feat, self.dropout, generator)
+        feat = self._drop(feat, generator)
         b, n, _ = feat.shape
         shape = (b, n, self.heads, -1)
         h_self = self.act(self.lin_self(feat)).view(shape)
@@ -218,12 +334,70 @@ class GATConv(nn.Module):
         bf16 = self.precision == "bfloat16" or h_neigh.dtype == torch.bfloat16
         aggr = gat_attention(att[0], att[1], h_neigh, adj_norm, adj_struct,
                              bf16, bf16).to(feat.dtype)
-        aggr = norm_feat(aggr, self.scale[0], self.offset[0])
-        h_self = norm_feat(h_self, self.scale[1], self.offset[1])
-        return (h_self + aggr).reshape(b, n, -1) / 2.0
+        if self.norm == "norm_feat":
+            aggr, h_self = self._norm(aggr, None, 0), self._norm(h_self, None, 1)
+        aggr, h_self = aggr.reshape(b, n, -1), h_self.reshape(b, n, -1)
+        if self.norm == "pairnorm":
+            aggr, h_self = self._norm(aggr, node_mask), self._norm(h_self, node_mask)
+        return (h_self + aggr) / 2.0
 
 
-class MLPLayer(nn.Module):
+class GATScatterConv(_ConvBase):
+    """The DGL-style GAT variant (JAX ``GATScatterConv``, its fused flat
+    path): the score of edge (i, j) is ``leaky_relu(feat_src[j] . att,
+    0.2)``, which depends on the source alone, so the aggregate is
+    :func:`gat_attention` with ``att_self = 0``."""
+
+    def __init__(self, dim_in: int, dim_out: int, heads: int, act: str = "relu",
+                 dropout: float = 0.0, precision: str = "float32",
+                 norm: str = "norm_feat"):
+        if dim_out % heads:
+            raise ValueError(f"dim {dim_out} is not a multiple of {heads} heads")
+        super().__init__(dropout, norm, (dim_out,))
+        self.heads = heads
+        self.act = Act(act, dim_out)
+        self.precision = precision
+        self.gain = math.sqrt(2.0) if act == "relu" else 1.0
+        self.w_src = nn.Parameter(torch.empty(dim_in, dim_out))
+        self.b_src = nn.Parameter(torch.zeros(dim_out))
+        self.w_dst = nn.Parameter(torch.empty(dim_in, dim_out))
+        self.b_dst = nn.Parameter(torch.zeros(dim_out))
+        self.attention = nn.Parameter(torch.empty(1, heads, dim_out // heads))
+        for w in (self.w_src, self.w_dst, self.attention):
+            nn.init.normal_(w, 0.0, xavier_normal_std(w.shape, self.gain))
+
+    def _affine(self, x: torch.Tensor, w: torch.Tensor,
+                bias: torch.Tensor) -> torch.Tensor:
+        """``x @ w + bias`` as JAX takes it: a bf16 ``x`` is promoted to
+        the f32 parameters' dtype; an f32 product at bf16 precision."""
+        x = x.to(torch.promote_types(x.dtype, w.dtype))
+        if self.precision == "bfloat16" and x.dtype == torch.float32:
+            y = bf16_matmul(x.reshape(-1, x.shape[-1]), w)
+            return y.reshape(x.shape[:-1] + (-1,)) + bias
+        return x @ w + bias
+
+    def forward(self, feat: torch.Tensor, adjs: Tuple[torch.Tensor, torch.Tensor],
+                generator: Optional[torch.Generator] = None,
+                node_mask: Optional[torch.Tensor] = None) -> torch.Tensor:
+        """adjs: (adj_norm, adj_struct) [B, N, N] f32.  The scores' head
+        dot stays f32 (JAX's ``_head_dot`` runs at HIGHEST precision);
+        the attention runs at its bf16 levels under bf16 precision, as
+        ``_fused_attention_flat`` decides."""
+        adj_norm, adj_struct = adjs
+        x = self._drop(feat, generator)
+        b, n, _ = x.shape
+        feat_src = self._affine(x, self.w_src, self.b_src)
+        v = feat_src.view(b, n, self.heads, -1)
+        el = torch.nn.functional.leaky_relu(
+            torch.einsum("bnhd,hd->bhn", v.float(), self.attention[0]), 0.2)
+        bf16 = self.precision == "bfloat16" or feat_src.dtype == torch.bfloat16
+        aggr = gat_attention(torch.zeros_like(el), el, v, adj_norm, adj_struct,
+                             bf16, bf16).reshape(b, n, -1).to(x.dtype)
+        out = self.act(aggr + self._affine(x, self.w_dst, self.b_dst))
+        return self._norm(out, node_mask)
+
+
+class MLPLayer(_ConvBase):
     """MLP layer (the classifier stack): linear -> act -> norm, where
     ``norm="none"`` (the link task's classifier) skips the norm and has
     no norm parameters."""
@@ -231,20 +405,31 @@ class MLPLayer(nn.Module):
     def __init__(self, dim_in: int, dim_out: int, act: str = "relu",
                  dropout: float = 0.0, precision: str = "float32",
                  norm: str = "norm_feat"):
-        super().__init__()
-        if norm not in ("norm_feat", "none"):
-            raise ValueError(f"unknown MLP norm {norm!r}")
+        super().__init__(dropout, norm, (dim_out,))
         self.act = Act(act, dim_out)
-        self.dropout = dropout
         self.lin = TorchLinear(dim_in, dim_out, precision)
-        self.norm = norm
-        if norm == "norm_feat":
-            self.scale = nn.Parameter(torch.ones(dim_out))
-            self.offset = nn.Parameter(torch.zeros(dim_out))
 
     def forward(self, feat: torch.Tensor,
-                generator: Optional[torch.Generator] = None) -> torch.Tensor:
-        if self.training:
-            feat = dropout(feat, self.dropout, generator)
-        h = self.act(self.lin(feat))
-        return h if self.norm == "none" else norm_feat(h, self.scale, self.offset)
+                generator: Optional[torch.Generator] = None,
+                node_mask: Optional[torch.Tensor] = None) -> torch.Tensor:
+        feat = self._drop(feat, generator)
+        return self._norm(self.act(self.lin(feat)), node_mask)
+
+
+class MLPConv(MLPLayer):
+    """The layer of the adjacency-free backbones (``mlp``, ``sgc``,
+    ``sign``, whose propagation ran in the preprocessing): an
+    :class:`MLPLayer` with a conv's signature, ignoring ``agg``."""
+
+    def forward(self, feat: torch.Tensor, agg=None,
+                generator: Optional[torch.Generator] = None,
+                node_mask: Optional[torch.Tensor] = None) -> torch.Tensor:
+        return super().forward(feat, generator, node_mask)
+
+
+# the conv of each backbone (the JAX package's NAME2LAYER); the
+# attention convs take ``heads`` too
+NAME2LAYER = {"mlp": MLPConv, "gcn": GCNConv, "gin": GINConv, "sage": SAGEConv,
+              "gat": GATConv, "gatscat": GATScatterConv, "sgc": MLPConv,
+              "sign": MLPConv}
+ATTENTION = ("gat", "gatscat")

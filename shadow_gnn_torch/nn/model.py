@@ -1,9 +1,11 @@
 """DeepGNN: the shaDow-GNN model, one or more ensemble branches.
 
 Per branch: masked node features (label-input columns zeroed at the
-targets in the TRAIN mode) + the one-hot augments (hop, DRNL: each one's
-linear added to the feature columns, or with ``feature_augment_ops:
-concat`` appended) -> L x conv (SAGE or GAT; node mask after every conv)
+targets in the TRAIN mode) + the one-hot augments (hop, PPR, DRNL: each
+one's linear added to the feature columns, or with
+``feature_augment_ops: concat`` appended) -> L x conv (the backbone's:
+SAGE, GCN, GIN, GAT, GATScatter, or the MLP layer of ``mlp``/``sgc``/
+``sign``, each with the ``layer_norm`` choice; node mask after every conv)
 -> ResPool -> L2 normalise.  An ensemble combines the branches'
 embeddings with ``EnsembleAggregator`` (softmax attention over the
 branches); then the MLP classifier with ``norm_feat`` on the logits
@@ -16,11 +18,14 @@ branch runs branch 0's convs), as the JAX package's ``aug_<i>_*``,
 edge-dropped once per batch and branch and reused by every conv of the
 branch; branch i draws its dropedge mask from the forward's seed mixed
 with i (:func:`branch_seed`).
-SAGE on cached batches with ``packed_adj`` aggregates from the packed
-bits through ``ops/packed.packed_spmm``, whose backward is the
-transposed kernel ``packed_spmm_t``; otherwise it multiplies the dense
-rw-normalised block.  GAT takes the dense pair (edge-dropped block,
-structural block) into ``ops/gat.gat_attention``.  Every path draws the
+SAGE, GCN and GIN on cached batches with ``packed_adj`` aggregate from
+the packed bits through ``ops/packed.packed_spmm`` in the norm of the
+backbone (``PACKED_NORM``: rw, sym, gin), whose backward is the
+transposed kernel ``packed_spmm_t``; otherwise they multiply the dense
+block that ``prepare_adj`` normalises.  GAT and GATScatter take the
+dense pair (edge-dropped block, structural block) into
+``ops/gat.gat_attention``.  The adjacency-free backbones prepare no
+block.  Every path draws the
 same counter-hash dropedge mask (``ops/normalize.py``) from one seed
 per forward.
 
@@ -52,10 +57,10 @@ from typing import List, Optional, Tuple
 import torch
 from torch import nn
 
-from shadow_gnn_torch.nn.layers import (PRECISIONS, GATConv, MLPLayer, SAGEConv,
-                                        TorchLinear)
+from shadow_gnn_torch.nn.layers import (ATTENTION, NAME2LAYER, NORMS, PRECISIONS,
+                                        MLPLayer, TorchLinear)
 from shadow_gnn_torch.nn.respool import EnsembleAggregator, ResPool
-from shadow_gnn_torch.ops.normalize import prepare_adj
+from shadow_gnn_torch.ops.normalize import ADJ_FREE, prepare_adj
 from shadow_gnn_torch.ops.packed import packed_spmm
 from shadow_gnn_torch.ops.precision import bf16_matmul
 from shadow_gnn_torch.sampling.batch import AUG2DIM, SubgraphBatch, batch_aug_onehots
@@ -89,7 +94,7 @@ class ModelConfig:
     dropout: float = 0.0
     dropedge: float = 0.0
     # aggregate cached batches from the packed bits (ops/packed.py);
-    # gcn / sage / gin only, as in the JAX package
+    # the PACKED_NORM backbones only, as in the JAX package
     packed_adj: bool = False
     # products: "float32" or "bfloat16" (bf16 operands, f32 sums)
     matmul_precision: str = "float32"
@@ -124,12 +129,28 @@ class ModelConfig:
         return torch.bfloat16 if self.compute_dtype == "bfloat16" else torch.float32
 
     @property
+    def uses_adj(self) -> bool:
+        """Whether the convs read the adjacency (``mlp``/``sgc``/``sign``
+        do not)."""
+        return self.aggr not in ADJ_FREE
+
+    @property
     def reads_packed_bits(self) -> bool:
-        """Whether cached batches aggregate from the packed bits (then no
-        dense block is unpacked for them): a bf16 compute dtype takes the
-        dense path (shadow_gnn_tpu/nn/model.py:139)."""
-        return (self.packed_adj and self.aggr in ("gcn", "sage", "gin")
+        """Whether cached batches aggregate from the packed bits: a bf16
+        compute dtype takes the dense path (shadow_gnn_tpu/nn/model.py:139)."""
+        return (self.packed_adj and self.aggr in PACKED_NORM
                 and self.compute_dtype == "float32")
+
+    @property
+    def needs_dense_adj(self) -> bool:
+        """Whether a cached batch must carry its dense block (unpacked
+        from the bits): not when the model reads the bits or no block."""
+        return self.uses_adj and not self.reads_packed_bits
+
+
+# the packed kernel's norm of each backbone that aggregates through it
+# (shadow_gnn_tpu/nn/model.py:142)
+PACKED_NORM = {"gcn": "sym", "sage": "rw", "gin": "gin"}
 
 
 def branch_seed(seed: int, i: int) -> int:
@@ -146,15 +167,13 @@ def branch_suffix(i: int) -> str:
 class DeepGNN(nn.Module):
     def __init__(self, cfg: ModelConfig):
         super().__init__()
-        unported = []
-        if cfg.aggr not in ("sage", "gat"):
-            unported.append(f"aggr {cfg.aggr!r}")
-        if cfg.layer_norm != "norm_feat":
-            unported.append(f"layer norm {cfg.layer_norm!r}")
         if cfg.matmul_precision == "tensorfloat32":
-            unported.append("matmul_precision 'tensorfloat32'")
-        if unported:
-            raise NotImplementedError("not ported yet: " + ", ".join(unported))
+            raise NotImplementedError("not ported yet: matmul_precision "
+                                      "'tensorfloat32'")
+        if cfg.aggr not in NAME2LAYER:
+            raise ValueError(f"unknown aggr {cfg.aggr!r}")
+        if cfg.layer_norm not in NORMS:
+            raise ValueError(f"unknown layer_norm {cfg.layer_norm!r}")
         if cfg.matmul_precision not in PRECISIONS:
             raise ValueError(f"unknown matmul_precision {cfg.matmul_precision!r}")
         if cfg.compute_dtype not in ("float32", "bfloat16"):
@@ -178,15 +197,14 @@ class DeepGNN(nn.Module):
                 {a: TorchLinear(AUG2DIM[a], dim_aug, prec)
                  for a in sorted(cfg.feature_augment)}))
             if i == 0 or not cfg.branch_sharing:
-                if cfg.aggr == "gat":
-                    convs = [GATConv(dims[l], dims[l + 1], cfg.mulhead, act=cfg.act,
-                                     dropout=cfg.dropout, precision=prec)
-                             for l in range(cfg.num_layers)]
-                else:
-                    convs = [SAGEConv(dims[l], dims[l + 1], act=cfg.act,
-                                      dropout=cfg.dropout, precision=prec)
-                             for l in range(cfg.num_layers)]
-                self.add_module("convs" + sfx, nn.ModuleList(convs))
+                layer = NAME2LAYER[cfg.aggr]
+                kw = dict(act=cfg.act, dropout=cfg.dropout, precision=prec,
+                          norm=cfg.layer_norm)
+                if cfg.aggr in ATTENTION:
+                    kw["heads"] = cfg.mulhead
+                self.add_module("convs" + sfx, nn.ModuleList(
+                    [layer(dims[l], dims[l + 1], **kw)
+                     for l in range(cfg.num_layers)]))
             self.add_module("res_pool" + sfx, ResPool(
                 cfg.dim, cfg.num_layers, cfg.residue, cfg.type_pool, cfg.dropout,
                 cfg.act, cfg.prediction_task, prec, cfg.sort_k))
@@ -215,19 +233,23 @@ class DeepGNN(nn.Module):
     def aggregator(self, batch: SubgraphBatch, seed: int = 0):
         """What each conv aggregates through for this batch, prepared once
         for all convs (edges dropped in training mode under ``seed``):
-        SAGE a callable x -> A_norm @ x, GAT the pair (adj_norm,
-        adj_struct)."""
+        SAGE, GCN and GIN a callable x -> A_norm @ x, GAT and GATScatter
+        the pair (adj_norm, adj_struct), the adjacency-free backbones
+        None."""
         cfg = self.cfg
+        if not cfg.uses_adj:
+            return None
         de = cfg.dropedge if self.training else 0.0
         bf16 = cfg.matmul_precision == "bfloat16"
         if cfg.reads_packed_bits and batch.adj_bits is not None:
-            return functools.partial(packed_spmm, batch.adj_bits, norm="rw",
-                                     dropedge=de, seed=seed, bf16=bf16)
+            return functools.partial(packed_spmm, batch.adj_bits,
+                                     norm=PACKED_NORM[cfg.aggr], dropedge=de,
+                                     seed=seed, bf16=bf16)
         if batch.adj is None:
             raise ValueError("batch carries no dense adjacency and the model "
                              "does not read packed bits")
         adjs = prepare_adj(cfg.aggr, batch.adj, seed, de)
-        if cfg.aggr == "gat":
+        if cfg.aggr in ATTENTION:
             # 0/1 blocks: JAX's cast to the compute dtype and back to f32
             # for the kernel leaves them as they are
             return adjs
@@ -289,7 +311,7 @@ class DeepGNN(nn.Module):
         agg = self.aggregator(batch, seed)
         xjk = []
         for conv in convs:
-            x = conv(x, agg, generator) * mask
+            x = conv(x, agg, generator, node_mask=batch.node_mask) * mask
             xjk.append(x)
         emb = res_pool(xjk, batch.targets, batch.node_mask, generator).float()
         return emb / torch.clamp(torch.linalg.vector_norm(emb, dim=-1, keepdim=True),

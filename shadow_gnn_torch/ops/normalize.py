@@ -114,16 +114,21 @@ def adj_drop(adj: torch.Tensor, seed: int = 0,
                                adj.device)
 
 
+# the backbones that read no adjacency
+ADJ_FREE = ("mlp", "sgc", "sign")
 _PREPARE = {"gcn": adj_norm_sym, "sage": adj_norm_rw, "gin": adj_gin_rescale,
-            "gat": adj_drop}
+            "gat": adj_drop, "gatscat": adj_drop}
 
 
 def prepare_adj(aggr: str, adj: torch.Tensor, seed: int = 0,
                 dropedge: float = 0.0):
     """Once-per-batch adjacency of a conv stack: (normalised, edge-dropped
     block, structural block before the drop), as the JAX package's
-    prepare_adj returns them (GAT takes its row max over the structural
-    block)."""
+    prepare_adj returns them (GAT and GATScatter take their row max over
+    the structural block); ``mlp``, ``sgc`` and ``sign`` read no block
+    and get ``(adj, adj)``."""
+    if aggr in ADJ_FREE:
+        return adj, adj
     if aggr not in _PREPARE:
-        raise NotImplementedError(f"prepare_adj for aggr {aggr!r} is not ported yet")
+        raise ValueError(f"unknown aggr {aggr!r}")
     return _PREPARE[aggr](adj, seed, dropedge), adj

@@ -158,6 +158,7 @@ def _aggregate(bits, x, norm, dropedge, seed, transpose, bf16):
         fn.launches_bf16 += 1
     else:
         fn.launches += 1
+    fn.launches_by_norm[norm] += 1
     return out
 
 
@@ -195,7 +196,8 @@ def packed_spmm(bits: torch.Tensor, x: torch.Tensor, norm: str = "none",
     the bf16 mode (its backward too).  Differentiable in ``x``.
     ``packed_spmm.calls`` counts every call; ``packed_spmm.launches``
     and ``packed_spmm.launches_bf16`` count the forward kernel's
-    launches in each mode.
+    launches in each mode, ``packed_spmm.launches_by_norm[norm]`` its
+    launches in each norm (both modes).
     """
     _check_args(norm, dropedge)
     packed_spmm.calls += 1
@@ -208,7 +210,8 @@ def packed_spmm_t(bits: torch.Tensor, g: torch.Tensor, norm: str = "none",
     """dx[b] = norm(unpack(bits[b]) * keep(seed, b))^T @ g[b]: the
     backward of :func:`packed_spmm`.  ``packed_spmm_t.launches`` and
     ``packed_spmm_t.launches_bf16`` count the transposed kernel's
-    launches in each mode."""
+    launches in each mode, ``packed_spmm_t.launches_by_norm`` in each
+    norm."""
     _check_args(norm, dropedge)
     return _aggregate(bits, g, norm, float(dropedge), int(seed), True, bool(bf16))
 
@@ -216,3 +219,5 @@ def packed_spmm_t(bits: torch.Tensor, g: torch.Tensor, norm: str = "none",
 packed_spmm.calls = 0
 packed_spmm.launches = packed_spmm.launches_bf16 = 0
 packed_spmm_t.launches = packed_spmm_t.launches_bf16 = 0
+packed_spmm.launches_by_norm = dict.fromkeys(NORMS, 0)
+packed_spmm_t.launches_by_norm = dict.fromkeys(NORMS, 0)

@@ -110,6 +110,7 @@ def sort_dedup(x: torch.Tensor, sentinel: int) -> torch.Tensor:
 
 
 DIM_1HOT_HOP = 7      # unreachable + self + hops 1..5
+DIM_1HOT_PPR = 1
 DIM_1HOT_DRNL = 26    # unreachable + drnl 1..25
 
 
@@ -126,6 +127,18 @@ def hop2onehot(hop: torch.Tensor, dim: int = DIM_1HOT_HOP) -> torch.Tensor:
     return oh * valid.unsqueeze(-1)
 
 
+def ppr2onehot(ppr: torch.Tensor, dim: int = DIM_1HOT_PPR) -> torch.Tensor:
+    """[..., N] f32 -> [..., N, dim] f32: bucket i holds scores in
+    [0.25^(i+1), 0.25^i] (the last bucket down to 0); at dim 1, 1 iff
+    0 <= ppr <= 1."""
+    uppers = torch.tensor([0.25 ** i for i in range(dim)], dtype=torch.float32,
+                          device=ppr.device)
+    lowers = torch.tensor([0.25 ** (i + 1) for i in range(dim - 1)] + [0.0],
+                          dtype=torch.float32, device=ppr.device)
+    p = ppr[..., None]
+    return ((p <= uppers) & (p >= lowers)).float()
+
+
 def drnl2onehot(drnl: torch.Tensor, dim: int = DIM_1HOT_DRNL) -> torch.Tensor:
     """[..., N] int -> [..., N, dim] f32 one-hot; col 0 takes the
     unreachable (255), negative and out-of-range labels."""
@@ -133,7 +146,7 @@ def drnl2onehot(drnl: torch.Tensor, dim: int = DIM_1HOT_DRNL) -> torch.Tensor:
     return torch.nn.functional.one_hot(d, dim).float()
 
 
-AUG2DIM = {"hops": DIM_1HOT_HOP, "drnls": DIM_1HOT_DRNL}
+AUG2DIM = {"hops": DIM_1HOT_HOP, "pprs": DIM_1HOT_PPR, "drnls": DIM_1HOT_DRNL}
 
 
 def batch_aug_onehots(batch: SubgraphBatch, aug_feats) -> dict:
@@ -143,9 +156,10 @@ def batch_aug_onehots(batch: SubgraphBatch, aug_feats) -> dict:
     for a in aug_feats:
         if a == "hops":
             out[a] = hop2onehot(batch.hop) * m
+        elif a == "pprs":
+            out[a] = ppr2onehot(batch.ppr) * m
         elif a == "drnls":
             out[a] = drnl2onehot(batch.drnl) * m
         else:
-            raise NotImplementedError(
-                f"feature augment {a!r} is not ported yet (hops, drnls)")
+            raise ValueError(f"unknown feature augment {a!r}")
     return out

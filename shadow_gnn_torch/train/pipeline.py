@@ -3,7 +3,8 @@
 
 The port of the JAX package's ``train/pipeline.py`` Trainer for the
 node and link tasks: per-mode device graphs, per-branch samplers
-(``ppr``, ``ppr_st``, ``khop``, ``nodeIID``) and their induction plans,
+(``ppr``, ``ppr_st``, ``khop``, ``nodeIID``; a ``full`` train sampler is
+``nodeIID`` for the adjacency-free backbones) and their induction plans,
 per-mode PPR top-k tables (native host push + the reference's bin
 cache), the bit-packed subgraph cache of each deterministic PPR branch
 of the node task, the preprocessing
@@ -64,7 +65,8 @@ import torch
 from shadow_gnn_torch import MODE2STR, TEST, TRAIN, VALID
 from shadow_gnn_torch.data.graph import DeviceGraph, RawGraph, is_undirected
 from shadow_gnn_torch.nn.layers import init_params
-from shadow_gnn_torch.nn.model import DeepGNN, ModelConfig, predict_fn, row_losses
+from shadow_gnn_torch.nn.model import (ADJ_FREE, DeepGNN, ModelConfig, predict_fn,
+                                       row_losses)
 from shadow_gnn_torch.sampling import cache as cache_mod
 from shadow_gnn_torch.sampling import ppr as ppr_mod
 from shadow_gnn_torch.sampling.batch import SamplerConfig, SubgraphBatch, default_n_pad
@@ -147,15 +149,23 @@ class Trainer:
                  parsed: Dict[str, Any], metrics: Optional[Metrics] = None,
                  logger: Optional[Logger] = None, seed: int = 0, device="cuda",
                  packed_adj: bool = False, matmul_precision: Optional[str] = None,
-                 compute_dtype: str = "float32", feat_dtype: str = "float32"):
+                 compute_dtype: str = "float32", feat_dtype: str = "float32",
+                 fused_gat: Optional[bool] = None):
         """``metrics`` defaults to the dataset's metric (DATA_METRIC,
         else accuracy) and ``logger`` to one that writes no files.
         ``matmul_precision`` (None = "float32", or "bfloat16"),
         ``compute_dtype`` and ``feat_dtype`` ("float32" or "bfloat16") are
         the JAX Trainer's arguments of those names; the model checks the
-        first two."""
+        first two.  ``fused_gat`` (None, True or False) is accepted as
+        the JAX Trainer accepts it, where False picks XLA's dense score
+        chain over the Pallas kernel, the same function: the port has one
+        implementation of it on the card, the CUDA kernels of
+        ``ops/gat.py``, which every value launches."""
         if feat_dtype not in ("float32", "bfloat16"):
             raise ValueError(f"unsupported feat_dtype {feat_dtype!r}")
+        if fused_gat not in (None, True, False):
+            raise ValueError(f"fused_gat must be None, True or False, not "
+                             f"{fused_gat!r}")
         self.device = resolve_device(device)
         self.name_data = name_data
         self.dir_data = dir_data
@@ -292,6 +302,17 @@ class Trainer:
         aug = tuple(self.arch["feature_augment"])
         for cfg_d in decouple_ensemble(self.sampler_cfg_train["configs"]):
             method = cfg_d["method"]
+            if method == "full":
+                # the reference's FULL train mode: each target its own
+                # one-node block, nodeIID batching, for the backbones
+                # whose propagation ran in the preprocessing
+                if self.arch["aggr"] not in ADJ_FREE:
+                    raise ValueError(
+                        "full-graph TRAIN sampling requires an adjacency-free "
+                        "model (mlp/sgc/sign); graph convs need a subgraph "
+                        "sampler")
+                cfg_d = dict(cfg_d, method="nodeIID")
+                method = "nodeIID"
             if method not in ("ppr", "ppr_st", "khop", "nodeIID"):
                 raise NotImplementedError(
                     f"sampler {method!r} is not ported yet "
@@ -476,10 +497,10 @@ class Trainer:
             cfg = br["cfg"][mode]
             cache = self.caches.get(mode, [None] * self.num_ensemble)[i]
             if cache is not None:
-                # a model that reads the packed bits gets no dense block
+                # a model that reads the packed bits, or no block, gets none
                 batch = cache_mod.gather_batch(
                     cache, rows[:, 0], cfg.n_pad, self.num_nodes,
-                    unpack=not self.model_cfg.reads_packed_bits)
+                    unpack=self.model_cfg.needs_dense_adj)
             else:
                 batch = sample_subgraphs(cfg, self.graph[mode], roots, rows,
                                          self.tables[mode][i], generator)

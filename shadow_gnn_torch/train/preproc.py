@@ -5,11 +5,12 @@ The port of ``shadow_gnn_tpu/train/preproc.py`` (reference
 concat, sum or last reduction) and the APPNP-style ``ppr--...``
 iteration with its convergence check, over the full graph (the
 transductive ``full`` preprocess sampler, or per mode for inductive
-data); and the one-hot TRAIN (+VALID) labels as input features.  The
-propagation runs on the trainer's device through ``ops/spmm.py``; edge
-lists and normalisation are built on the host.  Preprocessing inside
-sampled subgraphs (``smooth_signal_subgraph``, a preprocess sampler
-other than ``full``) is used by no shipped config and is not ported.
+data), or inside sampled subgraphs (:func:`smooth_signal_subgraph`, a
+preprocess sampler other than ``full``); and the one-hot TRAIN (+VALID)
+labels as input features.  The full-graph propagation runs on the
+trainer's device through ``ops/spmm.py`` (edge lists and normalisation
+built on the host), the subgraph one as dense products over the
+sampled blocks.
 """
 from __future__ import annotations
 
@@ -20,7 +21,12 @@ import numpy as np
 import torch
 
 from shadow_gnn_torch import TEST, TRAIN, VALID
+from shadow_gnn_torch.data.graph import DeviceGraph
+from shadow_gnn_torch.ops.normalize import adj_norm_rw, adj_norm_sym
 from shadow_gnn_torch.ops.spmm import csr_to_edges, spmm_edges
+from shadow_gnn_torch.sampling import ppr as ppr_mod
+from shadow_gnn_torch.sampling.batch import SamplerConfig, default_n_pad
+from shadow_gnn_torch.sampling.samplers import PPRTables, sample_subgraphs
 from shadow_gnn_torch.train.config import decouple_ensemble
 
 
@@ -77,56 +83,62 @@ def _norm_edges(indptr, indices, type_norm: str, add_self_edge: bool = False):
     return src, dst, val.astype(np.float32)
 
 
+def _reduce(outs, reduction: str) -> torch.Tensor:
+    if reduction in ("cat", "concat"):
+        return torch.cat(outs, dim=1)
+    if reduction == "sum":
+        return sum(outs[1:], outs[0])
+    return outs[-1]     # 'last'
+
+
+def _propagate(x: torch.Tensor, product, type_norm: str, order: int,
+               reduction: str, args: Dict, rows) -> Tuple[torch.Tensor, int]:
+    """The smoothened ``rows(...)`` of the signal ``x`` and the
+    propagation steps taken: K products by the normalised adjacency
+    (``product``), or the APPNP iteration with its convergence checked
+    on the change of the whole ``x``, then ``norm_feat``; the reduction
+    over the input and the propagated rows."""
+    if type_norm != "ppr":
+        outs, cur = [rows(x)], x
+        for _ in range(order):
+            cur = product(cur)
+            outs.append(rows(cur))
+        return _reduce(outs, reduction), order
+    alpha_int = 1.0 - args["alpha"]     # flipped like preproc.py:28
+    z, steps = x, 0
+    for _ in range(args["itr_max"]):
+        zk = (1 - alpha_int) * product(z) + alpha_int * x
+        delta = float(torch.linalg.vector_norm(zk - z))
+        z = zk
+        steps += 1
+        if delta < args["thres"]:
+            break
+    z = rows(z)
+    nf = args["norm_feat"]
+    if nf == "l1":
+        z = z / torch.clamp(z.abs().sum(1, keepdim=True), min=1e-5)
+    elif nf == "max":
+        z = z / z.max()
+    elif nf != "none":
+        raise NotImplementedError(nf)
+    return _reduce([rows(x), z], reduction), steps
+
+
 def smooth_signal_full(indptr, indices, signal: np.ndarray, type_norm: str,
                        order: int, reduction: str, args: Dict,
                        device="cpu") -> Tuple[np.ndarray, int]:
-    """Full-graph smoothening (preproc.py:143-165) on ``device``.
-    Returns (smoothed signal, propagation steps taken)."""
+    """Full-graph smoothening (preproc.py:143-165) on ``device``, each
+    propagated signal kept on the host.  Returns (smoothed signal,
+    propagation steps taken)."""
     n = indptr.size - 1
+    norm = args["norm_adj"] if type_norm == "ppr" else type_norm
+    src, dst, val = (torch.as_tensor(a, device=device) for a in _norm_edges(
+        indptr, indices, norm, add_self_edge=type_norm == "ppr" and norm == "sym"))
+    src, dst = src.long(), dst.long()
     x = torch.as_tensor(signal.astype(np.float32), device=device)
-
-    def make_sp(src, dst, val):
-        s, d, v = (torch.as_tensor(a, device=device) for a in (src, dst, val))
-        s, d = s.long(), d.long()
-        return lambda z: spmm_edges(s, d, v, z, n)
-
-    if type_norm == "ppr":
-        alpha_int = 1.0 - args["alpha"]     # flipped like preproc.py:28
-        sp = make_sp(*_norm_edges(indptr, indices, args["norm_adj"],
-                                  add_self_edge=args["norm_adj"] == "sym"))
-        h = z = x
-        steps = 0
-        for _ in range(args["itr_max"]):
-            zk = (1 - alpha_int) * sp(z) + alpha_int * h
-            delta = float(torch.linalg.vector_norm(z - zk))
-            z = zk
-            steps += 1
-            if delta < args["thres"]:
-                break
-        z_np = z.cpu().numpy()
-        nf = args["norm_feat"]
-        if nf == "l1":
-            z_np = z_np / np.clip(np.abs(z_np).sum(1, keepdims=True), 1e-5, None)
-        elif nf == "max":
-            z_np = z_np / z_np.max()
-        elif nf != "none":
-            raise NotImplementedError(nf)
-        if reduction in ("cat", "concat"):
-            return np.concatenate([signal, z_np], axis=1), steps
-        if reduction == "sum":
-            return signal + z_np, steps
-        return z_np, steps     # 'last'
-    sp = make_sp(*_norm_edges(indptr, indices, type_norm, add_self_edge=False))
-    outs = [x.cpu().numpy()]
-    cur = x
-    for _ in range(order):
-        cur = sp(cur)
-        outs.append(cur.cpu().numpy())
-    if reduction in ("cat", "concat"):
-        return np.concatenate(outs, axis=1), order
-    if reduction == "sum":
-        return np.sum(np.stack(outs, 0), 0), order
-    return outs[-1], order     # 'last'
+    out, steps = _propagate(x, lambda z: spmm_edges(src, dst, val, z, n),
+                            type_norm, order, reduction, args, lambda z: z.cpu())
+    return out.numpy(), steps
 
 
 def smooth_signal_per_mode(trainer, signal: np.ndarray, type_norm: str,
@@ -150,6 +162,90 @@ def smooth_signal_per_mode(trainer, signal: np.ndarray, type_norm: str,
         for m in modes:
             ent = np.asarray(trainer.entity_set[m])
             out[ent] = sm[ent]
+    return out, steps
+
+
+def _norm_block(batch, type_norm: str, args: Dict) -> torch.Tensor:
+    """The normalised block of a sampled subgraph: for ``ppr`` under
+    ``norm_adj: sym`` the self-edge-augmented A + I (set semantics: an
+    existing self edge stays 1) sym-normalised, else sym or rw of the
+    block as sampled (no self edges added)."""
+    adj = batch.adj
+    if type_norm == "ppr" and args.get("norm_adj", "sym") == "sym":
+        eye = torch.eye(adj.shape[-1], dtype=adj.dtype, device=adj.device)
+        return adj_norm_sym(torch.maximum(adj, eye * batch.node_mask[..., None]))
+    if type_norm == "sym":
+        return adj_norm_sym(adj)
+    return adj_norm_rw(adj)
+
+
+def smooth_signal_subgraph(trainer, signal: np.ndarray, type_norm: str,
+                           order: int, reduction: str, args: Dict,
+                           cfg_dict: Dict) -> Tuple[np.ndarray, int]:
+    """Smoothening inside sampled subgraphs (the JAX package's
+    ``smooth_signal_subgraph``, reference preproc.py:167-202), node task
+    only: per mode, ``cfg_dict``'s sampler over that mode's targets in
+    batches of the trainer's size (a ``ppr``/``ppr_st`` sampler over
+    that mode's own PPR push on its adjacency; the exact ``search``
+    induction; the khop picks and ``ppr_st`` uniforms from a generator
+    seeded 0 for every batch), the signal smoothed within each block,
+    and only the target rows written back; nodes outside every split
+    stay zero.  Returns (signal, the most steps a batch took)."""
+    if trainer.task != "node":
+        raise NotImplementedError("subgraph preprocessing is node-task only "
+                                  "(the link task samples node-wise there)")
+    method = cfg_dict["method"]
+    cfg = SamplerConfig(
+        method=method, n_pad=default_n_pad(cfg_dict, 1), num_targets=1,
+        depth=int(cfg_dict.get("depth", 2)),
+        budget=int(cfg_dict.get("budget", 20)),
+        k=int(cfg_dict.get("k", 200)),
+        alpha=float(cfg_dict.get("alpha", 0.85)),
+        epsilon=float(cfg_dict.get("epsilon", 1e-5)),
+        threshold=float(cfg_dict.get("threshold", 0.0)))
+    dev = trainer.device
+    b = trainer.batch_size
+    f_in = signal.shape[1]
+    f_out = f_in * (1 + order) if reduction in ("cat", "concat") else f_in
+    out = np.zeros((trainer.num_nodes, f_out), np.float32)
+    steps = 0
+    sig_tab = torch.as_tensor(np.concatenate(
+        [signal.astype(np.float32), np.zeros((1, f_in), np.float32)]), device=dev)
+    for m in (TRAIN, VALID, TEST):
+        indptr, indices = trainer._host_adj[m]
+        graph = DeviceGraph.from_csr(indptr, indices, dev)
+        targets = np.asarray(trainer.entity_set[m], dtype=np.int64)
+        tables = None
+        if method in ("ppr", "ppr_st"):
+            k_tab = cfg.k * (2 if method == "ppr_st" else 1)
+            neighs, scores = ppr_mod.ppr_push_host(indptr, indices, targets, k_tab,
+                                                   cfg.alpha, cfg.epsilon)
+            tab_n, tab_s = ppr_mod.ppr_topk_tables(neighs, scores, k_tab)
+            tables = PPRTables(torch.as_tensor(tab_n.astype(np.int64), device=dev),
+                               torch.as_tensor(tab_s, device=dev))
+        n_t = targets.size
+        nb = -(-n_t // b)
+        pad = nb * b - n_t
+        roots_all = np.concatenate([targets, np.repeat(targets[:1], pad)])
+        rows_all = np.concatenate([np.arange(n_t, dtype=np.int64),
+                                   np.zeros(pad, np.int64)])
+        roots_d = torch.as_tensor(roots_all[:, None], device=dev)
+        rows_d = torch.as_tensor(rows_all[:, None], device=dev)
+        with torch.inference_mode():
+            for ib in range(nb):
+                sl = slice(ib * b, (ib + 1) * b)
+                batch = sample_subgraphs(
+                    cfg, graph, roots_d[sl], rows_d[sl], tables,
+                    torch.Generator(device=dev).manual_seed(0))
+                sig = (sig_tab[torch.clamp(batch.nodes, max=trainer.num_nodes)]
+                       * batch.node_mask[..., None])
+                an = _norm_block(batch, type_norm, args)
+                tgt = (torch.arange(b, device=dev), batch.targets[:, 0])
+                sm, k = _propagate(sig, lambda z: torch.bmm(an, z), type_norm,
+                                   order, reduction, args, lambda z: z[tgt])
+                steps = max(steps, k)
+                valid = b - (pad if ib == nb - 1 else 0)
+                out[roots_all[sl][:valid]] = sm.cpu().numpy()[:valid]
     return out, steps
 
 
@@ -182,17 +278,18 @@ def preprocess_signals(trainer) -> Tuple[np.ndarray, int, int, Dict[str, float]]
     preproc_cfgs = decouple_ensemble(trainer.sampler_cfg_preproc.get("configs", []))
     if len(preproc_cfgs) > 1:
         raise ValueError("a subgraph ensemble in the preprocess phase is unsupported")
-    if preproc_cfgs and preproc_cfgs[0]["method"] != "full":
-        raise NotImplementedError(
-            "smooth_signal_subgraph (a preprocess sampler other than 'full') "
-            "is not ported yet")
+    subg_cfg = (preproc_cfgs[0] if preproc_cfgs
+                and preproc_cfgs[0]["method"] != "full" else None)
     indptr, indices = trainer._host_adj[TEST]
     log: Dict[str, float] = {}
 
     def smooth(signal, cfg_str, what):
         t0 = time.perf_counter()
         tn, order, red, args = decode_smoothen_config(cfg_str)
-        if trainer.is_transductive:
+        if subg_cfg is not None:
+            out, steps = smooth_signal_subgraph(trainer, signal, tn, order, red,
+                                                args, subg_cfg)
+        elif trainer.is_transductive:
             out, steps = smooth_signal_full(indptr, indices, signal, tn, order,
                                             red, args, trainer.device)
         else:

@@ -14,6 +14,9 @@ two packages' standard deviations over the seeds.  The random streams
 Trainer) differ between the packages, so only the distributions can
 agree.
 
+GCN-3 and GIN-3 (the flagship's configuration with ``aggr`` changed)
+are held the same way, over 15 seeds a package (``MODEL_SEEDS``).
+
 A link case holds the link task the same way: the planted graph's
 edges split into TRAIN, VALID and TEST positives (the held-out ones
 leave the message graph, as ogbl-collab's do), random VALID/TEST
@@ -63,8 +66,21 @@ ENSEMBLE = {
     "sampler": [{"method": "ppr", "phase": "train", "k": [32], "epsilon": [1e-5]},
                 {"method": "khop", "phase": "train", "depth": [2], "budget": [6]}],
 }
+
+def _backbone(aggr):
+    """The flagship's semantics with another backbone (GCN forces self
+    edges, as the JAX config does)."""
+    return {**SAGE, "architecture": {**SAGE["architecture"], "aggr": aggr}}
+
+
 MODELS = {"flagship": (SAGE, False), "flagship_power_law": (SAGE, True),
-          "ensemble": (ENSEMBLE, False)}
+          "ensemble": (ENSEMBLE, False), "gcn": (_backbone("gcn"), False),
+          "gin": (_backbone("gin"), False)}
+# GCN and GIN run 15 seeds a package: at 5, seeds 0-4 put GCN's means
+# 1.6 sigma apart (port 0.5573, JAX 0.5777), while over seeds 0-14 they
+# are 0.5702 and 0.5709; the standard error of a 5-seed mean difference
+# is 0.63 sigma, so the 1-sigma bound fails ~1 run in 9 with no defect
+MODEL_SEEDS = {"gcn": range(15), "gin": range(15)}
 LINK_EPOCHS = 10
 LINK_GRAPH = dict(num_nodes=2000, num_classes=8, avg_deg=12.0, p_in=0.9, snr=1.5, seed=0)
 LINK = {
@@ -112,7 +128,8 @@ def test_convergence_within_one_sigma_of_jax(model):
                                         j_planted(**GRAPH, power_law=power_law))
     assert ceil_t == ceil_j
     t0 = time.time()
-    acc = {pkg: np.array([_run(pkg, cfg, raw, s) for s in SEEDS])
+    seeds = MODEL_SEEDS.get(model, SEEDS)
+    acc = {pkg: np.array([_run(pkg, cfg, raw, s) for s in seeds])
            for pkg, raw in (("jax", raw_j), ("torch", raw_t))}
     secs = time.time() - t0
     for col, what in ((0, "TEST"), (1, "C&S TEST")):
@@ -121,7 +138,7 @@ def test_convergence_within_one_sigma_of_jax(model):
         print(f"[convergence] {model} {what}: port {mean['torch']:.4f} "
               f"(std {acc['torch'][:, col].std():.4f}), JAX {mean['jax']:.4f} "
               f"(std {acc['jax'][:, col].std():.4f}), sigma {sigma:.4f}; "
-              f"feature-only ceiling {ceil_t:.4f}; {len(SEEDS)} seeds each, "
+              f"feature-only ceiling {ceil_t:.4f}; {len(seeds)} seeds each, "
               f"{secs:.0f}s")
         assert abs(mean["torch"] - mean["jax"]) <= sigma, (model, what, mean, sigma)
     # the models learn the planted structure beyond the features alone

@@ -283,8 +283,7 @@ def test_packed_path_equals_dense_path():
 def test_unported_branches_raise():
     _, tcfg = _configs(False)
     import dataclasses
-    for bad in (dict(aggr="gcn"), dict(aggr="gatscat"), dict(aggr="gin"),
-                dict(layer_norm="pairnorm"), dict(act="softplus")):
+    for bad in (dict(act="softplus"), dict(matmul_precision="tensorfloat32")):
         with pytest.raises(NotImplementedError):
             tmodel.DeepGNN(dataclasses.replace(tcfg, **bad))
     # training mode with dropout needs its generator

@@ -210,6 +210,20 @@ def test_preprocess_signals_per_mode_matches_jax(monkeypatch, tmp_path):
 
 
 def test_subgraph_preprocessing_is_refused():
-    with pytest.raises(NotImplementedError, match="smooth_signal_subgraph"):
-        Trainer("toy", "", t_make(**GRAPH), parse_config(_gat_cfg("ppr")),
-                seed=0, device="cpu")
+    """Preprocessing inside sampled subgraphs is node-task only, as in
+    JAX, and takes one preprocess sampler (a subgraph ensemble there is
+    refused); the node task's runs (tests/test_torch_backbones_train.py)."""
+    cfg = _gat_cfg("ppr")
+    cfg["sampler"][0].update(k=[8, 12])
+    with pytest.raises(ValueError, match="subgraph ensemble"):
+        Trainer("toy", "", t_make(**GRAPH), parse_config(cfg), seed=0, device="cpu")
+    link = {"data": {"to_undirected": True, "transductive": True},
+            "architecture": {"dim": 16, "aggr": "sage", "loss": "sigmoid",
+                             "num_layers": 1, "feature_augment": "drnls",
+                             "feature_smoothen": "sym-1-concat"},
+            "hyperparameter": {"end": 1, "lr": 1e-3, "batch_size": 16},
+            "sampler": [{"method": "ppr", "phase": "preprocess", "k": [8]},
+                        {"method": "ppr", "phase": "train", "k": [8]}]}
+    with pytest.raises(NotImplementedError, match="node-task only"):
+        Trainer("toy", "", t_make(300, 8.0, num_feat=8, seed=4, task="link"),
+                parse_config(link), seed=0, device="cpu")
