@@ -100,7 +100,29 @@ Phases, each fatal on failure (an uncaught exception, non-zero exit):
              parameters moved; B1a/B1b timed in ``sym`` and ``gin`` on
              the GCN and GIN TRAIN bits (``phase_time_train``); the
              phase's seconds printed (at most 200);
-9. gat     — the products GAT-5 leaderboard model at full width
+9. rest    — the remaining single-card capabilities on the same graph
+             and cuts, 1 epoch each (``phase_rest``): GCN-3 and GIN-3 at
+             ``matmul_precision="bfloat16"`` (B1c in ``sym`` and ``gin``)
+             and GATScatter-3 at bf16 precision (B2b/B3b, att_self = 0),
+             each through ``phase_train`` (first step against the plain
+             versions within ``TOLS_BF16``, launches by norm and level,
+             every other count 0 over ``train()``); the flagship at
+             ``tensorfloat32`` (B1c rw, TF32 linears), its first step
+             beside the f32 model's (printed, no bound), 2 epochs with
+             epoch 1 traced (``--trace_dir``: the Chrome trace must name
+             the packed kernels); the flagship with ``pairnorm``;
+             ``smooth_signal_subgraph`` (ppr, sym-2-concat) on the card
+             against the CPU (1e-5 of max); device PPR over the cut
+             TRAIN, VALID and TEST (9,216 targets in 18 blocks of 512)
+             timed beside the host push, one block against the CPU run
+             (scores 1e-5 relative, neighbour sets equal outside ties)
+             and a second card run (equal), the mean top-k overlap with
+             the push's tables, 1 epoch from the device tables with the
+             first epoch's subgraph profile printed; a synthetic OGB-raw
+             archive (20,000 nodes, from seed 0, in a temp dir) through
+             ``ingest_tarball``, ``load_data`` and a trainer, 1 epoch.
+             The phase's seconds printed (at most ``REST_BUDGET_S``);
+10. gat     — the products GAT-5 leaderboard model at full width
              (``configs/products_gat_5_ppr_leaderboard.yml``: dim 512, 4
              heads, 5 layers, prelu, max residue and pooling, ppr-
              smoothened label inputs, PPR k=150, batch 128, dropout 0.4,
@@ -125,7 +147,7 @@ Phases, each fatal on failure (an uncaught exception, non-zero exit):
              ``scaled_dot_product_attention``; their per-phase device
              clocks from an instrumented build of the same source, and
              their times with clusters of 1, 2 and 4 CTAs;
-10. gat bf16 — the same with ``matmul_precision="bfloat16"`` (serving,
+11. gat bf16 — the same with ``matmul_precision="bfloat16"`` (serving,
              first step, ``train()``: 5 B2b and 5 B3b launches per TRAIN
              step, 5 B2b per evaluation batch and request; B2b/B3b timed
              beside SDPA on bf16 operands, with and without the cast of its
@@ -133,7 +155,7 @@ Phases, each fatal on failure (an uncaught exception, non-zero exit):
              ``compute_dtype="bfloat16"`` and ``feat_dtype="bfloat16"``
              as well (a bf16 feature table, the dense path): serving, the
              first step and 1 epoch;
-11. power   — the flagship SAGE-3 (f32, ``packed_adj``) on a power-law
+12. power   — the flagship SAGE-3 (f32, ``packed_adj``) on a power-law
              graph of the flickr scale (89,250 nodes, avg deg 10, 500
              features, 7 classes, seed 0, ``power_law=True``; max degree
              9,444), the same cuts, 1 epoch: each mode's induction plan
@@ -144,7 +166,7 @@ Phases, each fatal on failure (an uncaught exception, non-zero exit):
              serving against cached, then 10 cold (uncached) TRAIN steps
              with ``induce`` timed against the whole step (CUDA events),
              printed as ``[induce] cold step: induce X ms of Y ms``;
-12. ensemble — ``configs/arxiv_ensemble_ppr_khop.yml`` at full width
+13. ensemble — ``configs/arxiv_ensemble_ppr_khop.yml`` at full width
              (GAT, 2 heads, dim 256, 3 layers; a PPR-100 branch, n_pad
              104, and a khop depth-2 budget-10 branch, n_pad 112, softmax
              attention over the two) on an arxiv-width power-law graph
@@ -155,7 +177,7 @@ Phases, each fatal on failure (an uncaught exception, non-zero exit):
              launched from both branches (counted by block width), the
              khop overflow, and 10 timed TRAIN steps with the khop
              branch's sampling and induction share;
-13. infer   — reload, inference and post-processing, each part run on
+14. infer   — reload, inference and post-processing, each part run on
              the trainer of its model right after that model's training
              phase: the flagship (f32, its three caches built):
              ``predict_full`` over TRAIN, VALID and TEST from the caches
@@ -179,7 +201,7 @@ Phases, each fatal on failure (an uncaught exception, non-zero exit):
              on the card (``ensemble_multirun``, one run of 5 epochs), and
              ``inference`` of VALID and TEST (6 B2 launches a batch).
              Each part prints its nodes per second and its seconds;
-14. link    — ``configs/collab_sage_pprst_leaderboard.yml`` at full width
+15. link    — ``configs/collab_sage_pprst_leaderboard.yml`` at full width
              (SAGE, 5 layers, dim 256, elu, DRNL one-hots concatenated,
              concat residue, sort-25 pooling; ppr_st k 200, threshold
              0.01, eps 1e-6, n_pad 408; batch 16, dropout 0.25, dropedge
@@ -204,7 +226,7 @@ Phases, each fatal on failure (an uncaught exception, non-zero exit):
              then 10 timed TRAIN steps (sampling included) with the share
              of sampling, induction and DRNL, and their device-busy share
              (torch.profiler; its top operations under ``--profile``);
-15. profile (``--profile`` only) — torch.profiler over cached requests
+16. profile (``--profile`` only) — torch.profiler over cached requests
              (flagship 1 and 256 ids, GAT 128 ids, the power-law flagship
              1 and 256, the ensemble 1 and 128) and over 5 TRAIN steps of
              each model, f32 and at bf16 precision (the power-law
@@ -214,8 +236,12 @@ Phases, each fatal on failure (an uncaught exception, non-zero exit):
              unprofiled p50 request or median step, and the kernels and
              host operations that take the most time.
 
-The last three lines of standard output are the card's name and power
-limit (nvidia-smi), one JSON object describing every kernel, and
+Standard output keeps each phase's summary lines; every line, the
+per-case ones (kernel checks, timing rows, request sizes, the package's
+own progress) too, goes to ``chiprun_out/chip_smoke.log`` beside the
+script.  The line before the closing ones gives standard output's
+size.  The last three lines are the card's name and power limit
+(nvidia-smi), one JSON object describing every kernel, and
 ``{"ok": true, "device": {...}}``.  Without CUDA, or without the
 repository around it, the script exits non-zero and prints no result.
 """
@@ -260,6 +286,46 @@ LINK_TRAIN_POS = 20_480         # TRAIN positives, edges of the collab-shape mes
 LINK_K_TAB = 400                # ppr_st k 200: the race's 2k pool
 LINK_N_PAD = 408                # 2 targets x (k + 1), rounded up to 8
 LINK_CHECK_TRIES = 4            # batches tried for a card-vs-CPU step without rank swaps
+
+
+LOG_NAME = os.path.join("chiprun_out", "chip_smoke.log")
+STDOUT_LIMIT = 24_000           # bytes of standard output the caller gets back
+_OUT = None                     # the _Stdout that main installs
+
+
+class _Stdout:
+    """``sys.stdout`` while ``main`` runs.  Every line goes to the full
+    log (``LOG_NAME`` beside the script); the card's standard output
+    keeps the script's own summary lines, and not the lines the
+    package's modules print (PPR, cache and epoch progress, the profile)
+    nor those of ``_detail``.  ``bytes`` counts what standard output got."""
+
+    def __init__(self, real, log):
+        self.real, self.log, self.bytes = real, log, 0
+
+    def write(self, s):
+        self.log.write(s)
+        if sys._getframe(1).f_globals.get("__name__", "").startswith(
+                "shadow_gnn_torch"):
+            return len(s)
+        self.bytes += len(s.encode())
+        return self.real.write(s)
+
+    def flush(self):
+        self.log.flush()
+        self.real.flush()
+
+    def __getattr__(self, name):
+        return getattr(self.real, name)
+
+
+def _detail(*args):
+    """A per-case line (a kernel check, a timing row, a request size):
+    into the full log only, once ``main`` has installed it."""
+    if _OUT is None:
+        print(*args)
+    else:
+        print(*args, file=_OUT.log)
 
 
 def _median(xs):
@@ -356,9 +422,11 @@ def _plain_versions(rounded=False):
 
 
 def _rounded(tr):
-    """Whether the trainer's model runs the kernels' bf16 levels."""
+    """Whether the trainer's model runs the kernels' bf16 levels (at bf16
+    or TF32 precision, or a bf16 compute dtype)."""
     cfg = tr.model_cfg
-    return "bfloat16" in (cfg.matmul_precision, cfg.compute_dtype)
+    return ("bfloat16" in (cfg.matmul_precision, cfg.compute_dtype)
+            or cfg.matmul_precision == "tensorfloat32")
 
 
 def _plain_backwards():
@@ -379,7 +447,7 @@ def phase_build():
     t_cuda = time.perf_counter() - t0
     for name, log in logs.items():
         flags = build.NVCC_FLAGS + build.KERNEL_FLAGS.get(name, [])
-        print(f"[build] {name}: nvcc {' '.join(flags)}\n{log.strip()}")
+        _detail(f"[build] {name}: nvcc {' '.join(flags)}\n{log.strip()}")
     t0 = time.perf_counter()
     get_lib()
     print(f"[build] CUDA kernels {t_cuda:.2f}s, native PPR push "
@@ -417,10 +485,10 @@ def _print_packed_launches():
     from shadow_gnn_torch.ops.packed import MAX_N, launch_dims
     for b, f in ((8, 500), (8, 256), (64, 500), (64, 256), (256, 500)):
         d = launch_dims(b, 208, f)
-        print(f"[kernels] packed launch B={b} N=208 F={f}: {d.grid} CTAs in "
-              f"clusters of {d.cluster}, {d.threads} threads, {d.tile} lines a "
-              f"CTA ({d.sub} a bitmap), features in {d.fsplit} split(s) of "
-              f"{d.per} chunks of 128, {d.smem} B shared, float4 {d.vec}")
+        _detail(f"[kernels] packed launch B={b} N=208 F={f}: {d.grid} CTAs in "
+                f"clusters of {d.cluster}, {d.threads} threads, {d.tile} lines a "
+                f"CTA ({d.sub} a bitmap), features in {d.fsplit} split(s) of "
+                f"{d.per} chunks of 128, {d.smem} B shared, float4 {d.vec}")
     for t in (False, True):
         lo, hi = 1, MAX_N
         while lo < hi:
@@ -430,8 +498,8 @@ def _print_packed_launches():
                 lo = mid
             except ValueError:
                 hi = mid - 1
-        print(f"[kernels] {'packed_spmm_t' if t else 'packed_spmm'} takes N up "
-              f"to {lo}")
+        _detail(f"[kernels] {'packed_spmm_t' if t else 'packed_spmm'} takes N up "
+                f"to {lo}")
 
 
 def phase_kernels():
@@ -460,8 +528,8 @@ def phase_kernels():
                         torch.cuda.synchronize()
                         err = (got - want).abs().max().item()
                         rel = err / max(want.abs().max().item(), 1e-30)
-                        print(f"[kernels] {name:13s} B={b} N={n} F={f} {norm:4s} "
-                              f"p={p:<4} max abs {err:.3e} rel {rel:.3e}")
+                        _detail(f"[kernels] {name:13s} B={b} N={n} F={f} {norm:4s} "
+                                f"p={p:<4} max abs {err:.3e} rel {rel:.3e}")
                         if not rel <= 1e-4:
                             raise AssertionError(f"{name} {norm} N={n} F={f} p={p}: "
                                                  f"rel error {rel} > 1e-4")
@@ -528,9 +596,9 @@ def phase_kernels_gat():
                                           gat_attention_plain)
     from shadow_gnn_torch.ops.gat import launch_dims, occupancy
     for shape in ((128, 152, 4, 128), (64, 408, 4, 200)):
-        print(f"[kernels] gat launch at (B, N, H, dh) = {shape}: "
-              f"{launch_dims(*shape)}; CTAs an SM (forward, backward) "
-              f"{occupancy(*shape)}")
+        _detail(f"[kernels] gat launch at (B, N, H, dh) = {shape}: "
+                f"{launch_dims(*shape)}; CTAs an SM (forward, backward) "
+                f"{occupancy(*shape)}")
     gen = torch.Generator(device="cuda").manual_seed(3)
     worst = {"gat_attention": 0.0, "gat_attention_bwd": 0.0}
     n_cases = 0
@@ -558,11 +626,11 @@ def phase_kernels_gat():
                     rel_b = [errs_b[0] / scale,
                              errs_b[1] / max(want_b[1].abs().max().item(), 1e-30),
                              errs_b[2] / max(want_b[2].abs().max().item(), 1e-30)]
-                    print(f"[kernels] gat B={b} N={n} H={h} dh={dh} drop={drop}: "
-                          f"forward max abs {err:.3e} rel {rel:.3e}; backward "
-                          f"das {errs_b[0]:.3e} ({rel_b[0]:.2e} of scale) dan "
-                          f"{errs_b[1]:.3e} ({rel_b[1]:.2e}) dv {errs_b[2]:.3e} "
-                          f"({rel_b[2]:.2e})")
+                    _detail(f"[kernels] gat B={b} N={n} H={h} dh={dh} drop={drop}: "
+                            f"forward max abs {err:.3e} rel {rel:.3e}; backward "
+                            f"das {errs_b[0]:.3e} ({rel_b[0]:.2e} of scale) dan "
+                            f"{errs_b[1]:.3e} ({rel_b[1]:.2e}) dv {errs_b[2]:.3e} "
+                            f"({rel_b[2]:.2e})")
                     if not (rel <= 1e-4 and max(rel_b) <= 1e-4):
                         raise AssertionError(f"gat kernels N={n} H={h} dh={dh} "
                                              f"drop={drop}: {rel}, {rel_b} > 1e-4")
@@ -620,9 +688,9 @@ def phase_precision():
         want = (torch.matmul(ar, br), torch.matmul(gr, br.transpose(-1, -2)),
                 torch.matmul(ar.transpose(-1, -2), gr))
         rels = [_rel_err(x, y)[1] for x, y in zip((out,) + got, want)]
-        print(f"[precision] bf16_matmul {tuple(a_shape)} @ {tuple(b_shape)}: "
-              f"out, da, db rel {', '.join(f'{r:.2e}' for r in rels)} against the "
-              f"f32 product of the rounded operands")
+        _detail(f"[precision] bf16_matmul {tuple(a_shape)} @ {tuple(b_shape)}: "
+                f"out, da, db rel {', '.join(f'{r:.2e}' for r in rels)} against the "
+                f"f32 product of the rounded operands")
         if not max(rels) <= 1e-5:
             raise AssertionError(f"bf16_matmul differs from the rounded f32 "
                                  f"product by {max(rels)}")
@@ -667,10 +735,10 @@ def phase_kernels_bf16():
                         _, rel_own = _rel_err(got, own)
                         n_beyond = int(((got - want).abs()
                                         > 1e-5 * want.abs().max()).sum())
-                        print(f"[kernels] {name:18s} B={b} N={n} F={f} {norm:4s} "
-                              f"p={p:<4} max abs {err:.3e} rel {rel:.3e} (own "
-                              f"weights {rel_own:.3e}); flipped weights {n_flip} "
-                              f"of {nnz}; beyond 1e-5 of max {n_beyond}")
+                        _detail(f"[kernels] {name:18s} B={b} N={n} F={f} {norm:4s} "
+                                f"p={p:<4} max abs {err:.3e} rel {rel:.3e} (own "
+                                f"weights {rel_own:.3e}); flipped weights {n_flip} "
+                                f"of {nnz}; beyond 1e-5 of max {n_beyond}")
                         if not (rel_own <= 1e-4 and n_flip <= 1e-3 * nnz
                                 and (n_flip or rel <= 1e-4)):
                             raise AssertionError(
@@ -752,13 +820,13 @@ def phase_kernels_gat_bf16():
                         dv_max = dv_p.abs().max().item()
                         dv_out = int((dv_diff > 1e-4 * dv_max + slack).sum())
                         dv_beyond = int((dv_diff > 1e-4 * dv_max).sum())
-                        print(f"[kernels] gat bf16 level {level} v {str(vdt)[6:]} "
-                              f"B={b} N={n} H={h} dh={dh} drop={drop}: forward rel "
-                              f"{rel:.3e}; das {das_err / scale:.2e} of scale, dan "
-                              f"{dan_rel:.2e}, dv max abs {dv_diff.max().item():.3e}"
-                              f" ({dv_beyond} beyond 1e-4 of max, {dv_out} beyond "
-                              f"that plus the flip slack; {n_flip} P entries whose "
-                              f"rounding can flip)")
+                        _detail(f"[kernels] gat bf16 level {level} v {str(vdt)[6:]} "
+                                f"B={b} N={n} H={h} dh={dh} drop={drop}: forward rel "
+                                f"{rel:.3e}; das {das_err / scale:.2e} of scale, dan "
+                                f"{dan_rel:.2e}, dv max abs {dv_diff.max().item():.3e}"
+                                f" ({dv_beyond} beyond 1e-4 of max, {dv_out} beyond "
+                                f"that plus the flip slack; {n_flip} P entries whose "
+                                f"rounding can flip)")
                         if not (rel <= 1e-4 and das_err / scale <= 1e-4
                                 and dan_rel <= 1e-4 and dv_out == 0):
                             raise AssertionError(f"gat bf16 kernels level {level} "
@@ -814,11 +882,14 @@ def _products_graph():
 
 
 def _flagship_trainer(g, epochs=EPOCHS, arch=None, sampler=None, tag="[serve]",
+                      name="flickr_synth", data_dir="", use_device_ppr=None,
                       **precision):
     """The flagship SAGE-3 trainer on the graph ``g``, ``epochs`` epochs;
     ``arch``: architecture keys that replace the yml's, ``sampler``: a
-    sampler list that replaces its; ``precision``: the Trainer's
-    ``matmul_precision`` / ``compute_dtype`` / ``feat_dtype``."""
+    sampler list that replaces its; ``name``, ``data_dir``: the dataset
+    and the dir of its PPR cache (none when empty); ``use_device_ppr``
+    and ``precision`` (``matmul_precision`` / ``compute_dtype`` /
+    ``feat_dtype``): the Trainer's arguments."""
     import torch
     from shadow_gnn_torch import TEST, TRAIN, VALID
     from shadow_gnn_torch.train.config import parse_config
@@ -842,12 +913,13 @@ def _flagship_trainer(g, epochs=EPOCHS, arch=None, sampler=None, tag="[serve]",
     cfg["architecture"].update(arch or {})
     if sampler is not None:
         cfg["sampler"] = sampler
-    tr = Trainer("flickr_synth", "", _own_splits(g), parse_config(cfg), seed=0,
-                 device="cuda", packed_adj=True, **precision)
+    tr = Trainer(name, data_dir, _own_splits(g), parse_config(cfg), seed=0,
+                 device="cuda", packed_adj=True, use_device_ppr=use_device_ppr,
+                 **precision)
     _cut_splits(tr, ((TRAIN, TRAIN_NODES), (VALID, VALID_NODES), (TEST, TEST_NODES)))
     torch.cuda.synchronize()
-    print(f"{tag} trainer {time.perf_counter() - t0:.1f}s {precision or ''}"
-          f"{arch or ''}")
+    _detail(f"{tag} trainer {time.perf_counter() - t0:.1f}s {precision or ''}"
+            f"{arch or ''}")
     return tr
 
 
@@ -884,10 +956,10 @@ def _gat_trainer(g, epochs=EPOCHS, retrain_dir=None, **precision):
     _cut_splits(tr, ((TRAIN, GAT_TRAIN), (VALID, GAT_VALID), (TEST, GAT_TEST)))
     torch.cuda.synchronize()
     log = tr.preproc_log
-    print(f"[gat] {precision} trainer {time.perf_counter() - t0:.1f}s; "
-          f"preprocessing: label smoothening {log['label_smoothen_s']:.2f}s, "
-          f"{log['label_smoothen_steps']} iterations; features "
-          f"{tr.dim_feat_smooth} + label inputs {tr.dim_label_smooth}")
+    _detail(f"[gat] {precision} trainer {time.perf_counter() - t0:.1f}s; "
+            f"preprocessing: label smoothening {log['label_smoothen_s']:.2f}s, "
+            f"{log['label_smoothen_steps']} iterations; features "
+            f"{tr.dim_feat_smooth} + label inputs {tr.dim_label_smooth}")
     if not 1 < log["label_smoothen_steps"] < 100:
         raise AssertionError("the ppr label smoothening did not converge "
                              "within its 100 iterations")
@@ -939,13 +1011,13 @@ def phase_serve(tr, sizes, fwd, tag):
 
     secs = tr.prepare_serving(TEST)
     n_layers = _per_pass(tr)
-    print(f"{tag} PPR tables {secs['ppr_s']:.2f}s, cache build "
-          f"{secs['cache_s']:.2f}s ({len(tr.entity_set[TEST])} roots; "
-          + "; ".join(f"branch {i} {br['cfg'][TEST].method} n_pad "
-                      f"{br['cfg'][TEST].n_pad}, induction {br['cfg'][TEST].induction}"
-                      f" deg_cap {br['cfg'][TEST].deg_cap} hub_slots "
-                      f"{br['cfg'][TEST].hub_slots}"
-                      for i, br in enumerate(tr.branches)) + ")")
+    _detail(f"{tag} PPR tables {secs['ppr_s']:.2f}s, cache build "
+            f"{secs['cache_s']:.2f}s ({len(tr.entity_set[TEST])} roots; "
+            + "; ".join(f"branch {i} {br['cfg'][TEST].method} n_pad "
+                        f"{br['cfg'][TEST].n_pad}, induction {br['cfg'][TEST].induction}"
+                        f" deg_cap {br['cfg'][TEST].deg_cap} hub_slots "
+                        f"{br['cfg'][TEST].hub_slots}"
+                        for i, br in enumerate(tr.branches)) + ")")
     rng = np.random.default_rng(0)
     test_ids = np.asarray(tr.entity_set[TEST])
     reqs = {s: [rng.choice(test_ids, s, replace=False) for _ in range(REPEATS)]
@@ -986,10 +1058,10 @@ def phase_serve(tr, sizes, fwd, tag):
     peak = torch.cuda.max_memory_allocated()
 
     for s in sizes:
-        print(f"{tag} predict_nodes {s:3d} ids: p50 {_median(lat[s]):.2f} ms, "
-              f"max {max(lat[s]):.2f} ms over {REPEATS} requests")
-    print(f"{tag} {fwd.__name__} launches {launches} over {n_req} requests; "
-          f"peak device memory while serving {peak / 2**30:.2f} GiB")
+        _detail(f"{tag} predict_nodes {s:3d} ids: p50 {_median(lat[s]):.2f} ms, "
+                f"max {max(lat[s]):.2f} ms over {REPEATS} requests")
+    _detail(f"{tag} {fwd.__name__} launches {launches} over {n_req} requests; "
+            f"peak device memory while serving {peak / 2**30:.2f} GiB")
     if launches != n_layers * n_req:
         raise AssertionError(f"expected {n_layers * n_req} {fwd.__name__} "
                              f"launches, got {launches}")
@@ -999,8 +1071,12 @@ def phase_serve(tr, sizes, fwd, tag):
         d_plain = _max_diff(lambda ids: tr.predict_nodes(ids, TEST), reqs, probs)
         d_plain_emb = float(np.abs(
             tr.embed_nodes(reqs[EMBED_SIZE][0], TEST)[0] - emb).max())
-    print(f"{tag} max |kernel - plain|: probabilities {d_plain:.3e}, "
-          f"embeddings {d_plain_emb:.3e}")
+    _detail(f"{tag} max |kernel - plain|: probabilities {d_plain:.3e}, "
+            f"embeddings {d_plain_emb:.3e}")
+    print(f"{tag} serve p50 ms by ids " + ", ".join(
+        f"{s} {_median(lat[s]):.2f}" for s in sizes)
+        + f"; {fwd.__name__} {launches} over {n_req} requests; vs plain "
+        f"{max(d_plain, d_plain_emb):.1e}")
     if not max(d_plain, d_plain_emb) <= _tols(tr)[0]:
         raise AssertionError(f"kernel and plain serving differ by "
                              f"{max(d_plain, d_plain_emb)}")
@@ -1188,18 +1264,24 @@ def _check_step(tr, fwd, bwd, tag, rng_seed):
     rel_loss = abs(r["loss_k"] - r["loss_p"]) / abs(r["loss_p"])
     (err_p, name_p), (err_b, name_b) = r["err_p"], r["err_b"]
     n_crossed = sum(n for n, _ in r["crossed"].values())
-    print(f"{tag} first step, kernels vs plain: loss {r['loss_k']:.7f} vs "
-          f"{r['loss_p']:.7f} (rel {rel_loss:.2e}); worst gradient error "
-          f"{err_p:.2e} of its max ({name_p}) over {r['n_grads']} parameters"
-          f"{' (kinks crossed: not held)' if n_crossed else ''}; backward "
-          f"kernels vs plain backwards (same forward, loss {r['loss_b']:.7f}): "
-          f"{err_b:.2e} ({name_b}); kinks the two forwards cross: "
-          + (", ".join(f"{kind} {n} of {total}"
-                       for kind, (n, total) in r["crossed"].items()) or "none"))
+    _detail(f"{tag} first step, kernels vs plain: loss {r['loss_k']:.7f} vs "
+            f"{r['loss_p']:.7f} (rel {rel_loss:.2e}); worst gradient error "
+            f"{err_p:.2e} of its max ({name_p}) over {r['n_grads']} parameters"
+            f"{' (kinks crossed: not held)' if n_crossed else ''}; backward "
+            f"kernels vs plain backwards (same forward, loss {r['loss_b']:.7f}): "
+            f"{err_b:.2e} ({name_b}); kinks the two forwards cross: "
+            + (", ".join(f"{kind} {n} of {total}"
+                         for kind, (n, total) in r["crossed"].items()) or "none"))
+    eps = max((diff / max(terms, 1e-30) for _, diff, _, terms in r["eps"]),
+              default=None)
     for name, diff, own, terms in r["eps"]:
-        print(f"{tag} {name}: |kernel - plain| {diff:.3e}, plain gradient "
-              f"{own:.3e}, sum of |terms| {terms:.3e} (its scale): "
-              f"{diff / max(terms, 1e-30):.2e}")
+        _detail(f"{tag} {name}: |kernel - plain| {diff:.3e}, plain gradient "
+                f"{own:.3e}, sum of |terms| {terms:.3e} (its scale): "
+                f"{diff / max(terms, 1e-30):.2e}")
+    print(f"{tag} step vs plain: loss {rel_loss:.1e}, grads {err_p:.1e}"
+          f"{' (not held)' if n_crossed else ''}, bwd {err_b:.1e}"
+          + (f", eps {eps:.1e}" if eps is not None else "")
+          + f", kinks {n_crossed}")
     _, tol_loss, tol_grad = _tols(tr)
     if not (rel_loss <= tol_loss
             and abs(r["loss_b"] - r["loss_k"]) <= 1e-6 * abs(r["loss_k"])
@@ -1244,8 +1326,8 @@ def phase_train(tr, reqs, fwd, bwd, tag, others=()):
 
     for mode in (TRAIN, VALID):
         secs = tr.prepare_serving(mode)
-        print(f"{tag} {MODE2STR[mode]}: PPR tables {secs['ppr_s']:.2f}s, cache "
-              f"build {secs['cache_s']:.2f}s ({len(tr.entity_set[mode])} roots)")
+        _detail(f"{tag} {MODE2STR[mode]}: PPR tables {secs['ppr_s']:.2f}s, cache "
+                f"build {secs['cache_s']:.2f}s ({len(tr.entity_set[mode])} roots)")
     _first_step_agreement(tr, fwd, bwd, tag)
     n_layers = _per_pass(tr)
 
@@ -1324,18 +1406,22 @@ def phase_train(tr, reqs, fwd, bwd, tag, others=()):
     for epoch, mode, status, secs, stats in epochs:
         if mode == TRAIN and status == "running":
             acc = {k: v for k, v in stats.items() if k != "loss"}
-            print(f"{tag} ep {epoch} TRAIN: loss {stats['loss']:.5f}, "
-                  + ", ".join(f"{k} {v:.5f}" for k, v in acc.items())
-                  + f", {secs:.2f}s, {nb * tr.batch_size / secs:.0f} subgraphs/s")
-    print(f"{tag} {len(steps)} TRAIN steps, {len(evals)} eval batches in "
-          f"{wall:.2f}s; step (CUDA events) median {_median(step_ms):.3f} ms, "
-          f"epoch-1 median {_median(late_ms):.3f} ms, max "
-          f"{max(step_ms):.3f} ms; peak device memory {peak / 2**30:.2f} GiB")
-    print(f"{tag} launches over train(): {fwd.__name__} {launches[fwd.__name__]}"
-          f" ({n_layers} per step and per eval batch), {bwd.__name__} "
-          f"{launches[bwd.__name__]} ({n_layers} per step); {moved} parameters "
-          f"moved" + (f"; 0 launches of {', '.join(c.__name__ for c in others)}"
-                      if others else ""))
+            _detail(f"{tag} ep {epoch} TRAIN: loss {stats['loss']:.5f}, "
+                    + ", ".join(f"{k} {v:.5f}" for k, v in acc.items())
+                    + f", {secs:.2f}s, {nb * tr.batch_size / secs:.0f} subgraphs/s")
+    _detail(f"{tag} {len(steps)} TRAIN steps, {len(evals)} eval batches in "
+            f"{wall:.2f}s; step (CUDA events) median {_median(step_ms):.3f} ms, "
+            f"epoch-1 median {_median(late_ms):.3f} ms, max "
+            f"{max(step_ms):.3f} ms; peak device memory {peak / 2**30:.2f} GiB")
+    _detail(f"{tag} launches over train(): {fwd.__name__} {launches[fwd.__name__]}"
+            f" ({n_layers} per step and per eval batch), {bwd.__name__} "
+            f"{launches[bwd.__name__]} ({n_layers} per step); {moved} parameters "
+            f"moved" + (f"; 0 launches of {', '.join(c.__name__ for c in others)}"
+                        if others else ""))
+    print(f"{tag} train() {len(steps)}+{len(evals)} batches {wall:.2f}s, step "
+          f"{_median(step_ms):.3f} ms (ep 1 {_median(late_ms):.3f}); "
+          f"{fwd.__name__} {launches[fwd.__name__]}, {bwd.__name__} "
+          f"{launches[bwd.__name__]}" + (f", {len(others)} others 0" if others else ""))
 
     # serving still answers, through the kernel, after training
     before = fwd.launches
@@ -1439,11 +1525,11 @@ def phase_time(bits_all, bf16=False):
                 ops = 2 * nnz * f if t else nnz * f + b * n * f
                 bound_ms, bound_by = _bound(byts, ops)
                 name += "_bf16" if bf16 else ""
-                print(f"[time] {name:18s} rw B={b} N={n} F={f} nnz={nnz}: kernel "
-                      f"{ms:.4f} ms, plain {plain_ms:.4f} ms, torch.bmm "
-                      f"{library_ms:.4f} ms{_cast_note(bf16, call_ms)}, bound "
-                      f"{bound_ms:.4f} ms ({bound_by}: {byts / 1e6:.1f} MB, "
-                      f"{ops / 1e9:.3f} GFLOP)")
+                _detail(f"[time] {name:18s} rw B={b} N={n} F={f} nnz={nnz}: kernel "
+                        f"{ms:.4f} ms, plain {plain_ms:.4f} ms, torch.bmm "
+                        f"{library_ms:.4f} ms{_cast_note(bf16, call_ms)}, bound "
+                        f"{bound_ms:.4f} ms ({bound_by}: {byts / 1e6:.1f} MB, "
+                        f"{ops / 1e9:.3f} GFLOP)")
 
 
 def phase_time_train(bits, launches, max_abs_err, bf16=False, norm="rw"):
@@ -1478,11 +1564,11 @@ def phase_time_train(bits, launches, max_abs_err, bf16=False, norm="rw"):
             ops = (2 * nnz * f if t
                    else (2 if norm == "sym" else 1) * nnz * f + b * n * f)
             bound_ms, bound_by = _bound(byts, ops)
-            print(f"[time] {name:17s} {norm} p={DROPEDGE} B={b} N={n} F={f} "
-                  f"nnz={nnz}: kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, "
-                  f"torch.bmm {library_ms:.4f} ms{_cast_note(bf16, call_ms)}, bound "
-                  f"{bound_ms:.4f} ms ({bound_by}: {byts / 1e6:.1f} MB, "
-                  f"{ops / 1e9:.3f} GFLOP)")
+            _detail(f"[time] {name:17s} {norm} p={DROPEDGE} B={b} N={n} F={f} "
+                    f"nnz={nnz}: kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, "
+                    f"torch.bmm {library_ms:.4f} ms{_cast_note(bf16, call_ms)}, bound "
+                    f"{bound_ms:.4f} ms ({bound_by}: {byts / 1e6:.1f} MB, "
+                    f"{ops / 1e9:.3f} GFLOP)")
             if f == 500:
                 rows.append({
                     "name": name, "route": "cuda",
@@ -1578,10 +1664,10 @@ def _print_clocks(name, lib, grid, phases):
     k = len(phases)
     per = [float(np.median(t[:, i + 1] - t[:, i])) for i in range(k)]
     cta = t[:, k] - t[:, 0]
-    print(f"[phases] {name}: span {t[:, k].max() - t[:, 0].min():.2f} us over "
-          f"{len(set((x[:, 0] & np.uint64(0xff)).tolist()))} SMs, CTA median "
-          f"{np.median(cta):.2f} us, longest {cta.max():.2f}; phase medians (us): "
-          + ", ".join(f"{p} {v:.2f}" for p, v in zip(phases, per)))
+    _detail(f"[phases] {name}: span {t[:, k].max() - t[:, 0].min():.2f} us over "
+            f"{len(set((x[:, 0] & np.uint64(0xff)).tolist()))} SMs, CTA median "
+            f"{np.median(cta):.2f} us, longest {cta.max():.2f}; phase medians (us): "
+            + ", ".join(f"{p} {v:.2f}" for p, v in zip(phases, per)))
 
 
 def phase_clocks_gat(tr):
@@ -1612,8 +1698,8 @@ def phase_clocks_gat(tr):
         with _Swap((gat, "launch_dims", clustered)), torch.no_grad():
             fwd_ms = _time_ms(lambda: gat._forward(*args))
             bwd_ms = _time_ms(lambda: gat.gat_attention_bwd(*args, out, g))
-        print(f"[phases] clusters of {cl}: gat_attention {fwd_ms:.4f} ms, "
-              f"gat_attention_bwd {bwd_ms:.4f} ms")
+        _detail(f"[phases] clusters of {cl}: gat_attention {fwd_ms:.4f} ms, "
+                f"gat_attention_bwd {bwd_ms:.4f} ms")
 
 
 def phase_time_gat(tr, launches, max_abs_err, bf16=False):
@@ -1699,11 +1785,11 @@ def phase_time_gat(tr, launches, max_abs_err, bf16=False):
         bound_ms, bound_by = _bound(byts, ops)
         lib_ms, call_ms = lib[True][which], lib[False][which]
         note = (f" (fwd+bwd {lib[True][2]:.4f} less fwd)" if which else "")
-        print(f"[time] {name:22s} B={b} N={n} H={h} dh={dh} p={GAT_DROPEDGE} "
-              f"nnz={nnz_s} kept={nnz_k}: kernel {ms:.4f} ms, plain "
-              f"{plain_ms:.4f} ms, scaled_dot_product_attention {lib_ms:.4f} ms"
-              f"{note}{_cast_note(bf16, call_ms)}, bound {bound_ms:.4f} ms "
-              f"({bound_by}: {byts / 1e6:.1f} MB, {ops / 1e9:.3f} GFLOP)")
+        _detail(f"[time] {name:22s} B={b} N={n} H={h} dh={dh} p={GAT_DROPEDGE} "
+                f"nnz={nnz_s} kept={nnz_k}: kernel {ms:.4f} ms, plain "
+                f"{plain_ms:.4f} ms, scaled_dot_product_attention {lib_ms:.4f} ms"
+                f"{note}{_cast_note(bf16, call_ms)}, bound {bound_ms:.4f} ms "
+                f"({bound_by}: {byts / 1e6:.1f} MB, {ops / 1e9:.3f} GFLOP)")
         rows.append({
             "name": name, "route": "cuda",
             "source": "shadow_gnn_torch/csrc/gat_attention.cu",
@@ -1772,9 +1858,11 @@ def _check_final(tr, tag):
     for mode, st in final.items():
         if not (np.isfinite(st["loss"]) and 0.0 <= st["accuracy"] <= 1.0):
             raise AssertionError(f"{tag} bad final stats {final}")
-    print(f"{tag} final stats: " + "; ".join(
+    _detail(f"{tag} final stats: " + "; ".join(
         f"{MODE2STR[m]}: loss {st['loss']:.4f}, accuracy {st['accuracy']:.4f}"
         for m, st in final.items()))
+    print(f"{tag} final acc " + "/".join(f"{st['accuracy']:.4f}"
+                                          for st in final.values()))
 
 
 MATRIX_BUDGET_S = 200
@@ -1869,6 +1957,390 @@ def phase_matrix(g, max_abs_err, profile=False):
     return rows
 
 
+REST_BUDGET_S = 240             # the phase aims at 150 s
+REST_PPR_BLOCK = 512            # targets of a device PPR block
+REST_SMOOTH_TARGETS = 512       # targets a mode of the subgraph smoothening check
+INGEST_NODES = 20_000           # the synthetic OGB-raw archive
+INGEST_SPLITS = (1024, 256, 256)
+
+
+def _rest_counters(norm=None, bf16=False):
+    """(fwd, bwd, others) of a [rest] model: the packed kernels in
+    ``norm`` (per norm, both modes), or with no norm the attention
+    kernels' bf16 levels; ``others`` every other count, which must stay 0
+    over ``train()``: the packed kernels' other norms and the mode not
+    taken, and the attention's levels not taken."""
+    from shadow_gnn_torch.ops.gat import gat_attention, gat_attention_bwd
+    from shadow_gnn_torch.ops.packed import NORMS, packed_spmm, packed_spmm_t
+    b1c, b1c_t, b2b, b3b = _bf16_counts()
+    per_norm = [(fn, n) for fn in (packed_spmm, packed_spmm_t) for n in NORMS]
+    if norm is None:
+        return b2b, b3b, ([_NormLaunches(fn, n) for fn, n in per_norm]
+                          + [gat_attention, gat_attention_bwd])
+    others = [_NormLaunches(fn, n) for fn, n in per_norm if n != norm]
+    others += [packed_spmm, packed_spmm_t] if bf16 else [b1c, b1c_t]
+    others += [gat_attention, gat_attention_bwd, b2b, b3b]
+    return (_NormLaunches(packed_spmm, norm), _NormLaunches(packed_spmm_t, norm),
+            others)
+
+
+def _rest_reqs(tr):
+    """The request ``phase_train`` serves after training: 64 TEST ids."""
+    import numpy as np
+    from shadow_gnn_torch import TEST
+    return {EMBED_SIZE: [np.asarray(tr.entity_set[TEST])[:EMBED_SIZE]]}
+
+
+def _loss_grads(tr, batch, rng_seed):
+    """(loss, gradients, the sign of each kinked activation's input) of
+    one TRAIN step of the trainer's model on ``batch``, with the dropout
+    generator seeded ``rng_seed``."""
+    from shadow_gnn_torch.nn import layers
+    from shadow_gnn_torch.train.pipeline import EpochRNG
+    signs = []
+    hooks = [m.register_forward_pre_hook(lambda m, a: signs.append(a[0] > 0))
+             for m in tr.model.modules()
+             if isinstance(m, layers.Act) and m.name in KINKED_ACTS]
+    tr.model.train()
+    tr.model.zero_grad(set_to_none=True)
+    try:
+        loss, _ = tr._forward_loss(*batch, EpochRNG.from_seed(rng_seed, tr.device))
+        loss.backward()
+    finally:
+        for h in hooks:
+            h.remove()
+    grads = {k: p.grad.clone() for k, p in tr.model.named_parameters()}
+    tr.model.zero_grad(set_to_none=True)
+    tr.model.eval()
+    return loss.item(), grads, signs
+
+
+@contextlib.contextmanager
+def _f32_model(tr):
+    """Within the block the trainer holds its model at f32 precision,
+    with the same weights."""
+    import dataclasses
+    from shadow_gnn_torch.nn.model import DeepGNN
+    saved = tr.model_cfg, tr.model
+    tr.model_cfg = dataclasses.replace(tr.model_cfg, matmul_precision="float32")
+    tr.model = DeepGNN(tr.model_cfg).to(tr.device)
+    tr.model.load_state_dict(saved[1].state_dict())
+    try:
+        yield
+    finally:
+        tr.model_cfg, tr.model = saved
+
+
+def _rest_train(tr, tag, norm=None, bf16=False):
+    """``phase_train`` of a [rest] model, its final stats checked; returns
+    its launches over ``train()``."""
+    fwd, bwd, others = _rest_counters(norm, bf16)
+    launches, _ = phase_train(tr, _rest_reqs(tr), fwd, bwd, tag, others=others)
+    _check_final(tr, tag)
+    return launches
+
+
+def _topk_overlap(a, b):
+    """Mean over rows of |row of a & row of b| / k for [T, k] node tables
+    (-1 padding never matches)."""
+    import torch
+    sb = torch.sort(b, dim=1).values
+    at = torch.searchsorted(sb, a).clamp(max=b.shape[1] - 1)
+    hit = (torch.gather(sb, 1, at) == a) & (a >= 0)
+    return hit.sum(1).float().div(a.shape[1]).mean().item()
+
+
+def _rest_device_ppr(g, host_tabs, host_s, tag="[rest device ppr]"):
+    """f and g: the flagship trainer with ``use_device_ppr=True``; its
+    tables of the three modes by the power iteration on the card (timed
+    beside the host push), one block against the CPU run of the same
+    function and against a second card run, the mean top-k overlap with
+    the host push's tables, then one epoch from the device tables with
+    the first epoch's subgraph profile."""
+    import numpy as np
+    import torch
+    from shadow_gnn_torch import TEST, TRAIN, VALID
+    from shadow_gnn_torch.sampling import ppr as ppr_mod
+    tr = _flagship_trainer(g, epochs=1, tag=tag, use_device_ppr=True)
+    if not tr.use_device_ppr:
+        raise AssertionError(f"{tag} the trainer plans the host push")
+    modes = (TRAIN, VALID, TEST)
+    n_t = sum(len(tr.entity_set[m]) for m in modes)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for m in modes:
+        tr._ensure_tables(m)
+    torch.cuda.synchronize()
+    dev_s = time.perf_counter() - t0
+    _, batch = ppr_mod.plan_device_ppr(tr.num_nodes, int(tr._host_adj[TRAIN][1].size),
+                                       tr._memory_bytes)
+    blocks = sum(-(-len(tr.entity_set[m]) // batch) for m in modes)
+    overlap = {m: _topk_overlap(tr.tables[m][0].neighs, host_tabs[m]) for m in modes}
+    print(f"{tag} {n_t} targets in {blocks} blocks of {batch}: device {dev_s:.2f}s, "
+          f"{n_t / dev_s:.0f} targets/s; host push {host_s:.2f}s, "
+          f"{n_t / host_s:.0f} targets/s; mean top-k overlap with the push's "
+          "tables " + ", ".join(f"{k} {v:.4f}" for k, v in zip(
+              ("TRAIN", "VALID", "TEST"), overlap.values())) + " (no bound: "
+          "another estimator)")
+    # one block: card against CPU, and a second card run
+    ip, ix = tr._host_adj[TRAIN]
+    blk = np.asarray(tr.entity_set[TRAIN])[:REST_PPR_BLOCK]
+    k = tr.branches[0]["cfg"][TRAIN].k
+    alpha = tr.branches[0]["cfg"][TRAIN].alpha
+    card = ppr_mod.ppr_power_device(ip, ix, blk, k, alpha, batch=REST_PPR_BLOCK,
+                                    device="cuda")
+    again = ppr_mod.ppr_power_device(ip, ix, blk, k, alpha, batch=REST_PPR_BLOCK,
+                                     device="cuda")
+    t0 = time.perf_counter()
+    cpu = ppr_mod.ppr_power_device(ip, ix, blk, k, alpha, batch=REST_PPR_BLOCK,
+                                   device="cpu")
+    cpu_s = time.perf_counter() - t0
+    same = all(np.array_equal(a, b) for a, b in zip(card[0] + card[1],
+                                                    again[0] + again[1]))
+    worst, n_diff = 0.0, 0
+    for (cn, cs), (wn, ws) in zip(zip(*card), zip(*cpu)):
+        if cn.size != wn.size:
+            raise AssertionError(f"{tag} a row holds {cn.size} on the card, "
+                                 f"{wn.size} on the CPU")
+        worst = max(worst, float(np.max(np.abs(cs - ws) / ws)) if ws.size else 0.0)
+        cut = ws[-1] * (1 + 2e-5) if wn.size == k else 0.0
+        n_diff += set(cn[cs > cut].tolist()) != set(wn[ws > cut].tolist())
+    print(f"{tag} block of {blk.size} TRAIN targets, card against CPU "
+          f"({cpu_s:.2f}s): scores rel {worst:.2e}, rows whose neighbour sets "
+          f"differ outside ties {n_diff}; two card runs equal: {same}")
+    if not (worst <= 1e-5 and n_diff == 0 and same):
+        raise AssertionError(f"{tag} device PPR disagrees: rel {worst}, "
+                             f"{n_diff} rows, deterministic {same}")
+    # g: the first epoch's subgraph profile of this run
+    summaries = []
+    printed = tr.profiler.print_summary
+
+    def keep_summary():
+        summaries.append(tr.profiler.summary())
+        printed()
+
+    tr.profiler.print_summary = keep_summary
+    launches = _rest_train(tr, tag, "rw")
+    if len(summaries) != 1 or tr.profiler.enabled:
+        raise AssertionError(f"{tag} the profile ran {len(summaries)} times, "
+                             f"enabled after: {tr.profiler.enabled}")
+    s = summaries[0]
+    hops = ", ".join(f"{v:.3f}" for v in s["hop_composition"][0])
+    print(f"[rest profiler] first TRAIN epoch's subgraphs: avg nodes "
+          f"{s['avg_nodes'][0]:.1f}, avg edges {s['avg_edges'][0]:.1f}, avg deg "
+          f"{s['avg_deg'][0]:.2f}; hop composition (unreached, self, 1-5 hops) "
+          f"{hops}; launches over train() {launches}, those of a profile-off "
+          "run (the pass launches no kernel)")
+    del tr
+    torch.cuda.empty_cache()
+
+
+def _rest_smooth(g, tag="[rest smooth]"):
+    """e: ``smooth_signal_subgraph`` (a ppr preprocess sampler, sym-2-concat)
+    over the first ``REST_SMOOTH_TARGETS`` nodes of each mode on the card,
+    against the same call on the CPU."""
+    import types
+    import numpy as np
+    from shadow_gnn_torch.train.preproc import (decode_smoothen_config,
+                                                smooth_signal_subgraph)
+    sets = {m: np.asarray(v)[:REST_SMOOTH_TARGETS] for m, v in g.node_set.items()}
+    out, secs = {}, {}
+    for where, dev in (("card", "cuda"), ("cpu", "cpu")):
+        fake = types.SimpleNamespace(
+            task="node", batch_size=64, num_nodes=g.num_nodes, device=dev,
+            _host_adj={m: g.adj(m) for m in sets}, entity_set=sets)
+        t0 = time.perf_counter()
+        out[where], steps = smooth_signal_subgraph(
+            fake, g.feat_full.astype(np.float32), *decode_smoothen_config("sym-2-concat"),
+            {"method": "ppr", "k": 200, "epsilon": 1e-6})
+        secs[where] = time.perf_counter() - t0
+    rows = np.concatenate(list(sets.values()))
+    err = float(np.abs(out["card"][rows] - out["cpu"][rows]).max())
+    scale = float(np.abs(out["cpu"][rows]).max())
+    print(f"{tag} smooth_signal_subgraph sym-2-concat, ppr k 200 over "
+          f"{rows.size} targets, {out['card'].shape[1]} columns: card "
+          f"{secs['card']:.2f}s, CPU {secs['cpu']:.2f}s, max |card - CPU| "
+          f"{err:.3e} ({err / scale:.2e} of max), {steps} steps")
+    if not (err <= 1e-5 * max(scale, 1.0) and np.isfinite(out["card"]).all()
+            and (np.abs(out["card"][rows]).sum(1) > 0).all()):
+        raise AssertionError(f"{tag} card and CPU smoothening differ by {err}")
+
+
+def _ogb_raw_tarball(root, seed=0):
+    """A synthetic OGB-raw archive of the arxiv kind made from ``seed`` in
+    ``root``: raw/ gzip CSVs (edges, node count, 128 features, labels)
+    and split/time/ CSVs of the first ``INGEST_SPLITS`` of a permutation.
+    Returns (archive path, the graph it holds)."""
+    import gzip
+    import tarfile
+    import numpy as np
+    from shadow_gnn_torch.data import make_synthetic_dataset
+    g = make_synthetic_dataset(num_nodes=INGEST_NODES, avg_deg=10.0, num_feat=128,
+                               num_classes=40, seed=seed, power_law=False)
+    pkg = os.path.join(root, "arxiv_pkg")
+    raw_d, split_d = os.path.join(pkg, "raw"), os.path.join(pkg, "split", "time")
+    os.makedirs(raw_d), os.makedirs(split_d)
+
+    def write(path, arr, fmt):
+        with gzip.open(path, "wt", compresslevel=1) as f:
+            np.savetxt(f, arr, fmt=fmt, delimiter=",")
+
+    src = np.repeat(np.arange(g.num_nodes), np.diff(g.indptr_full))
+    write(os.path.join(raw_d, "edge.csv.gz"), np.stack([src, g.indices_full], 1), "%d")
+    write(os.path.join(raw_d, "num-node-list.csv.gz"), [[g.num_nodes]], "%d")
+    write(os.path.join(raw_d, "node-feat.csv.gz"), g.feat_full, "%.6f")
+    write(os.path.join(raw_d, "node-label.csv.gz"), g.label_full[:, None], "%d")
+    perm = np.random.default_rng(seed).permutation(g.num_nodes)
+    lo = 0
+    for name, n in zip(("train", "valid", "test"), INGEST_SPLITS):
+        write(os.path.join(split_d, f"{name}.csv.gz"), perm[lo:lo + n, None], "%d")
+        lo += n
+    path = os.path.join(root, "arxiv.tar.gz")
+    with tarfile.open(path, "w:gz", compresslevel=1) as t:
+        t.add(pkg, arcname="arxiv_pkg")
+    return path, g
+
+
+def _rest_ingest(tmp, tag="[rest ingest]"):
+    """i: the synthetic OGB-raw archive through ``ingest_tarball``,
+    ``load_data`` and a flagship trainer with a dict config, 1 epoch."""
+    import numpy as np
+    import torch
+    from shadow_gnn_torch import TRAIN
+    from shadow_gnn_torch.data import load_data
+    from shadow_gnn_torch.data.converter import ingest_tarball
+    t0 = time.perf_counter()
+    path, g = _ogb_raw_tarball(tmp)
+    t1 = time.perf_counter()
+    ingest_tarball(path, "arxiv", os.path.join(tmp, "data"))
+    t2 = time.perf_counter()
+    raw = load_data(os.path.join(tmp, "data"), "arxiv",
+                    {"to_undirected": True, "transductive": True})
+    if not (raw.num_nodes == g.num_nodes and raw.feat_full.shape == (g.num_nodes, 128)
+            and np.array_equal(raw.label_full, g.label_full)
+            and len(raw.node_set[TRAIN]) == INGEST_SPLITS[0]):
+        raise AssertionError(f"{tag} the ingested dataset is not the archive's")
+    print(f"{tag} OGB-raw archive of {g.num_nodes} nodes, {g.indices_full.size} "
+          f"edges, 128 features ({os.path.getsize(path) / 1e6:.1f} MB) made in "
+          f"{t1 - t0:.2f}s, ingested in {t2 - t1:.2f}s")
+    tr = _flagship_trainer(raw, epochs=1, tag=tag, name="arxiv",
+                           data_dir=os.path.join(tmp, "data"))
+    _rest_train(tr, tag, "rw")
+    del tr
+    torch.cuda.empty_cache()
+
+
+def _check_trace(trace_dir, tag):
+    """The one Chrome trace in ``trace_dir`` holds device kernels, the
+    packed kernels among them; returns (events, packed kernel events)."""
+    files = os.listdir(trace_dir)
+    if len(files) != 1 or not files[0].endswith(".json"):
+        raise AssertionError(f"{tag} trace dir holds {files}")
+    with open(os.path.join(trace_dir, files[0])) as f:
+        events = json.load(f)["traceEvents"]
+    kernels = [e for e in events if e.get("cat") == "kernel"]
+    packed = [e for e in kernels if "packed_spmm_kernel" in e.get("name", "")]
+    print(f"{tag} trace of TRAIN epoch 1: {len(events)} events, {len(kernels)} "
+          f"device kernels, {len(packed)} of them the packed kernels "
+          f"({os.path.getsize(os.path.join(trace_dir, files[0])) / 1e6:.1f} MB)")
+    if not packed:
+        raise AssertionError(f"{tag} the trace names no packed kernel")
+    return len(events), len(packed)
+
+
+def phase_rest(g):
+    """[rest]: the remaining single-card capabilities on the flickr-scale
+    graph ``g`` with ``[matrix]``'s cuts, 1 epoch each but the TF32 one:
+    a. GCN-3 and GIN-3 at bf16 precision (B1c sym, gin); b. GATScatter-3
+    at bf16 precision (B2b/B3b, att_self = 0); c. the flagship at TF32
+    (B1c rw), its first step against its plain versions and beside the
+    f32 model's, 2 epochs, h. epoch 1 traced; d. the flagship with
+    pairnorm; e. ``smooth_signal_subgraph`` card against CPU; f. device
+    PPR and g. the subgraph profile (``_rest_device_ppr``); i. ingestion
+    (``_rest_ingest``).  The host push's tables are cached in a temp dir
+    for the phase's trainers."""
+    import shutil
+    import tempfile
+    import torch
+    from shadow_gnn_torch import TEST, TRAIN, VALID
+    t_phase = time.perf_counter()
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_rest_")
+    try:
+        modes = (TRAIN, VALID, TEST)
+        host_tabs = host_s = None
+        for aggr, norm in (("gcn", "sym"), ("gin", "gin"), ("gatscat", None)):
+            tag = f"[rest {aggr} bf16]"
+            t0 = time.perf_counter()
+            arch = {"aggr": aggr, **({"heads": 4} if norm is None else {})}
+            tr = _flagship_trainer(g, epochs=1, arch=arch, tag=tag, data_dir=tmp,
+                                   matmul_precision="bfloat16")
+            if host_tabs is None:
+                torch.cuda.synchronize()
+                t1 = time.perf_counter()
+                for m in modes:
+                    tr._ensure_tables(m)
+                host_s = time.perf_counter() - t1
+                host_tabs = {m: tr.tables[m][0].neighs.clone() for m in modes}
+                print(f"[rest] host PPR push over the cut TRAIN, VALID, TEST "
+                      f"({sum(t.shape[0] for t in host_tabs.values())} targets) "
+                      f"{host_s:.2f}s; its cache serves the phase's trainers")
+            _rest_train(tr, tag, norm, bf16=True)
+            print(f"{tag} part {time.perf_counter() - t0:.1f}s")
+            del tr
+            torch.cuda.empty_cache()
+
+        tag = "[rest sage tf32]"
+        t0 = time.perf_counter()
+        tr = _flagship_trainer(g, epochs=2, tag=tag, data_dir=tmp,
+                               matmul_precision="tensorfloat32")
+        tr._ensure_tables(TRAIN)
+        tr._ensure_caches(TRAIN)
+        batch = _train_batch(tr, 0)
+        loss_t, grads_t, signs_t = _loss_grads(tr, batch, 7)
+        with _f32_model(tr):
+            loss_f, grads_f, signs_f = _loss_grads(tr, batch, 7)
+        err, name = _grad_error(grads_t, grads_f)
+        l2, name_l2 = max(((grads_t[k] - grads_f[k]).norm().item()
+                           / max(grads_f[k].norm().item(), 1e-30), k) for k in grads_f)
+        flips = sum(int((a != b).sum()) for a, b in zip(signs_t, signs_f))
+        print(f"{tag} first step against the f32 model of the same weights (no "
+              f"bound): loss {loss_t:.7f} vs {loss_f:.7f} (rel "
+              f"{abs(loss_t - loss_f) / abs(loss_f):.2e}); worst gradient {err:.2e} "
+              f"of its max ({name}), worst relative L2 {l2:.2e} ({name_l2}); relu "
+              f"inputs on the other side of 0: {flips} of "
+              f"{sum(a.numel() for a in signs_f)}")
+        tr.trace_dir = os.path.join(tmp, "trace")
+        _rest_train(tr, tag, "rw", bf16=True)
+        _check_trace(tr.trace_dir, "[rest trace]")
+        print(f"{tag} part {time.perf_counter() - t0:.1f}s")
+        del tr, batch, grads_t, grads_f, signs_t, signs_f
+        torch.cuda.empty_cache()
+
+        tag = "[rest pairnorm]"
+        t0 = time.perf_counter()
+        tr = _flagship_trainer(g, epochs=1, arch={"layer_norm": "pairnorm"}, tag=tag,
+                               data_dir=tmp)
+        _rest_train(tr, tag, "rw")
+        print(f"{tag} part {time.perf_counter() - t0:.1f}s")
+        del tr
+        torch.cuda.empty_cache()
+
+        t0 = time.perf_counter()
+        _rest_smooth(g)
+        t1 = time.perf_counter()
+        _rest_device_ppr(g, host_tabs, host_s)
+        t2 = time.perf_counter()
+        _rest_ingest(tmp)
+        print(f"[rest] parts: smooth {t1 - t0:.1f}s, device ppr {t2 - t1:.1f}s, "
+              f"ingest {time.perf_counter() - t2:.1f}s")
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    wall = time.perf_counter() - t_phase
+    print(f"[rest] phase {wall:.1f}s (aim 150 s, budget {REST_BUDGET_S} s)")
+    if wall > REST_BUDGET_S:
+        raise AssertionError(f"[rest] took {wall:.1f}s, over its {REST_BUDGET_S} s "
+                             "budget")
+
 def _flickr_power_graph():
     return _synthetic_graph("[power]", num_nodes=89_250, avg_deg=10.0, num_feat=500,
                             num_classes=7, seed=0, power_law=True)
@@ -1891,8 +2363,8 @@ def _print_plans(tr, tag):
             plans[mode, i] = {f: getattr(c, f) for f in
                               ("method", "n_pad", "induction", "deg_cap", "hub_slots",
                                "cand_cap")}
-            print(f"{tag} plan {MODE2STR[mode]} branch {i}: "
-                  f"{json.dumps(plans[mode, i])}")
+            _detail(f"{tag} plan {MODE2STR[mode]} branch {i}: "
+                    f"{json.dumps(plans[mode, i])}")
     return plans
 
 
@@ -2761,11 +3233,28 @@ def phase_link(graph, profile=False):
 
 
 def main():
+    """Every phase, with standard output kept to the summaries
+    (``_Stdout``) and the full log in ``LOG_NAME``."""
+    global _OUT
     import torch
     if not torch.cuda.is_available():
         print("chip_smoke: CUDA is not available", file=sys.stderr)
         return 1
-    sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
+    here = os.path.dirname(os.path.abspath(__file__))
+    os.makedirs(os.path.join(here, os.path.dirname(LOG_NAME)), exist_ok=True)
+    with open(os.path.join(here, LOG_NAME), "w") as log:
+        _OUT = _Stdout(sys.stdout, log)
+        sys.stdout = _OUT
+        try:
+            return _run(here)
+        finally:
+            sys.stdout = _OUT.real
+            _OUT = None
+
+
+def _run(here):
+    import torch
+    sys.path.insert(0, here)
     torch.backends.cuda.matmul.allow_tf32 = False   # plain versions in full f32
     torch.backends.cudnn.allow_tf32 = False
     print(f"[env] python {sys.version.split()[0]}, torch {torch.__version__}, "
@@ -2821,6 +3310,8 @@ def main():
 
     # GCN-3, GIN-3, GATScatter-3 and SIGN on the same graph
     rows += phase_matrix(flickr, max_abs_err, profile)
+    # the remaining single-card capabilities on the same graph
+    phase_rest(flickr)
     del flickr
     torch.cuda.empty_cache()
 
@@ -2873,12 +3364,19 @@ def main():
     phase_ensemble(_arxiv_graph(), profile)
     # the collab link model: no kernel of the repo on its path
     phase_link(_collab_graph(), profile)
-    print(f"[chip_smoke] all phases passed in {time.perf_counter() - t_all:.1f}s")
-    print(_card())
-    print(json.dumps({"kernels": rows}))
-    print(json.dumps({"ok": True, "device": {
-        "platform": "gpu", "kind": torch.cuda.get_device_name(0),
-        "count": torch.cuda.device_count()}}))
+    closing = [
+        f"[chip_smoke] all phases passed in {time.perf_counter() - t_all:.1f}s",
+        _card(), json.dumps({"kernels": rows}),
+        json.dumps({"ok": True, "device": {
+            "platform": "gpu", "kind": torch.cuda.get_device_name(0),
+            "count": torch.cuda.device_count()}})]
+    rest = sum(len(line.encode()) + 1 for line in closing)
+    note = ("[chip_smoke] standard output {:>7d} bytes with this line and the "
+            f"closing lines (limit {STDOUT_LIMIT}); every line in {LOG_NAME}")
+    total = _OUT.bytes + len(note.format(0).encode()) + 1 + rest
+    print(note.format(total))
+    for line in closing:
+        print(line)
     return 0
 
 

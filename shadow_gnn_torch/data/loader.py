@@ -30,9 +30,13 @@ def load_data(prefix: str, dataset: str, config_data: Dict[str, Any],
               printf=print) -> RawGraph:
     d = f"{prefix}/{dataset}"
     if not os.path.isfile(f"{d}/split.npy"):
-        raise FileNotFoundError(
-            f"{d}/split.npy missing: convert the dataset to shaDow format "
-            "first (the PyTorch port does not download datasets)")
+        # a known dataset is converted on its first run (reference
+        # loader.py:42-43): an OGB one needs the ogb package and a
+        # network, a GraphSAINT one its local distribution
+        from shadow_gnn_torch.data.converter import DATA_ZOO, convert2shadow
+        if dataset in DATA_ZOO:
+            printf(f"{d} missing — converting {dataset} to shaDow format")
+            convert2shadow(dataset, prefix)
     role = np.load(f"{d}/split.npy", allow_pickle=True)
     if isinstance(role, np.ndarray):
         role = role[()]

@@ -27,28 +27,97 @@ dense score chain over the Pallas kernel, the same function, and the
 port has one implementation of it on the card, the CUDA kernels, which
 every value launches.
 ``--gpu N`` (a no-op in the JAX CLI, kept for the reference CLI) selects
-``cuda:N`` when ``--device`` is not given.  ``--device_ppr auto`` and
-``host`` both run the host PPR push, the only PPR the port has.  The
-checkpoints are the port's own ``torch.save`` files.  The JAX CLI's
-other flags, ``--device_ppr device`` and ``--matmul_precision
-tensorfloat32`` are accepted by name and refused with an error, because
-the parts they select are not ported yet.
+``cuda:N`` when ``--device`` is not given; ``--platform cpu`` means
+``--device cpu`` and ``--platform gpu`` (or ``cuda``) the card.
+``--device_ppr auto`` and ``host`` run the host PPR push, ``device``
+the power iteration on the card (``sampling/ppr.py``).
+``--matmul_precision tensorfloat32`` runs the f32 products on TF32
+tensor cores and the kernels in their bf16 modes.  ``--data_tarball``
+ingests a local dataset archive when the dataset's files are absent,
+``--meta_config`` reads the machine meta-config (data and log dirs,
+metric map, ``ignore_config_name``, a logger class), and ``--trace_dir``
+writes a torch.profiler trace of TRAIN epoch 1.  The checkpoints are
+the port's own ``torch.save`` files.  The JAX CLI's other flags are
+accepted by name and refused with an error (``REFUSED_FLAGS``).
 """
 from __future__ import annotations
 
 import argparse
+import json
 import os
 import random
 import string
 import time
 import traceback
 
-# flags of the JAX CLI whose parts are not ported yet
-UNPORTED_FLAGS = (
-    "platform", "chunk_batches", "prng", "data_tarball", "meta_config",
-    "trace_dir", "distributed", "partition", "partition_devices",
-)
+# flags of the JAX CLI the port refuses, and why
+_MULTI = "multi-card and multi-host training is not ported yet (ROADMAP A8)"
+_TPU_ONLY = "a TPU-only mechanism of the JAX package, not ported by design: "
+REFUSED_FLAGS = {
+    "distributed": _MULTI,
+    "partition": _MULTI,
+    "partition_devices": _MULTI,
+    "chunk_batches": _TPU_ONLY + "the size of a compiled evaluation chunk "
+                     "program; the port runs its batches eagerly",
+    "prng": _TPU_ONLY + "the JAX PRNG implementation of the masks; the port "
+            "draws them from torch.Generator",
+}
 _SWITCHES = ("distributed",)
+# --platform -> torch device type
+PLATFORMS = {"cpu": "cpu", "gpu": "cuda", "cuda": "cuda"}
+
+
+class MetaConfigError(ValueError):
+    """A --meta_config file that neither the JSON nor the YAML reader
+    parses."""
+
+
+def read_meta_config(path: str) -> dict:
+    """The machine meta-config at ``path``: JSON (which is YAML too, and
+    needs no PyYAML), else YAML; raises MetaConfigError when neither
+    reader parses it."""
+    with open(path) as f:
+        text = f.read()
+    try:
+        return json.loads(text) or {}
+    except json.JSONDecodeError as e:
+        json_err = e
+    try:
+        import yaml
+    except ImportError:
+        raise MetaConfigError(f"--meta_config {path}: not JSON ({json_err}) and "
+                              "PyYAML is not installed to read YAML") from None
+    try:
+        return yaml.safe_load(text) or {}
+    except yaml.YAMLError as e:
+        raise MetaConfigError(f"--meta_config {path}: neither JSON ({json_err}) "
+                              f"nor YAML ({e})") from None
+
+
+def apply_meta_config(args, metric_map: dict):
+    """Apply the meta-config of ``args.meta_config`` (the reference
+    CONFIG.yml schema) as the JAX CLI does: ``data.dir.local`` and
+    ``logging.dir.local`` replace ``--data_dir`` / ``--log_dir``,
+    ``data.metric`` updates ``metric_map``, a ``--configs`` file named in
+    ``logging.ignore_config_name`` runs as ``--no_log``.  Returns the
+    logger class of ``logging.logger.name`` (``module:Class`` or
+    ``module.Class``), or None for the port's Logger."""
+    meta = read_meta_config(args.meta_config)
+    data, logging = meta.get("data") or {}, meta.get("logging") or {}
+    if (data.get("dir") or {}).get("local"):
+        args.data_dir = data["dir"]["local"]
+    if (logging.get("dir") or {}).get("local"):
+        args.log_dir = logging["dir"]["local"]
+    metric_map.update(data.get("metric") or {})
+    if os.path.basename(str(args.configs or "")) in (
+            logging.get("ignore_config_name") or []):
+        args.no_log = True
+    name = (logging.get("logger") or {}).get("name")
+    if not name or name in ("Logger", "LoggerBase"):
+        return None
+    import importlib
+    modname, _, clsname = name.rpartition(":" if ":" in name else ".")
+    return getattr(importlib.import_module(modname), clsname)
 
 
 def build_argparser():
@@ -96,8 +165,9 @@ def build_argparser():
     p.add_argument("--matmul_precision", type=str, default=None,
                    choices=["bfloat16", "tensorfloat32", "float32"],
                    help="precision of the f32 products: bfloat16 rounds their "
-                        "operands to bf16 and sums in f32 (tensorfloat32 is "
-                        "not ported)")
+                        "operands to bf16 and sums in f32, tensorfloat32 runs "
+                        "them on TF32 tensor cores (f32 on the CPU); both run "
+                        "the kernels in their bf16 modes")
     p.add_argument("--compute_dtype", type=str, default="float32",
                    choices=["float32", "bfloat16"],
                    help="activation dtype (params/logits stay f32)")
@@ -107,16 +177,31 @@ def build_argparser():
                         "the features once at upload")
     p.add_argument("--device", type=str, default=None,
                    help="torch device: cuda (default) or cpu")
+    p.add_argument("--platform", type=str, default=None,
+                   help="the JAX CLI's backend choice: cpu means --device cpu, "
+                        "gpu or cuda the card")
     p.add_argument("--gpu", type=int, default=None,
                    help="accepted for reference-CLI compatibility: the card "
                         "cuda:N when --device is not given")
     p.add_argument("--device_ppr", type=str, default="auto",
                    choices=["auto", "host", "device"],
-                   help="PPR precompute: auto and host run the host push (the "
-                        "device power iteration is not ported)")
+                   help="PPR precompute: auto and host run the host push, "
+                        "device the power iteration on --device")
+    p.add_argument("--data_tarball", type=str, default=None,
+                   help="a local dataset archive (shaDow, GraphSAINT or OGB raw "
+                        "layout) ingested into <data_dir>/<dataset>/ when the "
+                        "dataset's files are absent")
+    p.add_argument("--meta_config", type=str, default=None,
+                   help="machine meta-config (reference CONFIG.yml schema: data "
+                        "and log dirs, per-dataset metric, ignore_config_name, "
+                        "logging.logger.name); JSON, which is YAML too and needs "
+                        "no PyYAML, or YAML")
+    p.add_argument("--trace_dir", type=str, default=None,
+                   help="write a torch.profiler trace (Chrome JSON) of TRAIN "
+                        "epoch 1 into this dir")
     p.add_argument("--no_pbar", action="store_true",
                    help="accepted for reference-CLI compatibility (no-op)")
-    for name in UNPORTED_FLAGS:
+    for name in REFUSED_FLAGS:
         if name in _SWITCHES:
             p.add_argument(f"--{name}", action="store_true", help=argparse.SUPPRESS)
         else:
@@ -152,21 +237,30 @@ def _task(args, parser):
 
 
 def parse_args(argv=None):
-    """The parsed command line, ``device`` resolved (``--gpu N`` to
-    ``cuda:N``) and ``task`` / ``config_path`` set; exits with usage
-    error 2 on a flag of an unported part, on ``--gpu`` with ``--device
-    cpu``, or on a task without its yml."""
+    """The parsed command line, ``device`` resolved (``--platform``, then
+    ``--gpu N`` to ``cuda:N``) and ``task`` / ``config_path`` set; exits
+    with usage error 2 on a refused flag (``REFUSED_FLAGS``), on a
+    platform other than cpu / gpu / cuda or one that contradicts
+    ``--device``, on ``--gpu`` with the CPU, or on a task without its
+    yml."""
     parser = build_argparser()
     args = parser.parse_args(argv)
-    given = [n for n in UNPORTED_FLAGS if getattr(args, n) not in (None, False)]
-    if args.matmul_precision == "tensorfloat32":
-        given.append("matmul_precision tensorfloat32")
-    if args.device_ppr == "device":
-        given.append("device_ppr device")
+    given = [n for n in REFUSED_FLAGS if getattr(args, n) not in (None, False)]
     if given:
-        parser.error("not ported to the PyTorch package yet: "
-                     + ", ".join(f"--{n}" for n in given)
-                     + " (use python -m shadow_gnn_tpu.main)")
+        parser.error("refused by the PyTorch package: " + "; ".join(
+            f"--{n}: {REFUSED_FLAGS[n]}" for n in given))
+    if args.platform is not None:
+        plat = PLATFORMS.get(args.platform.lower())
+        if plat is None:
+            parser.error(f"--platform {args.platform}: the PyTorch package runs "
+                         "on cpu or gpu (cuda)")
+        if args.device is not None and args.device.split(":")[0] != plat:
+            parser.error(f"--platform {args.platform} contradicts --device "
+                         f"{args.device}")
+        if plat == "cpu" and args.gpu is not None:
+            parser.error("--gpu selects a card; it cannot go with --platform cpu")
+        if plat == "cpu":
+            args.device = "cpu"
     if args.gpu is not None:
         if args.device is not None and args.device.startswith("cpu"):
             parser.error("--gpu selects a card; it cannot go with --device cpu")
@@ -198,10 +292,13 @@ def main(argv=None):
         from shadow_gnn_torch.postproc.driver import run_postproc
         return run_postproc(args)
 
+    metric_map = dict(DATA_METRIC)
+    if args.meta_config:
+        Logger = apply_meta_config(args, metric_map) or Logger
     import yaml
     parsed = parse_config(args.config_path)
     metrics = Metrics(args.dataset, parsed["arch_gnn"]["loss"] == "sigmoid",
-                      DATA_METRIC.get(args.dataset, "accuracy"),
+                      metric_map.get(args.dataset, "accuracy"),
                       int(parsed["params_train"]["term_window_size"]))
     timestamp = time.strftime("%Y-%m-%d %H-%M-%S")
     tie = "".join(random.sample(string.ascii_letters + string.digits, 4))
@@ -216,12 +313,22 @@ def main(argv=None):
                     term_window_aggr=parsed["params_train"]["term_window_aggr"],
                     timestamp=timestamp, no_log=args.no_log,
                     config_dump=raw_cfg_dump)
+    if args.data_tarball:
+        from shadow_gnn_torch.data.converter import DATA_ZOO, ingest_tarball
+        spec = DATA_ZOO.get(args.dataset)
+        if spec is None or not spec["ALL"].have_all_files(args.data_dir,
+                                                          args.dataset):
+            print(f"ingesting {args.data_tarball} -> {args.data_dir}/{args.dataset}")
+            ingest_tarball(args.data_tarball, args.dataset, args.data_dir)
     raw = load_data(args.data_dir, args.dataset, parsed["config_data"])
     trainer = Trainer(args.dataset, args.data_dir, raw, parsed, metrics, logger,
                       seed=max(args.seed, 0), device=args.device,
                       packed_adj=args.packed_adj,
                       matmul_precision=args.matmul_precision,
-                      compute_dtype=args.compute_dtype, feat_dtype=args.feat_dtype)
+                      compute_dtype=args.compute_dtype, feat_dtype=args.feat_dtype,
+                      use_device_ppr={"auto": None, "device": True,
+                                      "host": False}[args.device_ppr])
+    trainer.trace_dir = args.trace_dir
     trainer.eval_train_every = max(1, args.eval_train_every)
     print(f"TOTAL NUM OF PARAMS = "
           f"{sum(p.numel() for p in trainer.model.parameters())}")

@@ -78,9 +78,10 @@ def _auto_dense(n_nodes: int, n_threads: int) -> int:
 
 def ppr_push_native(indptr: np.ndarray, indices: np.ndarray,
                     targets: np.ndarray, k: int, alpha_int: float,
-                    epsilon: float, n_threads: int = 0):
+                    epsilon: float, n_threads: int = 0, as_dense: bool = False):
     """Multi-threaded forward-push PPR: per-target descending top-k
-    lists (neighs_list, scores_list)."""
+    lists (neighs_list, scores_list), or with ``as_dense`` the [T, k]
+    tables themselves (pad id=-1, score=0)."""
     lib = get_lib()
     indptr64 = np.ascontiguousarray(indptr, dtype=np.int64)
     indices32 = np.ascontiguousarray(indices, dtype=np.int32)
@@ -100,6 +101,8 @@ def ppr_push_native(indptr: np.ndarray, indices: np.ndarray,
         out_s.ctypes.data_as(ctypes.POINTER(ctypes.c_float)))
     if ret != 0:
         raise RuntimeError(f"shadow_ppr_push returned {ret}")
+    if as_dense:
+        return out_n, out_s
     neighs = [row[row >= 0] for row in out_n]
     scores = [s[:n.size] for n, s in zip(neighs, out_s)]
     return neighs, scores

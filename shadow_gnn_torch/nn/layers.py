@@ -38,7 +38,9 @@ reference ``shaDow/layers.py``):
   block times an f32 parameter, such as PReLU's slope, is f32);
 * ``precision="bfloat16"`` (``--matmul_precision bfloat16``) — each f32
   product (the linears, GAT's attention-vector contraction) rounds its
-  operands to bf16 and sums in f32 (``ops/precision.py``).
+  operands to bf16 and sums in f32; ``"tensorfloat32"`` runs the linears
+  on TF32 tensor cores on a card (f32 on the CPU); both run the
+  attention at its bf16 levels (``ops/precision.py``).
 
 SAGE, GCN and GIN aggregate through a callable ``agg(x) -> A @ x``: a
 dense ``torch.bmm`` on the uncached path, or the packed kernel
@@ -57,9 +59,7 @@ import torch
 from torch import nn
 
 from shadow_gnn_torch.ops.gat import gat_attention
-from shadow_gnn_torch.ops.precision import bf16_head_dot, bf16_matmul
-
-PRECISIONS = ("float32", "bfloat16")
+from shadow_gnn_torch.ops.precision import ROUNDED_PRECISIONS, bf16_head_dot, matmul
 
 
 class TorchLinear(nn.Linear):
@@ -67,7 +67,8 @@ class TorchLinear(nn.Linear):
     1/sqrt(fan_in)) init for weight and bias), which the JAX
     ``TorchLinear`` reproduces, used as that one is: the parameters are
     cast to the input's dtype, the bias added after the product; an f32
-    input at ``precision="bfloat16"`` takes the bf16-precision product."""
+    input at another ``precision`` than float32 takes that precision's
+    product."""
 
     def __init__(self, dim_in: int, dim_out: int, precision: str = "float32"):
         super().__init__(dim_in, dim_out)
@@ -77,7 +78,7 @@ class TorchLinear(nn.Linear):
         if x.dtype == torch.float32 and self.precision == "float32":
             return nn.functional.linear(x, self.weight, self.bias)
         if x.dtype == torch.float32:
-            y = bf16_matmul(x.reshape(-1, x.shape[-1]), self.weight.t())
+            y = matmul(x.reshape(-1, x.shape[-1]), self.weight.t(), self.precision)
             y = y.reshape(x.shape[:-1] + (-1,))
         else:
             y = nn.functional.linear(x, self.weight.to(x.dtype))
@@ -331,7 +332,8 @@ class GATConv(_ConvBase):
                else lambda x, a: torch.einsum("bnhd,hd->bhn", x, a))
         att = [torch.nn.functional.leaky_relu(dot(x.float(), self.attention[k]), 0.2)
                for k, x in enumerate((h_self, h_neigh))]
-        bf16 = self.precision == "bfloat16" or h_neigh.dtype == torch.bfloat16
+        bf16 = (self.precision in ROUNDED_PRECISIONS
+                or h_neigh.dtype == torch.bfloat16)
         aggr = gat_attention(att[0], att[1], h_neigh, adj_norm, adj_struct,
                              bf16, bf16).to(feat.dtype)
         if self.norm == "norm_feat":
@@ -369,10 +371,10 @@ class GATScatterConv(_ConvBase):
     def _affine(self, x: torch.Tensor, w: torch.Tensor,
                 bias: torch.Tensor) -> torch.Tensor:
         """``x @ w + bias`` as JAX takes it: a bf16 ``x`` is promoted to
-        the f32 parameters' dtype; an f32 product at bf16 precision."""
+        the f32 parameters' dtype; an f32 product at the layer's precision."""
         x = x.to(torch.promote_types(x.dtype, w.dtype))
-        if self.precision == "bfloat16" and x.dtype == torch.float32:
-            y = bf16_matmul(x.reshape(-1, x.shape[-1]), w)
+        if self.precision != "float32" and x.dtype == torch.float32:
+            y = matmul(x.reshape(-1, x.shape[-1]), w, self.precision)
             return y.reshape(x.shape[:-1] + (-1,)) + bias
         return x @ w + bias
 
@@ -381,8 +383,8 @@ class GATScatterConv(_ConvBase):
                 node_mask: Optional[torch.Tensor] = None) -> torch.Tensor:
         """adjs: (adj_norm, adj_struct) [B, N, N] f32.  The scores' head
         dot stays f32 (JAX's ``_head_dot`` runs at HIGHEST precision);
-        the attention runs at its bf16 levels under bf16 precision, as
-        ``_fused_attention_flat`` decides."""
+        the attention runs at its bf16 levels under bf16 or TF32
+        precision, as ``_fused_attention_flat`` decides."""
         adj_norm, adj_struct = adjs
         x = self._drop(feat, generator)
         b, n, _ = x.shape
@@ -390,7 +392,8 @@ class GATScatterConv(_ConvBase):
         v = feat_src.view(b, n, self.heads, -1)
         el = torch.nn.functional.leaky_relu(
             torch.einsum("bnhd,hd->bhn", v.float(), self.attention[0]), 0.2)
-        bf16 = self.precision == "bfloat16" or feat_src.dtype == torch.bfloat16
+        bf16 = (self.precision in ROUNDED_PRECISIONS
+                or feat_src.dtype == torch.bfloat16)
         aggr = gat_attention(torch.zeros_like(el), el, v, adj_norm, adj_struct,
                              bf16, bf16).reshape(b, n, -1).to(x.dtype)
         out = self.act(aggr + self._affine(x, self.w_dst, self.b_dst))

@@ -32,8 +32,9 @@ per forward.
 Precision (``ModelConfig.matmul_precision`` / ``compute_dtype``, the
 JAX package's ``--matmul_precision`` / ``--compute_dtype``):
 ``matmul_precision="bfloat16"`` runs every f32 product at bf16 precision
-(``ops/precision.py``; the packed aggregation in its bf16 mode, GAT's
-attention at its bf16 levels).  ``compute_dtype="bfloat16"`` casts the
+and ``"tensorfloat32"`` on TF32 tensor cores on a card (``ops/precision.py``);
+both run the packed aggregation in its bf16 mode and GAT's attention at
+its bf16 levels.  ``compute_dtype="bfloat16"`` casts the
 feature block to bf16 (parameters stay f32 and are cast at use) and the
 dense adjacency too, and takes the dense path (no packed bits); type
 promotion then decides each later dtype, as in JAX: the label-input
@@ -57,12 +58,11 @@ from typing import List, Optional, Tuple
 import torch
 from torch import nn
 
-from shadow_gnn_torch.nn.layers import (ATTENTION, NAME2LAYER, NORMS, PRECISIONS,
-                                        MLPLayer, TorchLinear)
+from shadow_gnn_torch.nn.layers import ATTENTION, NAME2LAYER, NORMS, MLPLayer, TorchLinear
 from shadow_gnn_torch.nn.respool import EnsembleAggregator, ResPool
 from shadow_gnn_torch.ops.normalize import ADJ_FREE, prepare_adj
 from shadow_gnn_torch.ops.packed import packed_spmm
-from shadow_gnn_torch.ops.precision import bf16_matmul
+from shadow_gnn_torch.ops.precision import PRECISIONS, ROUNDED_PRECISIONS, matmul
 from shadow_gnn_torch.sampling.batch import AUG2DIM, SubgraphBatch, batch_aug_onehots
 
 
@@ -96,7 +96,8 @@ class ModelConfig:
     # aggregate cached batches from the packed bits (ops/packed.py);
     # the PACKED_NORM backbones only, as in the JAX package
     packed_adj: bool = False
-    # products: "float32" or "bfloat16" (bf16 operands, f32 sums)
+    # products: "float32", "bfloat16" (bf16 operands, f32 sums) or
+    # "tensorfloat32" (TF32 tensor cores on a card)
     matmul_precision: str = "float32"
     # activation dtype: "float32" or "bfloat16" (params / logits stay f32)
     compute_dtype: str = "float32"
@@ -167,9 +168,6 @@ def branch_suffix(i: int) -> str:
 class DeepGNN(nn.Module):
     def __init__(self, cfg: ModelConfig):
         super().__init__()
-        if cfg.matmul_precision == "tensorfloat32":
-            raise NotImplementedError("not ported yet: matmul_precision "
-                                      "'tensorfloat32'")
         if cfg.aggr not in NAME2LAYER:
             raise ValueError(f"unknown aggr {cfg.aggr!r}")
         if cfg.layer_norm not in NORMS:
@@ -240,11 +238,10 @@ class DeepGNN(nn.Module):
         if not cfg.uses_adj:
             return None
         de = cfg.dropedge if self.training else 0.0
-        bf16 = cfg.matmul_precision == "bfloat16"
         if cfg.reads_packed_bits and batch.adj_bits is not None:
-            return functools.partial(packed_spmm, batch.adj_bits,
-                                     norm=PACKED_NORM[cfg.aggr], dropedge=de,
-                                     seed=seed, bf16=bf16)
+            return functools.partial(
+                packed_spmm, batch.adj_bits, norm=PACKED_NORM[cfg.aggr], dropedge=de,
+                seed=seed, bf16=cfg.matmul_precision in ROUNDED_PRECISIONS)
         if batch.adj is None:
             raise ValueError("batch carries no dense adjacency and the model "
                              "does not read packed bits")
@@ -253,7 +250,8 @@ class DeepGNN(nn.Module):
             # 0/1 blocks: JAX's cast to the compute dtype and back to f32
             # for the kernel leaves them as they are
             return adjs
-        return functools.partial(_dense_aggregate, adjs[0].to(cfg.dtype), bf16)
+        return functools.partial(_dense_aggregate, adjs[0].to(cfg.dtype),
+                                 cfg.matmul_precision)
 
     def forward(self, batches, feats, generator: Optional[torch.Generator] = None,
                 dropedge_seed: int = 0, mode_train: bool = False
@@ -318,14 +316,12 @@ class DeepGNN(nn.Module):
                                  min=1e-12)
 
 
-def _dense_aggregate(adj: torch.Tensor, bf16: bool, x: torch.Tensor) -> torch.Tensor:
+def _dense_aggregate(adj: torch.Tensor, precision: str, x: torch.Tensor) -> torch.Tensor:
     """adj @ x as JAX's einsum takes it (layers.py:419-420): both operands
-    promoted to one dtype, an f32 product at bf16 precision when
-    ``bf16``."""
+    promoted to one dtype, an f32 product at ``precision``."""
     dt = torch.promote_types(adj.dtype, x.dtype)
-    if bf16 and dt == torch.float32:
-        return bf16_matmul(adj, x)
-    return torch.bmm(adj.to(dt), x.to(dt))
+    adj, x = adj.to(dt), x.to(dt)
+    return matmul(adj, x, precision) if dt == torch.float32 else torch.bmm(adj, x)
 
 
 def row_losses(cfg: ModelConfig, logits: torch.Tensor,

@@ -27,7 +27,7 @@ import torch
 from torch import nn
 
 from shadow_gnn_torch.nn.layers import Act, TorchLinear, dropout, norm_feat
-from shadow_gnn_torch.ops.precision import bf16_matmul
+from shadow_gnn_torch.ops.precision import matmul
 from shadow_gnn_torch.ops.segment import (masked_max_pool, masked_mean_pool,
                                           masked_sort_pool, masked_sum_pool)
 
@@ -148,7 +148,7 @@ class EnsembleAggregator(nn.Module):
                 x = x_
             kept.append(x)
             h = self.act(self.lin(x_))
-            omegas.append(bf16_matmul(h, self.q[:, None])[:, 0]
-                          if self.precision == "bfloat16" else h @ self.q)
+            omegas.append(h @ self.q if self.precision == "float32"
+                          else matmul(h, self.q[:, None], self.precision)[:, 0])
         w = torch.softmax(torch.stack(omegas, -1), dim=-1)
         return sum(w[:, i:i + 1] * x for i, x in enumerate(kept))

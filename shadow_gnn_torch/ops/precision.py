@@ -1,4 +1,4 @@
-"""Products at ``matmul_precision="bfloat16"``.
+"""Products at ``matmul_precision="bfloat16"`` and ``"tensorfloat32"``.
 
 The JAX package's ``--matmul_precision bfloat16`` runs each f32 product
 of the model (``jnp.dot`` / ``einsum`` at DEFAULT precision) as one
@@ -16,10 +16,28 @@ product, and never through a global torch flag:
 * :func:`bf16_head_dot` (GAT's attention-vector contraction, a small
   reduction over dh): the f32 product of the rounded operands on every
   device.
+
+``--matmul_precision tensorfloat32`` asks for TF32 products, which is
+what the H100's tensor cores run for f32 operands: :func:`tf32_matmul`
+(the linears, the dense aggregation) takes its f32 products, forward
+and backward, inside :func:`tf32`, which lets cuBLAS use TF32 for the
+one product and restores the process's setting after it; on the CPU
+they stay f32 (as JAX's CPU products do).  GAT's attention-vector
+contraction, a reduction over dh and no GEMM, stays f32.  The packed and attention kernels take their
+bf16 modes at that precision, as the JAX layers do
+(``ROUNDED_PRECISIONS``).  :func:`matmul` picks the product of a
+precision.
 """
 from __future__ import annotations
 
+import contextlib
+
 import torch
+
+PRECISIONS = ("float32", "bfloat16", "tensorfloat32")
+# the precisions at which the kernels run their bf16 modes
+# (shadow_gnn_tpu/nn/layers.py:53, nn/model.py:152)
+ROUNDED_PRECISIONS = ("bfloat16", "tensorfloat32")
 
 
 def round_bf16(x: torch.Tensor) -> torch.Tensor:
@@ -78,3 +96,47 @@ class _Bf16HeadDot(torch.autograd.Function):
 def bf16_head_dot(x: torch.Tensor, a: torch.Tensor) -> torch.Tensor:
     """einsum("bnhd,hd->bhn", x, a) at bf16 precision (f32 x and a)."""
     return _Bf16HeadDot.apply(x, a)
+
+
+@contextlib.contextmanager
+def tf32():
+    """Within the block cuBLAS may run f32 products on TF32 tensor cores;
+    the previous setting comes back after it."""
+    saved = torch.backends.cuda.matmul.allow_tf32
+    torch.backends.cuda.matmul.allow_tf32 = True
+    try:
+        yield
+    finally:
+        torch.backends.cuda.matmul.allow_tf32 = saved
+
+
+class _Tf32Matmul(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, a, b):
+        ctx.save_for_backward(a, b)
+        with tf32():
+            return torch.matmul(a, b)
+
+    @staticmethod
+    def backward(ctx, g):
+        a, b = ctx.saved_tensors
+        with tf32():
+            ga = torch.matmul(g, b.transpose(-1, -2)) if ctx.needs_input_grad[0] else None
+            gb = torch.matmul(a.transpose(-1, -2), g) if ctx.needs_input_grad[1] else None
+        return ga, gb
+
+
+def tf32_matmul(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """a [M, K] @ b [K, N] (or batched) of f32 operands, forward and
+    backward on TF32 tensor cores on a card."""
+    return _Tf32Matmul.apply(a, b)
+
+
+def matmul(a: torch.Tensor, b: torch.Tensor, precision: str) -> torch.Tensor:
+    """a @ b of f32 operands at ``precision`` (one of ``PRECISIONS``)."""
+    if precision == "bfloat16":
+        return bf16_matmul(a, b)
+    if precision == "tensorfloat32":
+        return tf32_matmul(a, b)
+    return torch.matmul(a, b)
+

@@ -1,12 +1,17 @@
-"""Approximate personalized PageRank precompute + top-k tables (host).
+"""Approximate personalized PageRank precompute + top-k tables.
 
 * :func:`ppr_push_host` — the reference's lazy forward push, in the
   native C++ library (``native/``) or, only when the caller asks with
   ``use_native=False``, in pure Python;
+* :func:`ppr_power_device` — the batched lazy power iteration on a
+  torch device (``--device_ppr device``), with its memory plan
+  :func:`plan_device_ppr`;
 * :func:`ppr_topk_tables` — per-target lists -> dense [T, k] tables;
 * a binary cache byte-compatible with the reference's
   ``ppr_float/{neighs,scores}_*.bin`` files, so tables computed by
-  either package (or the reference) are reused by the other.
+  either package (or the reference) are reused by the other, and the
+  shard files of a precompute split over hosts
+  (``shadow_gnn_torch/ppr_precompute.py``), merged into that cache.
 
 Semantics (as in the reference C++):
 * config ``alpha`` is flipped internally: ``alpha_int = 1 - alpha``;
@@ -19,6 +24,7 @@ from __future__ import annotations
 import heapq
 import os
 import struct
+import warnings
 from typing import Dict, Optional, Tuple
 
 import numpy as np
@@ -96,6 +102,96 @@ def ppr_push_host(indptr: np.ndarray, indices: np.ndarray,
     return neighs, scores
 
 
+# ---------------------------------------------------------------------------
+# batched power iteration on a torch device
+# ---------------------------------------------------------------------------
+
+def plan_device_ppr(num_nodes: int, num_edges: int, memory_bytes: Optional[int],
+                    want_batch: int = 512, min_batch: int = 256
+                    ) -> Tuple[bool, int]:
+    """``(use_device, batch)``: the automatic choice between
+    :func:`ppr_power_device` and the host push, which is always the host
+    push (the JAX package's measured choice, kept as it is), and the
+    block width for a caller that asks for the device path: about four
+    live [N, batch] f32 blocks and 12 bytes an edge must fit half the
+    device memory (16 GiB assumed when unknown); ``want_batch`` when
+    they do, else the largest width that fits, at least ``min_batch``."""
+    budget = 0.5 * float(memory_bytes if memory_bytes else 16 << 30)
+    avail = budget - 12.0 * num_edges
+    b_max = int(max(avail, 0.0) // (16.0 * num_nodes))
+    batch = want_batch if b_max >= want_batch else max(b_max, min_batch)
+    return False, batch
+
+
+def device_memory_bytes(device) -> Optional[int]:
+    """Total memory of a CUDA device; None for any other device."""
+    import torch
+    dev = torch.device(device)
+    if dev.type != "cuda":
+        return None
+    return int(torch.cuda.get_device_properties(dev).total_memory)
+
+
+def ppr_power_device(indptr: np.ndarray, indices: np.ndarray,
+                     targets: np.ndarray, k: int, alpha: float,
+                     num_iter: int = 50, batch: int = 512, device="cuda"
+                     ) -> Tuple[list, list]:
+    """Per-target PPR lists (neighs_list, scores_list) by the lazy walk's
+    power iteration on ``device``, ``batch`` targets a block:
+
+        pi <- alpha_int * e_t + (1 - alpha_int) / 2 * (pi + P^T pi),
+
+    from ``pi = alpha_int * e_t``, ``alpha_int = 1 - alpha`` (``alpha``
+    the config alpha), ``P = D^-1 A`` (degree at least 1), ``num_iter``
+    iterations over an [N, batch] f32 block (the last block padded with
+    node 0, whose columns are dropped), then ``torch.topk`` of each
+    column, keeping positive scores: the stationary vector the forward
+    push approximates, as ``shadow_gnn_tpu/sampling/ppr.py`` computes it.
+
+    ``P^T pi`` is ``torch.sparse.mm`` over a CSR matrix of ``P^T`` (rows
+    by destination, each row's sources ascending): one reduction per
+    row, in the row's order, so two runs give equal tables, where an
+    ``index_add_`` scatter (atomic on CUDA) would sum in another order
+    each time and flip ties in the top-k."""
+    import torch
+    dev = torch.device(device)
+    alpha_int = 1.0 - alpha
+    c = (1.0 - alpha_int) * 0.5
+    n = indptr.size - 1
+    deg_raw = np.diff(indptr).astype(np.int64)
+    inv_deg = (1.0 / np.maximum(deg_raw, 1).astype(np.float32)).astype(np.float32)
+    src = np.repeat(np.arange(n, dtype=np.int64), deg_raw)
+    dst = np.asarray(indices, dtype=np.int64)
+    order = np.lexsort((src, dst))
+    crow = np.zeros(n + 1, np.int64)
+    np.cumsum(np.bincount(dst, minlength=n), out=crow[1:])
+    with warnings.catch_warnings():
+        warnings.filterwarnings("ignore", "Sparse CSR tensor support is in beta")
+        warnings.filterwarnings("ignore", "Sparse invariant checks are implicitly")
+        p_t = torch.sparse_csr_tensor(
+            torch.as_tensor(crow), torch.as_tensor(src[order]),
+            torch.as_tensor(inv_deg[src[order]]), size=(n, n),
+            check_invariants=False).to(dev)
+    targets = np.asarray(targets, dtype=np.int64)
+    cols = torch.arange(batch, device=dev)
+    neighs, scores = [], []
+    for s in range(0, targets.size, batch):
+        blk = targets[s:s + batch]
+        at = torch.as_tensor(np.pad(blk, (0, batch - blk.size)), device=dev)
+        pi = torch.zeros(n, batch, device=dev)
+        pi[at, cols] = alpha_int
+        for _ in range(num_iter):
+            pi = torch.add(pi, torch.sparse.mm(p_t, pi)).mul_(c)
+            pi[at, cols] += alpha_int
+        top_v, top_i = torch.topk(pi.T, k)
+        top_v, top_i = top_v.cpu().numpy(), top_i.to(torch.int32).cpu().numpy()
+        for b in range(blk.size):
+            keep = top_v[b] > 0
+            neighs.append(top_i[b][keep])
+            scores.append(top_v[b][keep])
+    return neighs, scores
+
+
 def ppr_topk_tables(neighs, scores, k: int) -> Tuple[np.ndarray, np.ndarray]:
     """Pad per-target lists into dense [T, k] tables (pad: id=-1, score=0)."""
     t = len(neighs)
@@ -162,10 +258,17 @@ def _write_ragged_vec(path: str, lengths: np.ndarray, payload: np.ndarray,
 
 def _ragged_payloads(target_rows: np.ndarray, num_nodes: int, neighs, scores):
     """(lengths[num_nodes], neighs payload, scores payload) in node-id
-    row order, from per-target ragged lists."""
+    row order, from per-target ragged lists or dense [T, k] tables (pad
+    id=-1)."""
     targets = np.asarray(target_rows, dtype=np.int64)
     order = np.argsort(targets, kind="stable")
     lengths = np.zeros(num_nodes, np.int64)
+    if isinstance(neighs, np.ndarray) and neighs.ndim == 2:
+        keep = neighs >= 0
+        lengths[targets] = keep.sum(1)
+        sel = keep[order]
+        return (lengths, neighs[order][sel].astype("<u4"),
+                np.asarray(scores)[order][sel].astype("<f4"))
     lengths[targets] = np.fromiter((len(v) for v in neighs), np.int64,
                                    count=len(neighs))
     if not len(neighs):
@@ -233,3 +336,62 @@ def read_ppr_cache(fname_neighs: str, fname_scores: str, k: int,
     if sv is None:
         return None
     return nv, sv
+
+
+# ---------------------------------------------------------------------------
+# a precompute split over hosts
+# ---------------------------------------------------------------------------
+#
+# Each host pushes a round-robin slice of the targets (targets[shard::n])
+# and writes it to a shard file (.npz) beside the final cache; one host
+# then merges the shards into the reference-format bin pair.
+
+def shard_targets(targets: np.ndarray, shard: int, n_shards: int) -> np.ndarray:
+    """Shard ``shard`` of ``n_shards``: every n-th target, round robin
+    (hub-adjacent targets spread over the hosts)."""
+    if not 0 <= shard < n_shards:
+        raise ValueError(f"shard {shard} is not in [0, {n_shards})")
+    return np.asarray(targets)[shard::n_shards]
+
+
+def ppr_shard_path(fname_neighs: str, shard: int, n_shards: int) -> str:
+    return f"{fname_neighs}.shard{shard}of{n_shards}.npz"
+
+
+def write_ppr_shard(path: str, targets_sel: np.ndarray, tab_n: np.ndarray,
+                    tab_s: np.ndarray, k: int, alpha_config: float,
+                    epsilon: float):
+    """One shard: its targets and their dense [T, k] tables, with the
+    internal alpha, epsilon and k as its meta."""
+    os.makedirs(os.path.dirname(os.path.abspath(path)), exist_ok=True)
+    np.savez(path, targets=np.asarray(targets_sel, np.int64),
+             neighs=np.asarray(tab_n, np.int32),
+             scores=np.asarray(tab_s, np.float32),
+             meta=np.asarray([1.0 - alpha_config, epsilon, k], np.float64))
+
+
+def merge_ppr_shards(fname_neighs: str, fname_scores: str, num_nodes: int,
+                     n_shards: int, k: int, alpha_config: float,
+                     epsilon: float, cleanup: bool = True):
+    """Merge the ``n_shards`` shard files of ``fname_neighs`` into the bin
+    cache pair (removing the shards when ``cleanup``); raises on a
+    shard of other meta or on targets in two shards."""
+    tg, nn, ss = [], [], []
+    for s in range(n_shards):
+        p = ppr_shard_path(fname_neighs, s, n_shards)
+        z = np.load(p)
+        meta = z["meta"]
+        if not (abs(meta[0] - (1.0 - alpha_config)) < 1e-9
+                and abs(meta[1] - epsilon) < 1e-12 and int(meta[2]) == k):
+            raise ValueError(f"shard {p} meta mismatch: {meta}")
+        tg.append(z["targets"])
+        nn.append(z["neighs"])
+        ss.append(z["scores"])
+    targets = np.concatenate(tg)
+    if np.unique(targets).size != targets.size:
+        raise ValueError("overlapping shards")
+    write_ppr_cache(fname_neighs, fname_scores, num_nodes, targets,
+                    np.vstack(nn), np.vstack(ss), k, alpha_config, epsilon)
+    if cleanup:
+        for s in range(n_shards):
+            os.remove(ppr_shard_path(fname_neighs, s, n_shards))

@@ -20,15 +20,26 @@ post-processing reads (:meth:`Trainer.predict_full` /
 
 Differences from the JAX Trainer:
 * everything runs eagerly on ``device`` (default ``"cuda"``; CUDA
-  absent raises), one batch at a time: there are no epoch-scan, chunk,
-  partition or profiler programs;
+  absent raises), one batch at a time: there are no epoch-scan, chunk
+  or partition programs;
 * dropout masks come from a ``torch.Generator`` on the device and
   dropedge seeds from one on the host, both seeded per epoch from
   ``rng_np``; the masks themselves differ from JAX's.  ``rng_np`` is
-  consumed in the JAX Trainer's order (a permutation, then one seed,
-  per epoch), so epoch permutations match a JAX run whose first-epoch
-  subgraph profile is off (that profile draws one more permutation and
-  is not ported);
+  consumed in the JAX Trainer's order: the first-epoch subgraph
+  profile (``profiler``, on by default, :meth:`_profile_epoch`) draws
+  one permutation, then each epoch a permutation and one seed, so the
+  epoch permutations match a JAX run of the same seed with the profile
+  on or off in both.  The profile pass samples (its khop picks from a
+  generator seeded with 0) and counts; it runs no model and launches no
+  kernel.  Its edge count reads the packed bits of a packed model's
+  batches, where JAX's packed path counts a placeholder block (0 edges);
+* ``use_device_ppr=True`` runs the power iteration of
+  ``sampling/ppr.py:ppr_power_device`` on ``device``; None plans, which
+  picks the host push, as JAX's planner does;
+* ``trace_dir`` (``--trace_dir``): TRAIN epoch 1 runs under
+  ``torch.profiler`` (CPU and, on a card, CUDA activities) and its
+  Chrome trace is written into that directory, where JAX writes a
+  ``jax.profiler`` trace of the same epoch;
 * serving builds the mode's subgraph cache on the first request (the
   JAX Trainer builds it in its first epoch of that mode);
 * a ``khop`` branch draws its picks from the epoch's sampling
@@ -49,13 +60,16 @@ Differences from the JAX Trainer:
   the JAX package is refused (``train/logger.py:find_checkpoint``);
 * the precision trade (``matmul_precision``, ``compute_dtype``,
   ``feat_dtype``) is carried by ``ModelConfig`` and the feature table,
-  never by a global flag; ``matmul_precision="tensorfloat32"`` is not
-  ported.  A bf16 feature table is widened to the compute dtype at the
-  gather (exact), so an f32 model sees the rounded features in f32.
+  never by a process-wide setting (``tensorfloat32`` switches TF32 on
+  around each product only, ``ops/precision.py``).  A bf16 feature
+  table is widened to the compute dtype at the gather (exact), so an
+  f32 model sees the rounded features in f32.
 """
 from __future__ import annotations
 
+import contextlib
 import dataclasses
+import os
 import time
 from typing import Any, Dict, List, Optional, Tuple
 
@@ -77,6 +91,7 @@ from shadow_gnn_torch.sampling.samplers import PPRTables, sample_subgraphs
 from shadow_gnn_torch.train.config import DATA_METRIC, decouple_ensemble
 from shadow_gnn_torch.train.logger import Logger, find_checkpoint
 from shadow_gnn_torch.train.metrics import Metrics
+from shadow_gnn_torch.train.profiler import SubgraphProfiler, batch_stats
 
 CLIP_NORM = 5.0                 # reference models.py:223
 SERVE_SEED = 0                  # the khop picks of every request
@@ -89,6 +104,28 @@ def resolve_device(device) -> torch.device:
         raise RuntimeError("CUDA is not available: pass device='cpu' to run "
                            "on the CPU")
     return dev
+
+
+@contextlib.contextmanager
+def _epoch_trace(trace_dir: Optional[str], device: torch.device):
+    """Within the block, torch.profiler records the CPU and, on a card,
+    CUDA; its Chrome trace is then written into ``trace_dir``.  Nothing
+    is recorded when ``trace_dir`` is None."""
+    if trace_dir is None:
+        yield
+        return
+    from torch.profiler import ProfilerActivity, profile
+    acts = [ProfilerActivity.CPU]
+    if device.type == "cuda":
+        acts.append(ProfilerActivity.CUDA)
+    with profile(activities=acts) as prof:
+        yield
+        if device.type == "cuda":
+            torch.cuda.synchronize(device)
+    os.makedirs(trace_dir, exist_ok=True)
+    path = os.path.join(trace_dir, f"train_epoch1_{os.getpid()}.pt.trace.json")
+    prof.export_chrome_trace(path)
+    print(f"[trace] TRAIN epoch 1 -> {path}")
 
 
 def weighted_loss_parts(cfg: ModelConfig, logits: torch.Tensor,
@@ -150,10 +187,15 @@ class Trainer:
                  logger: Optional[Logger] = None, seed: int = 0, device="cuda",
                  packed_adj: bool = False, matmul_precision: Optional[str] = None,
                  compute_dtype: str = "float32", feat_dtype: str = "float32",
-                 fused_gat: Optional[bool] = None):
+                 fused_gat: Optional[bool] = None,
+                 use_device_ppr: Optional[bool] = None):
         """``metrics`` defaults to the dataset's metric (DATA_METRIC,
         else accuracy) and ``logger`` to one that writes no files.
-        ``matmul_precision`` (None = "float32", or "bfloat16"),
+        ``use_device_ppr``: True computes the PPR tables by the power
+        iteration on ``device``, False by the host push, None as
+        ``ppr_mod.plan_device_ppr`` picks (the host push).
+        ``matmul_precision`` (None = "float32", "bfloat16" or
+        "tensorfloat32"),
         ``compute_dtype`` and ``feat_dtype`` ("float32" or "bfloat16") are
         the JAX Trainer's arguments of those names; the model checks the
         first two.  ``fused_gat`` (None, True or False) is accepted as
@@ -231,6 +273,11 @@ class Trainer:
         self.feat_tab = tab.to(self.device)
         self.branches = self._build_branches()
         self.num_ensemble = len(self.branches)
+        # PPR tables per mode: the host push unless asked for the device
+        self._memory_bytes = ppr_mod.device_memory_bytes(self.device)
+        auto_dev, _ = ppr_mod.plan_device_ppr(
+            self.num_nodes, int(self._host_adj[TRAIN][1].size), self._memory_bytes)
+        self.use_device_ppr = auto_dev if use_device_ppr is None else use_device_ppr
         self.tables: Dict[int, List[PPRTables]] = {}
         self.caches: Dict[int, list] = {}
         # the link task never caches (minibatch.py:213)
@@ -277,6 +324,9 @@ class Trainer:
         # 1 = use every batch
         self.eval_train_every = 1
         self._lookup: Dict[int, np.ndarray] = {}
+        # --trace_dir: a torch.profiler trace of TRAIN epoch 1
+        self.trace_dir: Optional[str] = None
+        self.profiler = SubgraphProfiler(self.num_ensemble)
 
     def load_run(self, run_dir: str, optimizer: bool = False):
         """Load the newest checkpoint of the run dir ``run_dir`` into the
@@ -432,8 +482,17 @@ class Trainer:
                 nv, sv = cached
                 return [nv[t] for t in targets], [sv[t] for t in targets]
         t0 = time.time()
-        neighs, scores = ppr_mod.ppr_push_host(indptr, indices, targets, k_tab,
-                                               cfg.alpha, cfg.epsilon)
+        if self.use_device_ppr:
+            # the block fitted to this mode's graph, which may hold more
+            # edges than the TRAIN graph the constructor planned for
+            _, batch = ppr_mod.plan_device_ppr(self.num_nodes, int(indices.size),
+                                               self._memory_bytes)
+            neighs, scores = ppr_mod.ppr_power_device(
+                indptr, indices, targets, k_tab, cfg.alpha, batch=batch,
+                device=self.device)
+        else:
+            neighs, scores = ppr_mod.ppr_push_host(indptr, indices, targets, k_tab,
+                                                   cfg.alpha, cfg.epsilon)
         print(f"PPR precompute [{MODE2STR[mode]}] {targets.size} targets "
               f"in {time.time() - t0:.1f}s")
         if self.dir_data:
@@ -662,13 +721,22 @@ class Trainer:
         node set; logs and returns its stats."""
         self._ensure_tables(mode)
         self._ensure_caches(mode)
+        if epoch == 0 and status == "running" and self.profiler.enabled:
+            # the subgraph statistics of the first epoch, then no more
+            self._profile_epoch(mode)
+            print(f"[profiler] {MODE2STR[mode]} subgraph stats:")
+            self.profiler.print_summary()
+            self.profiler.clear_metrics()
+            self.profiler.enabled = False
         train = mode == TRAIN and status == "running"
         nb, roots, rows, labels_np, w_np = self._epoch_arrays(mode)
         rng = EpochRNG.from_seed(int(self.rng_np.integers(1 << 31)), self.device)
-        t0 = time.time()
-        losses, preds, ovf = self._run_batches(mode, train, nb, roots, rows,
-                                               labels_np, w_np, rng)
-        t1 = time.time()
+        traced = train and epoch == 1
+        with _epoch_trace(self.trace_dir if traced else None, self.device):
+            t0 = time.time()
+            losses, preds, ovf = self._run_batches(mode, train, nb, roots, rows,
+                                                   labels_np, w_np, rng)
+            t1 = time.time()
         if ovf > 0:
             print(f"[WARN] induction candidate overflow: {ovf} edges "
                   f"dropped this epoch (raise cand_cap)")
@@ -688,6 +756,25 @@ class Trainer:
         stats.update(self.metrics.calc(y_true, y_pred))
         self.logger.log_epoch(mode, epoch, stats, status=status, time_s=t1 - t0)
         return stats
+
+    def _profile_epoch(self, mode: int):
+        """Feed the profiler every batch of one epoch of ``mode``, sampled
+        as the epoch would be (its own draw from ``rng_np``, as JAX's
+        pass draws one; the khop picks from a generator seeded with 0),
+        reduced on the device, the padding rows left out.  No model runs."""
+        nb, roots, rows, _labels, w = self._epoch_arrays(mode)
+        valid_all = torch.as_tensor(w > 0, device=self.device)
+        gen = torch.Generator(device=self.device).manual_seed(0)
+        acc = [None] * self.num_ensemble
+        with torch.no_grad():
+            for sl, batches, _feats in self._batches(mode, nb, roots, rows, gen):
+                for i, b in enumerate(batches):
+                    st = batch_stats(b, valid_all[sl])
+                    acc[i] = st if acc[i] is None else tuple(
+                        a + x for a, x in zip(acc[i], st))
+        for i, (hops, nodes, edges, n) in enumerate(acc):
+            self.profiler.update_stats(i, hops.cpu().numpy(), nodes.item(),
+                                       edges.item(), n.item())
 
     def train(self, log_test_convergence: int = -1):
         """``end`` epochs of TRAIN then VALID (TEST every

@@ -83,6 +83,7 @@ def _trainers(cfg, planted=False, packed=False):
     jtr.profiler.enabled = False
     ttr = Trainer("toy", "", make(True), t_parse(cfg), seed=0, device="cpu",
                   packed_adj=packed)
+    ttr.profiler.enabled = False
     ttr.model.load_state_dict(params_from_flax(
         jax.tree_util.tree_map(np.asarray, jtr.params),
         aggr=cfg["architecture"]["aggr"]))

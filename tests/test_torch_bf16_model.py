@@ -309,8 +309,9 @@ def test_config_guards():
     assert tcfg.reads_packed_bits
     assert not dataclasses.replace(tcfg, compute_dtype="bfloat16").reads_packed_bits
     assert dataclasses.replace(tcfg, matmul_precision="bfloat16").reads_packed_bits
-    with pytest.raises(NotImplementedError, match="tensorfloat32"):
-        tmodel.DeepGNN(dataclasses.replace(tcfg, matmul_precision="tensorfloat32"))
+    # TF32 precision reads the packed bits too, in the kernel's bf16 mode
+    t32 = dataclasses.replace(tcfg, matmul_precision="tensorfloat32")
+    assert t32.reads_packed_bits and tmodel.DeepGNN(t32).cfg is t32
     for bad in (dict(matmul_precision="float16"), dict(compute_dtype="float16")):
         with pytest.raises(ValueError):
             tmodel.DeepGNN(dataclasses.replace(tcfg, **bad))

@@ -69,6 +69,7 @@ def _trainers(cfg, load=True):
     ttr = Trainer("toy", "", t_make(**GRAPH), t_parse(cfg),
                   Metrics("toy", True, "hits20", 1), seed=0, device="cpu",
                   packed_adj=True)
+    ttr.profiler.enabled = False
     if load:
         ttr.model.load_state_dict(params_from_flax(
             jax.tree_util.tree_map(np.asarray, jtr.params), prediction_task="link"))

@@ -88,11 +88,12 @@ def _run_one_epoch(cfg):
     jtr = JTrainer("toy", "", j_make(**GRAPH), j_parse(cfg), m,
                    JLogger(m, "", no_log=True), seed=0, use_device_ppr=False,
                    packed_adj=True)
-    # the JAX Trainer's first-epoch subgraph profile draws an extra
-    # permutation from rng_np; the port has no profiler
+    # the epochs below are driven step by step: both first-epoch
+    # subgraph profiles (each draws one permutation from rng_np) off
     jtr.profiler.enabled = False
     ttr = Trainer("toy", "", t_make(**GRAPH), t_parse(cfg), seed=0,
                   device="cpu", packed_adj=True)
+    ttr.profiler.enabled = False
     ttr.model.load_state_dict(params_from_flax(
         jax.tree_util.tree_map(np.asarray, jtr.params)))
 
@@ -355,11 +356,11 @@ def test_cli_device_ppr_host(mode):
 
 
 @pytest.mark.parametrize("flags, name", [
-    (["--device_ppr", "device"], "--device_ppr device"),
+    (["--chunk_batches", "4"], "--chunk_batches"),
     (["--gpu", "0", "--device", "cpu"], "--gpu")])
 def test_cli_refuses(flags, name, capsys):
-    """``--device_ppr device`` (the unported device power iteration) is
-    refused by name, and so is ``--gpu`` beside ``--device cpu``."""
+    """``--chunk_batches`` (a TPU-only mechanism) is refused by name, and
+    so is ``--gpu`` beside ``--device cpu``."""
     from shadow_gnn_torch.main import parse_args
     with pytest.raises(SystemExit) as exc:
         parse_args(CLI_BASE + flags)
