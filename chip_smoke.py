@@ -5,6 +5,8 @@ Run from the repository root on a machine with one CUDA GPU:
 
     python3 chip_smoke.py             # every phase below but `profile`
     python3 chip_smoke.py --profile   # adds the torch.profiler phase
+    python3 chip_smoke.py --parallel-nccl4   # only [parallel], at NCCL
+                                             # world 4 (four cards)
 
 Phases, each fatal on failure (an uncaught exception, non-zero exit):
 
@@ -226,7 +228,31 @@ Phases, each fatal on failure (an uncaught exception, non-zero exit):
              then 10 timed TRAIN steps (sampling included) with the share
              of sampling, induction and DRNL, and their device-busy share
              (torch.profiler; its top operations under ``--profile``);
-16. profile (``--profile`` only) — torch.profiler over cached requests
+16. parallel — partitioned training (``shadow_gnn_torch/parallel``),
+             run twice: after ``rest`` the flagship (its cuts, dropout 0,
+             dropedge 0, 1 epoch) and after the GAT-5 phases the GAT-5
+             (the same), each rank a process spawned through
+             ``parallel/launch.py`` (the CLI's entry) once the kernels are
+             built: NCCL at world 1 (flagship ``dp`` and ``feat``, GAT-5
+             ``edge``) and gloo at world 4 with every rank on cuda:0
+             (flagship ``dp``, GAT-5 ``edge``; NCCL cannot hold two ranks
+             on one card).  Each run against the single-card path on the
+             same weights and features (the PPR tables through a PPR
+             cache in a temp dir): the first TRAIN step's loss within
+             1e-5 relative of the whole batch's, its gradients and
+             updated parameters within 1e-5 of their max of the same
+             step over the ranks' column slices (weights whose first
+             Adam step still bends, |g| within 1e-5 of 0, held to Adam of
+             the rank's gradient), ``edge``'s induced node tables, blocks
+             and hops equal to the single card's bit for bit, the ranks'
+             parameters bit-equal after the epoch, every rank's B1a/B1b
+             (``dp``) or B2/B3 (``edge``) count above 0 over it, one VALID
+             epoch's accuracy equal to the single card's on the same
+             weights; then step ms a rank, the collectives' share of a
+             timed window (gloo's host staging apart), rank 0's
+             device-busy share and each rank's peak memory, one summary
+             line a run and partition (the ranks' own lines in the log);
+17. profile (``--profile`` only) — torch.profiler over cached requests
              (flagship 1 and 256 ids, GAT 128 ids, the power-law flagship
              1 and 256, the ensemble 1 and 128) and over 5 TRAIN steps of
              each model, f32 and at bf16 precision (the power-law
@@ -896,8 +922,23 @@ def _flagship_trainer(g, epochs=EPOCHS, arch=None, sampler=None, tag="[serve]",
     from shadow_gnn_torch.train.pipeline import Trainer
 
     t0 = time.perf_counter()
-    # configs/flickr_sage_3_ppr.yml, written out (the card machine may
-    # lack a yml parser); the synthetic graph has no inductive split
+    tr = Trainer(name, data_dir, _own_splits(g),
+                 parse_config(_flagship_cfg(epochs, arch, sampler)), seed=0,
+                 device="cuda", packed_adj=True, use_device_ppr=use_device_ppr,
+                 **precision)
+    _cut_splits(tr, ((TRAIN, TRAIN_NODES), (VALID, VALID_NODES), (TEST, TEST_NODES)))
+    torch.cuda.synchronize()
+    _detail(f"{tag} trainer {time.perf_counter() - t0:.1f}s {precision or ''}"
+            f"{arch or ''}")
+    return tr
+
+
+def _flagship_cfg(epochs=EPOCHS, arch=None, sampler=None):
+    """configs/flickr_sage_3_ppr.yml as a dict, ``end`` set to
+    ``epochs``; ``arch`` keys replace the architecture's, ``sampler`` the
+    sampler list."""
+    # written out (the card machine may lack a yml parser); the synthetic
+    # graph has no inductive split
     cfg = {
         "data": {"to_undirected": True, "transductive": True},
         "architecture": {"dim": 256, "aggr": "sage", "loss": "softmax",
@@ -913,14 +954,7 @@ def _flagship_trainer(g, epochs=EPOCHS, arch=None, sampler=None, tag="[serve]",
     cfg["architecture"].update(arch or {})
     if sampler is not None:
         cfg["sampler"] = sampler
-    tr = Trainer(name, data_dir, _own_splits(g), parse_config(cfg), seed=0,
-                 device="cuda", packed_adj=True, use_device_ppr=use_device_ppr,
-                 **precision)
-    _cut_splits(tr, ((TRAIN, TRAIN_NODES), (VALID, VALID_NODES), (TEST, TEST_NODES)))
-    torch.cuda.synchronize()
-    _detail(f"{tag} trainer {time.perf_counter() - t0:.1f}s {precision or ''}"
-            f"{arch or ''}")
-    return tr
+    return cfg
 
 
 def _gat_trainer(g, epochs=EPOCHS, retrain_dir=None, **precision):
@@ -934,7 +968,28 @@ def _gat_trainer(g, epochs=EPOCHS, retrain_dir=None, **precision):
     from shadow_gnn_torch import TEST, TRAIN, VALID
     from shadow_gnn_torch.train.config import parse_config
     from shadow_gnn_torch.train.pipeline import Trainer
-    # configs/products_gat_5_ppr_leaderboard.yml, written out; `end` cut
+    t0 = time.perf_counter()
+    tr = Trainer("products_synth", "", _own_splits(g),
+                 parse_config(_gat_cfg(epochs, retrain_dir)), seed=0, device="cuda",
+                 **precision)
+    _cut_splits(tr, ((TRAIN, GAT_TRAIN), (VALID, GAT_VALID), (TEST, GAT_TEST)))
+    torch.cuda.synchronize()
+    log = tr.preproc_log
+    _detail(f"[gat] {precision} trainer {time.perf_counter() - t0:.1f}s; "
+            f"preprocessing: label smoothening {log['label_smoothen_s']:.2f}s, "
+            f"{log['label_smoothen_steps']} iterations; features "
+            f"{tr.dim_feat_smooth} + label inputs {tr.dim_label_smooth}")
+    if not 1 < log["label_smoothen_steps"] < 100:
+        raise AssertionError("the ppr label smoothening did not converge "
+                             "within its 100 iterations")
+    if tr.model_cfg.mulhead != 4 or not tr.branches[0]["cfg"][TRAIN].add_self_edge:
+        raise AssertionError("the GAT-5 trainer lost its heads or self edges")
+    return tr
+
+
+def _gat_cfg(epochs=EPOCHS, retrain_dir=None):
+    """configs/products_gat_5_ppr_leaderboard.yml as a dict, ``end`` set
+    to ``epochs``."""
     cfg = {
         "data": {"transductive": True},
         "architecture": {"dim": 512, "aggr": "gat", "heads": 4, "loss": "softmax",
@@ -950,22 +1005,7 @@ def _gat_trainer(g, epochs=EPOCHS, retrain_dir=None, **precision):
     }
     if retrain_dir is not None:
         cfg["hyperparameter"]["retrain_dir"] = retrain_dir
-    t0 = time.perf_counter()
-    tr = Trainer("products_synth", "", _own_splits(g), parse_config(cfg), seed=0,
-                 device="cuda", **precision)
-    _cut_splits(tr, ((TRAIN, GAT_TRAIN), (VALID, GAT_VALID), (TEST, GAT_TEST)))
-    torch.cuda.synchronize()
-    log = tr.preproc_log
-    _detail(f"[gat] {precision} trainer {time.perf_counter() - t0:.1f}s; "
-            f"preprocessing: label smoothening {log['label_smoothen_s']:.2f}s, "
-            f"{log['label_smoothen_steps']} iterations; features "
-            f"{tr.dim_feat_smooth} + label inputs {tr.dim_label_smooth}")
-    if not 1 < log["label_smoothen_steps"] < 100:
-        raise AssertionError("the ppr label smoothening did not converge "
-                             "within its 100 iterations")
-    if tr.model_cfg.mulhead != 4 or not tr.branches[0]["cfg"][TRAIN].add_self_edge:
-        raise AssertionError("the GAT-5 trainer lost its heads or self edges")
-    return tr
+    return cfg
 
 
 def _check_probs(p, s, num_classes):
@@ -3232,6 +3272,420 @@ def phase_link(graph, profile=False):
     torch.cuda.empty_cache()
 
 
+# --------------------------------------------------------------------------
+# [parallel]: partitioned training (shadow_gnn_torch/parallel)
+# --------------------------------------------------------------------------
+
+# (backend, world, device) of the phase's runs on one card: NCCL at world
+# 1 (it cannot hold two ranks of a group on one card) and gloo at world 4,
+# every rank on cuda:0 (gloo stages CUDA tensors through host memory)
+PARALLEL_RUNS = (("nccl", 1, "cuda"), ("gloo", 4, "cuda:0"))
+PARALLEL_WINDOW = 8             # steps of each timed window
+PARALLEL_TIMEOUT_S = 300        # a rank's group fails a collective waiting longer
+PARALLEL_BUDGET_S = 240         # the phase aims at 120 s
+# kind -> (partitions of the NCCL run, of the gloo run), the kernels that
+# every rank of a run must launch, the splits' cuts
+PARALLEL_MODELS = {
+    "flagship": (("dp", "feat"), ("dp",), ("packed_spmm", "packed_spmm_t"),
+                 (TRAIN_NODES, VALID_NODES, TEST_NODES)),
+    "gat": (("edge",), ("edge",), ("gat_attention", "gat_attention_bwd"),
+            (GAT_TRAIN, GAT_VALID, GAT_TEST)),
+}
+
+
+def _parallel_cfg(kind):
+    """The model's config at dropout 0 and dropedge 0, 1 epoch."""
+    cfg = _flagship_cfg(1) if kind == "flagship" else _gat_cfg(1)
+    cfg["hyperparameter"].update(dropout=0.0, dropedge=0.0)
+    return cfg
+
+
+def _parallel_trainer(spec, g, device, partition="none"):
+    """A trainer of ``spec`` on ``g`` (its PPR cache in ``spec["dir"]``),
+    the splits cut, the profile off.  A rank's trainer takes the
+    reference's feature table (``spec["feat"]``): the label smoothening
+    sums with the atomic ``index_add_`` on the card, so a table
+    preprocessed again differs in its last bits, and a kinked activation
+    downstream turns that into gradients 1e-3 of their max apart."""
+    import numpy as np
+    import torch
+    from shadow_gnn_torch import TEST, TRAIN, VALID
+    from shadow_gnn_torch.train.config import parse_config
+    from shadow_gnn_torch.train.pipeline import Trainer
+    tr = Trainer(spec["name"], spec["dir"], _own_splits(g), parse_config(spec["cfg"]),
+                 seed=0, device=device, packed_adj=spec["packed"],
+                 use_device_ppr=False, partition=partition)
+    _cut_splits(tr, zip((TRAIN, VALID, TEST), spec["cuts"]))
+    tr.profiler.enabled = False
+    if partition == "none":
+        np.save(spec["feat"], tr.feat_np)
+    else:
+        tr.feat_np = np.load(spec["feat"])
+        tr.feat_tab = torch.as_tensor(tr.feat_np).to(tr.device, tr.feat_tab.dtype)
+    return tr
+
+
+def _kernel_fns(names):
+    from shadow_gnn_torch.ops import gat, packed
+    return [getattr(packed, n, None) or getattr(gat, n) for n in names]
+
+
+def _sync(dev):
+    import torch
+    if dev.type == "cuda":
+        torch.cuda.synchronize(dev)
+
+
+def _busy_ms(dev, fn):
+    """Run ``fn()``; its device-busy ms (torch.profiler's kernel
+    events), or None where the profiler sees no device time (or runs on
+    the CPU)."""
+    if dev.type != "cuda":
+        fn()
+        return None
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    _sync(dev)
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        fn()
+        _sync(dev)
+    us = sum(e.time_range.elapsed_us() for e in prof.events()
+             if e.device_type == DeviceType.CUDA and not e.is_user_annotation)
+    return us / 1e3 if us else None
+
+
+def _parallel_rank(spec):
+    """One rank of a [parallel] run: for each partition of ``spec`` a
+    trainer (the PPR tables from the parent's cache), the start weights,
+    then batch 0's induced blocks (``edge``), the first TRAIN step (its
+    loss, gradients and parameters), the rest of the epoch (step ms, the
+    kernel launches), a window with the collectives timed, a window under
+    torch.profiler (rank 0), the replicas' checksum, one VALID epoch;
+    writes ``<tag>.<partition>.rank<r>.npz`` / ``.json`` and logs to
+    ``<tag>.rank<r>.log`` in ``spec["dir"]``."""
+    import pickle
+    import numpy as np
+    import torch
+    from shadow_gnn_torch import TRAIN, VALID
+    from shadow_gnn_torch.parallel import collectives as cc
+    from shadow_gnn_torch.parallel import multihost as mh
+    r, dev = mh.rank(), mh.device()
+    base = os.path.join(spec["dir"], spec["tag"])
+    sys.stdout = open(f"{base}.rank{r}.log", "w", buffering=1)
+    print(f"rank {r} of {mh.world_size()} ({mh.backend()}) on {dev}")
+    with open(spec["graph"], "rb") as f:
+        g = pickle.load(f)
+    fns = _kernel_fns(spec["kernels"])
+    for part in spec["partitions"]:
+        t_run = time.perf_counter()
+        if dev.type == "cuda":
+            torch.cuda.reset_peak_memory_stats(dev)
+        tr = _parallel_trainer(spec, g, dev, part)
+        tr.model.load_state_dict(torch.load(spec["state"], map_location=dev))
+        tr._ensure_tables(TRAIN)
+        tr._ensure_caches(TRAIN)
+        nb, roots, rows, labels, w = tr._epoch_arrays(TRAIN)
+        seed = int(tr.rng_np.integers(1 << 31))
+        b, sl = tr.batch_size, mh.process_slice(tr.batch_size)
+        out, arrays = {"partition": part}, {}
+        if part == "edge":
+            step = tr._partition_step(TRAIN, True)
+            with torch.no_grad():
+                batches, _ = step.sample_all(
+                    torch.as_tensor(roots[sl].astype(np.int64), device=dev),
+                    torch.as_tensor(rows[sl].astype(np.int64), device=dev),
+                    torch.Generator(device=dev).manual_seed(0))
+            for k in ("nodes", "adj", "hop"):
+                arrays[f"block_{k}"] = getattr(batches[0], k).cpu().numpy()
+        for fn in fns:
+            fn.launches = 0
+
+        def run(lo, n):
+            return tr._run_partition(TRAIN, True, n, roots[lo * b:(lo + n) * b],
+                                     rows[lo * b:(lo + n) * b],
+                                     labels[lo * b:(lo + n) * b],
+                                     w[lo * b:(lo + n) * b], seed)
+        losses, _, _ = run(0, 1)
+        out["loss0"] = float(losses[0])
+        if r == 0:
+            for k, p in tr.model.named_parameters():
+                arrays[f"grad/{k}"] = p.grad.cpu().numpy().copy()
+            for k, v in tr.model.state_dict().items():
+                arrays[f"param1/{k}"] = v.cpu().numpy().copy()
+        _sync(dev)
+        t0 = time.perf_counter()
+        run(1, nb - 1)
+        _sync(dev)
+        out["step_ms"] = (time.perf_counter() - t0) * 1e3 / max(nb - 1, 1)
+        out["launches"] = [fn.launches for fn in fns]
+        window = min(PARALLEL_WINDOW, nb)
+        cc.reset_stats()
+        cc.timing = True
+        _sync(dev)
+        t0 = time.perf_counter()
+        run(0, window)
+        wall = time.perf_counter() - t0
+        cc.timing = False
+        out["window_ms"] = wall * 1e3 / window
+        out["collective_share"] = cc.stats["seconds"] / wall
+        out["stage_share"] = cc.stats["stage_seconds"] / wall
+        out["collective_calls"] = cc.stats["calls"] / window
+        out["collective_mb"] = cc.stats["bytes"] / window / 2**20
+        # every rank runs the window (its collectives); rank 0 profiles it
+        busy = None
+        if r == 0:
+            busy = _busy_ms(dev, lambda: run(0, window))
+        else:
+            run(0, window)
+        out["busy_share"] = (busy / window / out["step_ms"]) if busy else None
+        out["checksum"] = tr.param_checksum().cpu().tolist()
+        if r == 0:
+            torch.save(tr.model.state_dict(), f"{base}.{part}.final.pt")
+        stats = tr.run_epoch(0, VALID)
+        out["valid"] = [stats["loss"], stats["accuracy"]]
+        out["peak_gib"] = (torch.cuda.max_memory_allocated(dev) / 2**30
+                           if dev.type == "cuda" else None)
+        out["dispatches"] = tr.partition_train_dispatches
+        out["run_s"] = time.perf_counter() - t_run
+        print(f"{part}: {json.dumps(out)}")
+        np.savez(f"{base}.{part}.rank{r}.npz", **arrays)
+        with open(f"{base}.{part}.rank{r}.json", "w") as f:
+            json.dump(out, f)
+        del tr
+        if dev.type == "cuda":
+            torch.cuda.empty_cache()
+
+
+def _parallel_reference(spec, g, device, worlds):
+    """The single-card path on the same graph, weights and first batch,
+    as a dict: the trainer, its rng_np state where the ranks' VALID
+    epoch starts, batch 0's induced blocks (sampled uncached), the
+    whole batch's first-step ``loss`` / ``grads`` / ``params``, and for
+    each world size W > 1 of ``worlds`` the same step over the ranks'
+    column slices in turn (W forwards at the ranks' shapes, each part
+    divided by the whole batch's weight sum, the gradients accumulated,
+    then one clip and Adam step).  The whole batch's products take other
+    GEMM shapes than a rank's B / W rows, so its kinked activations may
+    cross 0 where a rank's do not; the slices' step has the ranks'
+    shapes.  Writes the start weights."""
+    import copy
+    import numpy as np
+    import torch
+    from shadow_gnn_torch import TRAIN, VALID
+    from shadow_gnn_torch.sampling.samplers import sample_subgraphs
+    from shadow_gnn_torch.train.pipeline import (CLIP_NORM, EpochRNG,
+                                                 clip_grad_global_norm_,
+                                                 make_optimizer, weighted_loss_parts)
+    tr = _parallel_trainer(spec, g, device)
+    start = copy.deepcopy(tr.model.state_dict())
+    torch.save(start, spec["state"])
+    start_np = {k: v.cpu().numpy().astype(np.float64) for k, v in start.items()}
+    for m in (TRAIN, VALID):
+        tr._ensure_tables(m)             # the push, cached for the ranks
+    tr._ensure_caches(TRAIN)
+    nb, roots, rows, labels, w = tr._epoch_arrays(TRAIN)
+    b, dev = tr.batch_size, tr.device
+    roots_d = torch.as_tensor(roots[:b].astype(np.int64), device=dev)
+    rows_d = torch.as_tensor(rows[:b].astype(np.int64), device=dev)
+    with torch.no_grad():
+        blk = sample_subgraphs(tr.branches[0]["cfg"][TRAIN], tr.graph[TRAIN],
+                               roots_d, rows_d, tr.tables[TRAIN][0])
+    ref = {"tr": tr, "start": start_np,
+           "blocks": {k: getattr(blk, k).cpu().numpy() for k in ("nodes", "adj", "hop")}}
+    seed = int(tr.rng_np.integers(1 << 31))
+    ref["rng_state"] = copy.deepcopy(tr.rng_np.bit_generator.state)
+
+    def snapshot(loss):
+        return (loss, {k: p.grad.cpu().numpy().copy()
+                       for k, p in tr.model.named_parameters()},
+                {k: v.cpu().numpy().copy() for k, v in tr.model.state_dict().items()})
+    losses, _, _ = tr._run_batches(TRAIN, True, 1, roots[:b], rows[:b], labels[:b],
+                                   w[:b], EpochRNG.from_seed(seed, dev))
+    ref[1] = snapshot(float(losses[0]))
+    lab_d = torch.as_tensor(labels[:b].astype(np.int64), device=dev)
+    w_d = torch.as_tensor(w[:b], device=dev)
+    for world in sorted(set(worlds) - {1}):
+        tr.model.load_state_dict(start)
+        tr.optimizer = make_optimizer(tr.model.parameters(),
+                                      float(tr.params_train["lr"]))
+        tr.model.train()
+        den = torch.clamp(w_d.sum(), min=1.0)
+        loss, per = 0.0, b // world
+        for r in range(world):
+            sl = slice(r * per, (r + 1) * per)
+            with torch.no_grad():
+                batches, feats = tr._sample_branch_batches(TRAIN, roots_d[sl],
+                                                           rows_d[sl])
+            logits, _ = tr.model(batches, feats, None, 0, True)
+            part = weighted_loss_parts(tr.model_cfg, logits, lab_d[sl], w_d[sl])[0] / den
+            part.backward()
+            loss += float(part.detach())
+        clip_grad_global_norm_(tr.model.parameters(), CLIP_NORM)
+        tr.optimizer.step()
+        tr.model.eval()
+        ref[world] = snapshot(loss)
+    return ref
+
+
+def _parallel_check(tag, ranks, ref, world):
+    """Hold one partitioned run against the single-card reference: the
+    loss against the whole batch's (1e-5 relative); the gradients and
+    the updated parameters against the same step over the ranks' slices
+    (``_parallel_reference``; 1e-5 of their max), the whole batch's
+    gradient distance printed; the ranks' checksums equal; ``edge``:
+    each rank's induced blocks equal the single card's.  Returns (loss
+    rel, gradient and parameter errors of their max, the weights left
+    free, the whole batch's gradient distance)."""
+    import numpy as np
+    loss_ref = ref[1][0]
+    _, grads_ref, params_ref = ref[world]
+    blocks = ref["blocks"]
+    arrays0 = {k[4:]: v for k, v in ranks[0].items() if k.startswith("arr/")}
+    part = ranks[0]["partition"]
+    rel = max(abs(o["loss0"] - loss_ref) / abs(loss_ref) for o in ranks)
+    if rel > 1e-5:
+        raise AssertionError(f"{tag} {part}: first-step loss {rel:.2e} relative "
+                             "from the single card's")
+    def g_dist(want):
+        return max(float(np.abs(arrays0[f"grad/{k}"] - v).max())
+                   / max(float(np.abs(v).max()), 1e-30) for k, v in want.items())
+    g_err, g_whole = g_dist(grads_ref), g_dist(ref[1][1])
+    if g_err > 1e-5:
+        raise AssertionError(f"{tag} {part}: first-step gradients {g_err:.2e} of "
+                             "their max from the single card's")
+    # Adam's first step moves a weight by lr * g / (|g| + eps): +-lr by the
+    # sign of g where |g| >> eps.  A gradient within the check's 1e-5 of
+    # its max may take either sign, and within 1e-5 of 0 (1000 eps) the
+    # step still bends, moving by up to lr * eps * |dg| / (|g| + eps)^2:
+    # there the rank's step is held to Adam of the rank's own gradient
+    # (the rank applied the update it computed); every weight to that,
+    # and every other one to the single card's, within 1e-5 of its
+    # parameter's max
+    lr, eps = float(ref["tr"].params_train["lr"]), 1e-8
+    p_err, a_err, free, name = 0.0, 0.0, 0, ""
+    for k, v in params_ref.items():
+        scale = max(float(np.abs(v).max()), 1e-30)
+        got, gk = arrays0[f"param1/{k}"], grads_ref.get(k)
+        d = np.abs(got - v)
+        if gk is not None:
+            g_rank = arrays0[f"grad/{k}"].astype(np.float64)
+            adam = ref["start"][k] - lr * g_rank / (np.abs(g_rank) + eps)
+            a_err = max(a_err, float(np.abs(got - adam).max()) / scale)
+            bent = np.abs(gk) <= max(1e-5 * float(np.abs(gk).max()), 1e3 * eps)
+            free += int((bent & (d > 1e-5 * scale)).sum())
+            d = np.where(bent, 0.0, d)
+        if float(d.max()) / scale > p_err:
+            p_err, name = float(d.max()) / scale, k
+    if max(p_err, a_err) > 1e-5:
+        raise AssertionError(f"{tag} {part}: updated parameters {p_err:.2e} of "
+                             f"their max from the single card's ({name}), "
+                             f"{a_err:.2e} from Adam of the rank's gradients")
+    if any(o["checksum"] != ranks[0]["checksum"] for o in ranks):
+        raise AssertionError(f"{tag} {part}: the ranks' parameters differ")
+    if part == "edge":
+        b = blocks["nodes"].shape[0] // world
+        for r, a in enumerate(ranks):
+            for k, want in blocks.items():
+                if not np.array_equal(a[f"arr/block_{k}"], want[r * b:(r + 1) * b]):
+                    raise AssertionError(f"{tag} edge: rank {r}'s induced {k} differ "
+                                         "from the single card's")
+    return rel, g_err, p_err, free, g_whole
+
+
+def phase_parallel(g, kind, runs=PARALLEL_RUNS, spec_update=None):
+    """[parallel] for one model: the single-card reference in this process,
+    then each run of ``runs`` spawned through ``parallel/launch.py`` (the
+    CLI's entry; the kernels already built): every partition's first
+    TRAIN step, its launches, the replicas, one VALID epoch.  One summary
+    line a run and partition on standard output, the ranks' logs in the
+    full log."""
+    import glob
+    import pickle
+    import shutil
+    import tempfile
+    import numpy as np
+    import torch
+    from shadow_gnn_torch import VALID
+    from shadow_gnn_torch.parallel import launch
+    t_phase = time.perf_counter()
+    nccl_parts, gloo_parts, kernels, cuts = PARALLEL_MODELS[kind]
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_parallel_")
+    try:
+        spec = dict(name=f"{kind}_synth", dir=tmp, cfg=_parallel_cfg(kind), cuts=cuts,
+                    packed=kind == "flagship", kernels=kernels,
+                    state=os.path.join(tmp, "state.pt"),
+                    graph=os.path.join(tmp, "graph.pkl"),
+                    feat=os.path.join(tmp, "feat.npy"))
+        spec.update(spec_update or {})
+        with open(spec["graph"], "wb") as f:
+            pickle.dump(g, f, protocol=pickle.HIGHEST_PROTOCOL)
+        dev = torch.device(runs[0][2].split(":")[0])
+        ref = _parallel_reference(spec, g, dev, [world for _, world, _ in runs])
+        tr_ref = ref["tr"]
+        for backend, world, device in runs:
+            parts = nccl_parts if backend == "nccl" or world == 1 else gloo_parts
+            tag = f"{kind}.{backend}{world}"
+            t0 = time.perf_counter()
+            launch.spawn(_parallel_rank, world, device,
+                         (dict(spec, tag=tag, partitions=parts),), backend=backend,
+                         timeout_s=PARALLEL_TIMEOUT_S)
+            spawn_s = time.perf_counter() - t0
+            for path in sorted(glob.glob(os.path.join(tmp, f"{tag}.rank*.log"))):
+                with open(path) as f:
+                    _detail(f"[parallel] {os.path.basename(path)}:\n{f.read().rstrip()}")
+            for part in parts:
+                ranks = []
+                for r in range(world):
+                    with open(os.path.join(tmp, f"{tag}.{part}.rank{r}.json")) as f:
+                        o = json.load(f)
+                    for k, v in np.load(os.path.join(
+                            tmp, f"{tag}.{part}.rank{r}.npz")).items():
+                        o[f"arr/{k}"] = v
+                    ranks.append(o)
+                rel, g_err, p_err, free, g_whole = _parallel_check(
+                    f"[parallel {tag}]", ranks, ref, world)
+                low = [o["launches"] for o in ranks if min(o["launches"], default=0) <= 0]
+                if part != "feat" and spec["kernels"] and low:
+                    raise AssertionError(f"[parallel {tag}] {part}: a rank launched "
+                                         f"no {spec['kernels']} kernel: {low}")
+                tr_ref.model.load_state_dict(torch.load(
+                    os.path.join(tmp, f"{tag}.{part}.final.pt"), map_location=dev))
+                tr_ref.rng_np.bit_generator.state = ref["rng_state"]
+                want = tr_ref.run_epoch(0, VALID)
+                accs = {o["valid"][1] for o in ranks}
+                if accs != {want["accuracy"]}:
+                    raise AssertionError(f"[parallel {tag}] {part}: VALID accuracy "
+                                         f"{accs} against the single card's "
+                                         f"{want['accuracy']}")
+                per = [f"{o['step_ms']:.2f}" for o in ranks]
+                mem = [f"{o['peak_gib']:.2f}" if o["peak_gib"] is not None else "n/a"
+                       for o in ranks]
+                busy = ranks[0]["busy_share"]
+                _detail(f"[parallel] {kind} {part} {backend}{world}: "
+                        f"{free} bent-step weights held to Adam; first-step "
+                        f"gradients {g_whole:.1e} of max from the whole batch's; "
+                        f"launches a rank {[o['launches'] for o in ranks]}; "
+                        f"collectives {ranks[0]['collective_calls']:.0f} calls, "
+                        f"{ranks[0]['collective_mb']:.2f} MiB a step")
+                print(f"[parallel] {kind} {part} {backend}{world}: step 1 loss "
+                      f"{rel:.1e} rel, grads {g_err:.1e}, params {p_err:.1e} of max; "
+                      f"ranks bit-equal; {'/'.join(spec['kernels'])} launches "
+                      f"{ranks[0]['launches']} (rank 0); VALID acc {want['accuracy']:.4f} = "
+                      f"1 card; step ms {'/'.join(per)}; collectives "
+                      f"{ranks[0]['collective_share']:.3f} (gloo staging "
+                      f"{ranks[0]['stage_share']:.3f}); busy "
+                      + (f"{busy:.3f}" if busy is not None else "n/a")
+                      + f"; peak GiB {'/'.join(mem)}; spawn {spawn_s:.1f}s")
+        del tr_ref, ref
+        if dev.type == "cuda":
+            torch.cuda.empty_cache()
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    wall = time.perf_counter() - t_phase
+    print(f"[parallel] {kind} phase {wall:.1f}s")
+    return wall
+
+
 def main():
     """Every phase, with standard output kept to the summaries
     (``_Stdout``) and the full log in ``LOG_NAME``."""
@@ -3262,6 +3716,14 @@ def _run(here):
     profile = "--profile" in sys.argv[1:]
     t_all = time.perf_counter()
     phase_build()
+    if "--parallel-nccl4" in sys.argv[1:]:
+        # the partitioned runs across four cards, one rank a card
+        runs = (("nccl", 4, "cuda"),)
+        t = phase_parallel(_flickr_graph(), "flagship", runs)
+        t += phase_parallel(_products_graph(), "gat", runs)
+        print(f"[chip_smoke] [parallel] at NCCL world 4 passed in {t:.1f}s")
+        print(_card())
+        return 0
     max_abs_err = phase_kernels()
     max_abs_err.update(phase_kernels_gat())
     phase_precision()
@@ -3312,6 +3774,8 @@ def _run(here):
     rows += phase_matrix(flickr, max_abs_err, profile)
     # the remaining single-card capabilities on the same graph
     phase_rest(flickr)
+    # partitioned training: the flagship under dp and feat
+    t_parallel = phase_parallel(flickr, "flagship")
     del flickr
     torch.cuda.empty_cache()
 
@@ -3355,8 +3819,14 @@ def _run(here):
         raise AssertionError("the feature table is not bf16")
     reqs, _ = phase_serve(tr, GAT_SIZES, b2b, "[gat bf16 act]")
     phase_train(tr, reqs, b2b, b3b, "[gat bf16 act]")
-    del tr, reqs, products
+    del tr, reqs
     torch.cuda.empty_cache()
+    # partitioned training: the GAT-5 under edge
+    t_parallel += phase_parallel(products, "gat")
+    if t_parallel > PARALLEL_BUDGET_S:
+        raise AssertionError(f"[parallel] took {t_parallel:.1f}s, over its "
+                             f"{PARALLEL_BUDGET_S} s budget")
+    del products
 
     # the flagship on a power-law graph: hub induction, cold steps
     phase_power_law(_flickr_power_graph(), profile)

@@ -19,6 +19,9 @@ nn        SAGE and GAT layers and dropout, ResPool, the ensemble
 train     config parsing, the Trainer (training, serving, reload,
           inference, full-graph prediction and embedding), metrics, the
           logger and its checkpoints, the inference cost count
+parallel  partitioned training on torch.distributed, one process a
+          device: process-group bring-up, the collectives, the dp /
+          feat / edge steps, the ring SpMM and the edge-partitioned C&S
 postproc  Correct & Smooth and the subgraph post-ensemble
 convert   flax parameter trees -> state_dicts (DeepGNN, ModelPostEns)
 main      the CLI (``python -m shadow_gnn_torch.main``): train,

@@ -37,8 +37,21 @@ ingests a local dataset archive when the dataset's files are absent,
 ``--meta_config`` reads the machine meta-config (data and log dirs,
 metric map, ``ignore_config_name``, a logger class), and ``--trace_dir``
 writes a torch.profiler trace of TRAIN epoch 1.  The checkpoints are
-the port's own ``torch.save`` files.  The JAX CLI's other flags are
-accepted by name and refused with an error (``REFUSED_FLAGS``).
+the port's own ``torch.save`` files.
+
+Multi-card training (``parallel/``): ``--partition dp|feat|edge`` trains
+and evaluates partitioned, one process a device.  Without
+``--distributed`` the command spawns ``--partition_devices`` local ranks
+itself (0 = every card; on ``--device cpu`` the count must be given),
+where JAX trains over ``jax.devices()`` of one process.  With
+``--distributed`` the process joins the group of a launcher (torchrun's
+variables, or JAX's ``JAX_COORDINATOR_ADDRESS`` / ``JAX_NUM_PROCESSES``
+/ ``JAX_PROCESS_ID``) before anything touches the card, and drives
+``cuda:LOCAL_RANK``; ``--partition_devices`` must then be 0 or the world
+size.  NCCL cannot put two ranks on one card, so more ranks than cards
+is refused.  Rank 0 alone prints, logs and writes the run dir, whose
+name it broadcasts.  The JAX CLI's other flags are accepted by name and
+refused with an error (``REFUSED_FLAGS``).
 """
 from __future__ import annotations
 
@@ -47,22 +60,18 @@ import json
 import os
 import random
 import string
+import sys
 import time
 import traceback
 
 # flags of the JAX CLI the port refuses, and why
-_MULTI = "multi-card and multi-host training is not ported yet (ROADMAP A8)"
 _TPU_ONLY = "a TPU-only mechanism of the JAX package, not ported by design: "
 REFUSED_FLAGS = {
-    "distributed": _MULTI,
-    "partition": _MULTI,
-    "partition_devices": _MULTI,
     "chunk_batches": _TPU_ONLY + "the size of a compiled evaluation chunk "
                      "program; the port runs its batches eagerly",
     "prng": _TPU_ONLY + "the JAX PRNG implementation of the masks; the port "
             "draws them from torch.Generator",
 }
-_SWITCHES = ("distributed",)
 # --platform -> torch device type
 PLATFORMS = {"cpu": "cpu", "gpu": "cuda", "cuda": "cuda"}
 
@@ -201,12 +210,23 @@ def build_argparser():
                         "epoch 1 into this dir")
     p.add_argument("--no_pbar", action="store_true",
                    help="accepted for reference-CLI compatibility (no-op)")
+    p.add_argument("--distributed", action="store_true",
+                   help="join the process group of a launcher (torchrun's RANK, "
+                        "WORLD_SIZE, LOCAL_RANK, MASTER_ADDR, MASTER_PORT, or "
+                        "JAX_COORDINATOR_ADDRESS / JAX_NUM_PROCESSES / "
+                        "JAX_PROCESS_ID); each rank drives cuda:LOCAL_RANK")
+    p.add_argument("--partition", type=str, default="none",
+                   choices=["none", "dp", "feat", "edge"],
+                   help="partitioned training, one process a device: dp = "
+                        "data-parallel (replicated storage), feat = + row-sharded "
+                        "feature table, edge = graph, features and PPR tables "
+                        "all row-sharded")
+    p.add_argument("--partition_devices", type=int, default=0,
+                   help="ranks of --partition (0 = every card, or the world "
+                        "size under --distributed)")
     for name in REFUSED_FLAGS:
-        if name in _SWITCHES:
-            p.add_argument(f"--{name}", action="store_true", help=argparse.SUPPRESS)
-        else:
-            p.add_argument(f"--{name}", default=None, nargs="?", const="",
-                           help=argparse.SUPPRESS)
+        p.add_argument(f"--{name}", default=None, nargs="?", const="",
+                       help=argparse.SUPPRESS)
     return p
 
 
@@ -269,11 +289,54 @@ def parse_args(argv=None):
     if args.device is None:
         args.device = "cuda"
     args.task, args.config_path = _task(args, parser)
+    if args.partition_devices < 0:
+        parser.error("--partition_devices must be 0 or more")
+    if args.partition != "none" and args.task == "postproc":
+        parser.error("--partition trains and evaluates; the post-processing "
+                     "partitions by its config's n_shards")
+    if args.distributed and args.partition == "none":
+        parser.error("--distributed trains with --partition dp, feat or edge")
+    if (not args.distributed and args.partition != "none"
+            and args.device.startswith("cpu") and args.partition_devices == 0):
+        parser.error("--partition on --device cpu needs --partition_devices N "
+                     "(the ranks to spawn)")
     return args
+
+
+def _join_group(args):
+    """``--distributed``: join the launcher's group (a world of 1 from
+    the environment makes a group of one on a free port) and bind the
+    rank's device; ``--partition_devices`` must be 0 or the world size.
+    Returns the rank."""
+    from shadow_gnn_torch.parallel import multihost as mh
+    dev = args.device.split(":")[0]
+    if not mh.initialize(device=dev):
+        mh.initialize(f"127.0.0.1:{mh.free_port()}", 1, 0, device=dev)
+    if args.partition_devices not in (0, mh.world_size()):
+        raise SystemExit(f"--partition_devices {args.partition_devices} but the "
+                         f"process group has {mh.world_size()} ranks")
+    args.device = str(mh.device())
+    return mh.rank()
+
+
+def _rank_main(argv):
+    """One spawned rank of a ``--partition`` command (the group is
+    joined by ``parallel/launch.py``)."""
+    return main(list(argv) + ["--distributed"])
 
 
 def main(argv=None):
     args = parse_args(argv)
+    if args.partition != "none" and not args.distributed:
+        from shadow_gnn_torch.parallel import launch
+        world = launch.local_world(args.device, args.partition_devices)
+        dev = "cpu" if args.device.startswith("cpu") else "cuda"
+        argv = list(argv) if argv is not None else sys.argv[1:]
+        return launch.spawn(_rank_main, world, dev, (argv,))
+    rank = _join_group(args) if args.distributed else 0
+    if rank > 0:
+        # rank 0 alone prints; errors still reach stderr
+        sys.stdout = open(os.devnull, "w")
     import numpy as np
 
     from shadow_gnn_torch import STR2MODE, TEST, TRAIN, VALID
@@ -302,6 +365,9 @@ def main(argv=None):
                       int(parsed["params_train"]["term_window_size"]))
     timestamp = time.strftime("%Y-%m-%d %H-%M-%S")
     tie = "".join(random.sample(string.ascii_letters + string.digits, 4))
+    if args.distributed:
+        from shadow_gnn_torch.parallel.collectives import broadcast_object
+        timestamp, tie = broadcast_object((timestamp, tie))
     dir_log = (f"{args.log_dir}/{args.dataset}/running/"
                f"{timestamp.replace(' ', '_')}-RAND{tie}")
     # the raw yml goes into the run dir, where --inference_dir and the
@@ -311,15 +377,18 @@ def main(argv=None):
     logger = Logger(metrics, dir_log,
                     term_window_size=int(parsed["params_train"]["term_window_size"]),
                     term_window_aggr=parsed["params_train"]["term_window_aggr"],
-                    timestamp=timestamp, no_log=args.no_log,
+                    timestamp=timestamp, no_log=args.no_log or rank > 0,
                     config_dump=raw_cfg_dump)
-    if args.data_tarball:
+    if args.data_tarball and rank == 0:
         from shadow_gnn_torch.data.converter import DATA_ZOO, ingest_tarball
         spec = DATA_ZOO.get(args.dataset)
         if spec is None or not spec["ALL"].have_all_files(args.data_dir,
                                                           args.dataset):
             print(f"ingesting {args.data_tarball} -> {args.data_dir}/{args.dataset}")
             ingest_tarball(args.data_tarball, args.dataset, args.data_dir)
+    if args.distributed:
+        from shadow_gnn_torch.parallel.collectives import barrier
+        barrier()                     # rank 0's ingestion is on disk
     raw = load_data(args.data_dir, args.dataset, parsed["config_data"])
     trainer = Trainer(args.dataset, args.data_dir, raw, parsed, metrics, logger,
                       seed=max(args.seed, 0), device=args.device,
@@ -327,7 +396,9 @@ def main(argv=None):
                       matmul_precision=args.matmul_precision,
                       compute_dtype=args.compute_dtype, feat_dtype=args.feat_dtype,
                       use_device_ppr={"auto": None, "device": True,
-                                      "host": False}[args.device_ppr])
+                                      "host": False}[args.device_ppr],
+                      partition=args.partition,
+                      partition_devices=args.partition_devices)
     trainer.trace_dir = args.trace_dir
     trainer.eval_train_every = max(1, args.eval_train_every)
     print(f"TOTAL NUM OF PARAMS = "
@@ -357,6 +428,8 @@ def main(argv=None):
     except Exception:
         status = "crashed"
         traceback.print_exc()
+        if args.distributed:
+            raise                     # a failed rank fails the whole run
     finally:
         logger.end_training(status)
     return 0 if status == "finished" else 1

@@ -43,8 +43,13 @@ def get_lib():
     global _lib
     if _lib is not None:
         return _lib
-    if not os.path.isfile(_SO) or os.path.getmtime(_SO) < os.path.getmtime(_SRC):
-        _build()
+    def stale():
+        return not os.path.isfile(_SO) or os.path.getmtime(_SO) < os.path.getmtime(_SRC)
+    if stale():
+        from shadow_gnn_torch.ops.build import build_lock
+        with build_lock(_DIR):
+            if stale():
+                _build()
     lib = ctypes.CDLL(_SO)
     lib.shadow_ppr_push.restype = ctypes.c_int
     lib.shadow_ppr_push.argtypes = [

@@ -9,7 +9,9 @@ waits for every one of them.
 """
 from __future__ import annotations
 
+import contextlib
 import ctypes
+import fcntl
 import os
 import subprocess
 from typing import Dict, Iterable, Optional
@@ -51,14 +53,33 @@ def _stale(name: str) -> bool:
     return not os.path.isfile(so) or os.path.getmtime(so) < os.path.getmtime(src)
 
 
+@contextlib.contextmanager
+def build_lock(directory: str):
+    """An exclusive file lock in ``directory``: the ranks of one host
+    that would build the same library build it once, in turn."""
+    os.makedirs(directory, exist_ok=True)
+    with open(os.path.join(directory, ".build.lock"), "w") as f:
+        fcntl.flock(f, fcntl.LOCK_EX)
+        try:
+            yield
+        finally:
+            fcntl.flock(f, fcntl.LOCK_UN)
+
+
 def build(names: Optional[Iterable[str]] = None) -> Dict[str, str]:
-    """Compile every stale kernel library; returns nvcc's output (ptxas
-    register and shared-memory report) per library built."""
+    """Compile every stale kernel library (under :func:`build_lock`);
+    returns nvcc's output (ptxas register and shared-memory report) per
+    library built."""
     names = list(KERNEL_SOURCES if names is None else names)
-    todo = [n for n in names if _stale(n)]
+    if not any(_stale(n) for n in names):
+        return {}
+    with build_lock(BUILD_DIR):
+        return _build([n for n in names if _stale(n)])
+
+
+def _build(todo) -> Dict[str, str]:
     if not todo:
         return {}
-    os.makedirs(BUILD_DIR, exist_ok=True)
     nvcc = _nvcc()
     procs = {}
     for name in todo:

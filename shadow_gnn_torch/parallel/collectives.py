@@ -1,0 +1,204 @@
+"""The collectives of the partitioned steps, in one place.
+
+Each wraps one torch.distributed call over the default process group
+(``parallel/multihost.py``) and takes the place of one JAX collective
+inside ``shard_map``:
+
+====================  =====================================  ===============
+here                  torch.distributed                      JAX
+====================  =====================================  ===============
+:func:`all_gather`    ``all_gather_into_tensor``             ``lax.all_gather``
+:func:`reduce_scatter_sum` ``reduce_scatter_tensor``         ``lax.psum_scatter``
+:func:`all_reduce_sum` ``all_reduce``                        ``lax.psum``
+:func:`ring_shift`    ``batch_isend_irecv``                  ``lax.ppermute``
+====================  =====================================  ===============
+
+These names exist in every torch from 2.1 on; torch 2.13 warns that
+two of them are deprecated, and the warning is silenced here.
+
+The gloo backend does not promise collectives on CUDA tensors.  Where
+the group's backend is gloo and a tensor lies on a card, each call
+copies it to host memory, runs the collective there and copies the
+result back: that is gloo's own rule, not a fallback, and an NCCL group
+passes CUDA tensors straight through.  Bool tensors travel as uint8.
+
+``stats`` counts the calls, their bytes and, while ``timing`` is on,
+their seconds and those of the gloo staging.  Timing synchronises the
+card before and after each call (otherwise a call's host time is its
+enqueue only), so it is off unless a measurement asks for it.
+"""
+from __future__ import annotations
+
+import time
+import warnings
+from typing import List
+
+import torch
+import torch.distributed as dist
+
+from shadow_gnn_torch.parallel import multihost as mh
+
+timing = False
+stats = {"calls": 0, "bytes": 0, "seconds": 0.0, "stage_seconds": 0.0}
+
+
+def reset_stats():
+    stats.update(calls=0, bytes=0, seconds=0.0, stage_seconds=0.0)
+
+
+def _sync(t: torch.Tensor):
+    if timing and t.is_cuda:
+        torch.cuda.synchronize(t.device)
+
+
+def _staged(t: torch.Tensor) -> bool:
+    return t.is_cuda and mh.backend() == "gloo"
+
+
+class _Call:
+    """Time one collective (when ``timing``) and count it."""
+
+    def __init__(self, t: torch.Tensor):
+        self.t = t
+
+    def __enter__(self):
+        stats["calls"] += 1
+        stats["bytes"] += self.t.numel() * self.t.element_size()
+        _sync(self.t)
+        self.t0 = time.perf_counter()
+        return self
+
+    def __exit__(self, *exc):
+        _sync(self.t)
+        if timing:
+            stats["seconds"] += time.perf_counter() - self.t0
+
+
+def _to_wire(t: torch.Tensor):
+    """(tensor as the backend takes it, dtype to restore)."""
+    dt = t.dtype
+    if dt == torch.bool:
+        t = t.to(torch.uint8)
+    if _staged(t):
+        t0 = time.perf_counter()
+        t = t.cpu()
+        if timing:
+            stats["stage_seconds"] += time.perf_counter() - t0
+    return t.contiguous(), dt
+
+
+def _from_wire(t: torch.Tensor, like: torch.Tensor, dt: torch.dtype) -> torch.Tensor:
+    if t.device != like.device:
+        t0 = time.perf_counter()
+        t = t.to(like.device)
+        if timing:
+            _sync(t)
+            stats["stage_seconds"] += time.perf_counter() - t0
+    return t.to(dt) if t.dtype != dt else t
+
+
+def all_gather(t: torch.Tensor) -> torch.Tensor:
+    """[world, *t.shape]: every rank's ``t`` in rank order (JAX
+    ``lax.all_gather(t, axis)``)."""
+    w = mh.world_size()
+    with _Call(t):
+        x, dt = _to_wire(t)
+        out = torch.empty(w * x.numel(), dtype=x.dtype, device=x.device)
+        with warnings.catch_warnings():
+            warnings.simplefilter("ignore", FutureWarning)
+            dist.all_gather_into_tensor(out, x.reshape(-1))
+        return _from_wire(out.view((w,) + tuple(x.shape)), t, dt)
+
+
+def all_gather_rows(t: torch.Tensor) -> torch.Tensor:
+    """Every rank's rows of ``t`` concatenated in rank order (JAX's
+    ``all_gather(..., axis=0, tiled=True)``); equal row counts."""
+    g = all_gather(t)
+    return g.reshape((-1,) + tuple(t.shape[1:]))
+
+
+class _Pending:
+    """An asynchronous reduce-scatter: :meth:`wait` gives its result."""
+
+    def __init__(self, work, out, like, dt):
+        self.work, self.out, self.like, self.dt = work, out, like, dt
+
+    def wait(self) -> torch.Tensor:
+        if self.work is not None:
+            self.work.wait()
+        return _from_wire(self.out, self.like, self.dt)
+
+
+def reduce_scatter_sum(x: torch.Tensor, async_op: bool = False):
+    """x [world, *shape] -> [*shape]: the sum over ranks of slot
+    ``rank`` (JAX ``lax.psum_scatter(x, axis, scatter_dimension=0,
+    tiled=False)``).  With ``async_op`` returns a handle whose ``wait()``
+    gives the result."""
+    w = mh.world_size()
+    if x.shape[0] != w:
+        raise ValueError(f"reduce_scatter_sum needs a leading dim of the world "
+                         f"size {w}, got {tuple(x.shape)}")
+    with _Call(x):
+        xw, dt = _to_wire(x)
+        if xw.dtype == torch.uint8 and dt == torch.bool:
+            xw = xw.to(torch.int32)
+        out = torch.empty(xw[0].numel(), dtype=xw.dtype, device=xw.device)
+        with warnings.catch_warnings():
+            warnings.simplefilter("ignore", FutureWarning)
+            work = dist.reduce_scatter_tensor(out, xw.reshape(-1), op=dist.ReduceOp.SUM,
+                                              async_op=async_op)
+        pending = _Pending(work if async_op else None, out.view(xw.shape[1:]), x, dt)
+        return pending if async_op else pending.wait()
+
+
+def all_reduce_sum(t: torch.Tensor) -> torch.Tensor:
+    """The sum of ``t`` over ranks, on every rank (JAX ``lax.psum``);
+    returns a new tensor, ``t`` is left as it was."""
+    with _Call(t):
+        x, dt = _to_wire(t)
+        x = x.clone() if x.data_ptr() == t.data_ptr() else x
+        dist.all_reduce(x, op=dist.ReduceOp.SUM)
+        return _from_wire(x, t, dt)
+
+
+def broadcast_object(obj, src: int = 0):
+    """``obj`` of rank ``src`` on every rank (a picklable host value)."""
+    if mh.world_size() == 1:
+        return obj
+    box: List = [obj]
+    dist.broadcast_object_list(box, src=src)
+    return box[0]
+
+
+def ring_shift(t: torch.Tensor) -> "_Ring":
+    """Start sending ``t`` to rank - 1 and receiving rank + 1's
+    (mod world) into a new buffer (JAX ``lax.ppermute`` with
+    ``perm = [(j, j - 1)]``); ``wait()`` on the result gives the
+    received tensor."""
+    w, r = mh.world_size(), mh.rank()
+    stats["calls"] += 1
+    stats["bytes"] += t.numel() * t.element_size()
+    x, dt = _to_wire(t)
+    buf = torch.empty_like(x)
+    ops = [dist.P2POp(dist.isend, x, (r - 1) % w),
+           dist.P2POp(dist.irecv, buf, (r + 1) % w)]
+    return _Ring(dist.batch_isend_irecv(ops), x, buf, t, dt)
+
+
+class _Ring:
+    def __init__(self, works, sent, buf, like, dt):
+        self.works, self.sent, self.buf, self.like, self.dt = works, sent, buf, like, dt
+
+    def wait(self) -> torch.Tensor:
+        t0 = time.perf_counter()
+        for wk in self.works:
+            wk.wait()
+        _sync(self.buf)
+        if timing:
+            stats["seconds"] += time.perf_counter() - t0
+        return _from_wire(self.buf, self.like, self.dt)
+
+
+def barrier():
+    if mh.world_size() > 1:
+        dist.barrier()

@@ -1,0 +1,30 @@
+"""Data-parallel training: everything replicated, the batch split.
+
+The port of the JAX package's ``parallel/dp.py`` (``--partition dp``).
+Every rank holds the graph, the PPR tables, the feature table and the
+bit-packed subgraph cache (the trainer's own, on its device), takes its
+``process_slice`` of each batch's columns, samples or gathers them from
+the cache exactly as ``Trainer._sample_branch_batches`` does, and runs
+:func:`parallel.partition.spmd_train_update`.  So with ``packed_adj``
+each rank's SAGE / GCN / GIN aggregations launch the packed kernels
+(``csrc/packed_spmm.cu``) on its columns.
+
+JAX normalises the loss over the global batch through GSPMD and one
+jitted (or epoch-scanned) program over a ``('dp',)`` mesh; that is the
+loss of ``parallel/partition.py``, which this step reuses.  There is no
+mesh and no program here: each rank runs its columns eagerly.
+"""
+from __future__ import annotations
+
+from shadow_gnn_torch.parallel.partition import make_step
+
+
+def make_dp_train_step(trainer, mode: int):
+    """``step(roots, rows, labels, w, rng) -> (global loss, predictions
+    of the global batch, overflow)`` over this rank's columns of a
+    batch (``parallel/partition.py:make_step``)."""
+    trainer._ensure_tables(mode)
+    trainer._ensure_caches(mode)
+    return make_step(trainer, mode, True,
+                     lambda roots, rows, gen: trainer._sample_branch_batches(
+                         mode, roots, rows, gen))

@@ -12,8 +12,11 @@ The mean over in-edges is built once, on the host, as a CSR matrix
 applied with ``torch.sparse.mm``: the scratch of a step is a few ``y``
 tables, not one row per edge.  On CUDA the product is cuSPARSE's; the
 JAX package computes it with XLA's ``segment_sum``, not with a TPU
-kernel.  The edge-partitioned propagation (``n_shards`` > 0,
-``parallel/edgepart.py``) is not ported.
+kernel.  With ``n_shards`` > 0 the propagation is edge-partitioned over
+a process group of that many ranks (``parallel/edgepart.py:
+distributed_outcome_correlation``, the ring SpMM): the library functions
+raise by name outside such a group, and :func:`run_correct_smooth`
+spawns the ranks itself when it is called outside one.
 """
 from __future__ import annotations
 
@@ -83,21 +86,19 @@ def propagate(op: torch.Tensor, in_deg: torch.Tensor, y0: torch.Tensor,
     return y
 
 
-def _refuse_shards(n_shards: int):
-    if n_shards:
-        raise NotImplementedError(
-            "n_shards > 0 (the edge-partitioned C&S of parallel/edgepart.py) "
-            "is not ported yet")
-
-
 def general_outcome_correlation(indptr, indices, y0: np.ndarray,
                                 n_prop: int = N_PROP, alpha: float = 0.8,
                                 use_norm: bool = False,
                                 clamp: Optional[Tuple[float, float]] = (0., 1.),
                                 n_shards: int = 0, device="cuda") -> np.ndarray:
     """y <- alpha * A_mean y + (1 - alpha) y0, ``n_prop`` times, on
-    ``device``; returns y as f32 numpy."""
-    _refuse_shards(n_shards)
+    ``device``; returns y as f32 numpy.  ``n_shards`` > 0: on a rank of
+    a process group of ``n_shards`` (each rank on its own device), the
+    edge-partitioned propagation; every rank gets the whole y."""
+    if n_shards:
+        from shadow_gnn_torch.parallel.edgepart import distributed_outcome_correlation
+        return distributed_outcome_correlation(indptr, indices, y0, n_prop, alpha,
+                                               use_norm, clamp, n_devices=n_shards)
     op, deg = mean_operator(indptr, indices, device)
     y0_t = torch.as_tensor(np.asarray(y0, np.float32), device=deg.device)
     return propagate(op, deg, y0_t, n_prop, alpha, use_norm, clamp).cpu().numpy()
@@ -116,8 +117,8 @@ def correct_smooth(indptr, indices, label_full: np.ndarray,
                    use_norm: bool, alpha: float, n_shards: int = 0, device="cuda"):
     """The smooth step on each prediction matrix of ``pred_list``;
     returns (acc_orig, acc_cs): per mode, the accuracy list over the
-    matrices before and after the step."""
-    _refuse_shards(n_shards)
+    matrices before and after the step.  ``n_shards`` > 0: on a rank of
+    a process group of ``n_shards``, the edge-partitioned propagation."""
     lab = label_full.astype(np.int64)
     acc_orig = {TRAIN: [], VALID: [], TEST: []}
     acc_cs = {TRAIN: [], VALID: [], TEST: []}
@@ -126,13 +127,23 @@ def correct_smooth(indptr, indices, label_full: np.ndarray,
         idx = node_set[mode]
         return float((y[idx].argmax(1) == lab[idx]).mean())
 
-    op, deg = mean_operator(indptr, indices, device)
+    if n_shards:
+        from shadow_gnn_torch.parallel.edgepart import distributed_outcome_correlation
+
+        def smooth(y):
+            return distributed_outcome_correlation(indptr, indices, y, N_PROP, alpha,
+                                                   use_norm, n_devices=n_shards)
+    else:
+        op, deg = mean_operator(indptr, indices, device)
+
+        def smooth(y):
+            return propagate(op, deg, torch.as_tensor(y, device=deg.device), N_PROP,
+                             alpha, use_norm).cpu().numpy()
     for pred in pred_list:
         y = seed_matrix(pred, lab, node_set[TRAIN])
         for m in (TRAIN, VALID, TEST):
             acc_orig[m].append(acc(y, m))
-        y_s = propagate(op, deg, torch.as_tensor(y, device=deg.device), N_PROP,
-                        alpha, use_norm).cpu().numpy()
+        y_s = smooth(y)
         for m in (TRAIN, VALID, TEST):
             acc_cs[m].append(acc(y_s, m))
     return acc_orig, acc_cs
@@ -143,7 +154,10 @@ def run_correct_smooth(args, cfg: dict):
     of each run dir of ``cfg["dir_pred_mat"]`` (and ``--postproc_dir``),
     stored or generated by inference, smoothed with
     ``cfg["hyperparameter"]`` (``norm_sym``, ``alpha``, ``n_shards``) on
-    ``args.device``.  Prints and returns (acc_orig, acc_cs)."""
+    ``args.device``; ``n_shards`` > 0 spawns that many local ranks
+    (``parallel/launch.py``: cuda:0.. or the CPU) unless this process
+    already is a rank of such a group.  Prints and returns (acc_orig,
+    acc_cs)."""
     import glob
 
     from shadow_gnn_torch.data.loader import load_data
@@ -161,10 +175,16 @@ def run_correct_smooth(args, cfg: dict):
     raw = load_data(args.data_dir, args.dataset,
                     {"to_undirected": True, "transductive": True})
     hp = cfg["hyperparameter"]
-    acc_orig, acc_cs = correct_smooth(
-        raw.indptr_full, raw.indices_full, raw.label_full, raw.node_set, preds,
-        hp["norm_sym"], hp["alpha"], n_shards=int(hp.get("n_shards", 0)),
-        device=args.device)
+    n_shards = int(hp.get("n_shards", 0))
+    cs_args = (raw.indptr_full, raw.indices_full, raw.label_full, raw.node_set, preds,
+               hp["norm_sym"], hp["alpha"], n_shards, args.device)
+    from shadow_gnn_torch.parallel import multihost as mh
+    if n_shards and mh.world_size() != n_shards:
+        from shadow_gnn_torch.parallel import launch
+        dev = "cpu" if args.device.startswith("cpu") else "cuda"
+        acc_orig, acc_cs = launch.spawn(correct_smooth, n_shards, dev, cs_args)
+    else:
+        acc_orig, acc_cs = correct_smooth(*cs_args)
     print("original acc:", {k: np.mean(v) for k, v in acc_orig.items()})
     print("C&S acc:     ", {k: np.mean(v) for k, v in acc_cs.items()})
     return acc_orig, acc_cs

@@ -7,7 +7,9 @@ inference with the run's newest checkpoint first.  Reading the yml
 (:func:`load_postproc_config`) is apart from running the config
 (:func:`run_postproc` takes the dict), so that a caller without a yml
 parser can pass a dict.  Trainers are built on ``args.device`` with the
-CLI's precision flags.
+CLI's precision flags.  A C&S config's ``n_shards`` > 0 runs the
+edge-partitioned propagation over that many local ranks, spawned by
+``postproc/cns.py:run_correct_smooth``.
 """
 from __future__ import annotations
 

@@ -361,9 +361,6 @@ def induce(graph: DeviceGraph, nodes: torch.Tensor, ppr_vals: torch.Tensor,
     ppr_vals  [B, N] aligned PPR annotations
     roots     [B, T] global target ids (members of ``nodes``)
     """
-    n_id = graph.num_nodes
-    node_mask = nodes < n_id
-    size = node_mask.sum(-1)
     if cfg.induction == "rows" and cfg.deg_cap > 0:
         adj, overflow = membership_matrix_rows(graph, nodes, cfg.deg_cap,
                                                cfg.hub_slots)
@@ -374,6 +371,19 @@ def induce(graph: DeviceGraph, nodes: torch.Tensor, ppr_vals: torch.Tensor,
         adj, overflow = membership_matrix_cand(graph, nodes, cfg.cand_cap)
     else:
         adj, overflow = membership_matrix(graph, nodes), 0
+    return annotate(adj, overflow, nodes, ppr_vals, roots, cfg, graph.num_nodes)
+
+
+def annotate(adj: torch.Tensor, overflow: int, nodes: torch.Tensor,
+             ppr_vals: torch.Tensor, roots: torch.Tensor, cfg: SamplerConfig,
+             num_nodes: int) -> SubgraphBatch:
+    """The SubgraphBatch of an induced block ``adj`` [B, N, N] f32 whose
+    padding rows are zero: the local target indices, the target-target
+    edges removed (link task), the self edges and the hop or DRNL
+    annotation.  Shared with the edge-partitioned induction
+    (``parallel/edgepart.py``)."""
+    node_mask = nodes < num_nodes
+    size = node_mask.sum(-1)
     # local target indices: left search in the sorted node table
     targets = torch.searchsorted(nodes, roots)
     # remove target<->target edges (kept for T == 1); the indicator is

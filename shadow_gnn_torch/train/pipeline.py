@@ -20,8 +20,18 @@ post-processing reads (:meth:`Trainer.predict_full` /
 
 Differences from the JAX Trainer:
 * everything runs eagerly on ``device`` (default ``"cuda"``; CUDA
-  absent raises), one batch at a time: there are no epoch-scan, chunk
-  or partition programs;
+  absent raises), one batch at a time: there are no epoch-scan or chunk
+  programs;
+* ``partition`` (``dp``, ``feat``, ``edge``; ``parallel/``) runs inside
+  a process group, one Trainer a rank (``parallel/multihost.py``): each
+  rank builds the same Trainer from the same seed, draws the same epoch
+  permutations, takes its contiguous share of every batch's columns and
+  gets the whole batch's predictions back by an all-gather, so the
+  metrics are the global batch's.  Every epoch of a partitioned Trainer
+  runs partitioned (JAX's multi-process rule: ``feat`` and ``edge``
+  evaluate partitioned, and so does ``dp``, through the ``feat`` form).
+  The dropout and dropedge seeds are drawn per rank from (the epoch's
+  seed, the rank), rank 0 taking the epoch's own;
 * dropout masks come from a ``torch.Generator`` on the device and
   dropedge seeds from one on the host, both seeded per epoch from
   ``rng_np``; the masks themselves differ from JAX's.  ``rng_np`` is
@@ -161,6 +171,33 @@ def make_optimizer(params, lr: float) -> torch.optim.Optimizer:
     return torch.optim.Adam(params, lr=lr, betas=(0.9, 0.999), eps=1e-8)
 
 
+def _check_partition(partition: str, partition_devices: int, batch_size: int):
+    """A partitioned Trainer runs on a rank of a process group whose
+    world size is ``partition_devices`` (0 = any) and divides the batch
+    size."""
+    from shadow_gnn_torch.parallel import multihost as mh
+    import torch.distributed as dist
+    if not dist.is_initialized():
+        raise RuntimeError(
+            f"partition {partition!r} runs inside a process group, one Trainer "
+            "a rank: call parallel.multihost.initialize first (the CLI's "
+            "--partition spawns the ranks, --distributed joins a launcher's)")
+    world = mh.world_size()
+    if partition_devices not in (0, world):
+        raise ValueError(f"partition_devices={partition_devices} but the process "
+                         f"group has {world} ranks")
+    if batch_size % world:
+        raise ValueError(f"batch_size {batch_size} does not divide by the world "
+                         f"size {world}: every rank takes an equal share of a "
+                         "batch's columns")
+
+
+def rank_seed(seed: int, rank: int) -> int:
+    """The dropout / dropedge seed of ``rank`` in an epoch of seed
+    ``seed`` (rank 0 keeps ``seed``)."""
+    return (seed ^ (rank * 0x9E3779B9)) & (2**63 - 1)
+
+
 @dataclasses.dataclass
 class EpochRNG:
     """One epoch's random streams: dropout masks on the device, dropedge
@@ -188,7 +225,8 @@ class Trainer:
                  packed_adj: bool = False, matmul_precision: Optional[str] = None,
                  compute_dtype: str = "float32", feat_dtype: str = "float32",
                  fused_gat: Optional[bool] = None,
-                 use_device_ppr: Optional[bool] = None):
+                 use_device_ppr: Optional[bool] = None,
+                 partition: str = "none", partition_devices: int = 0):
         """``metrics`` defaults to the dataset's metric (DATA_METRIC,
         else accuracy) and ``logger`` to one that writes no files.
         ``use_device_ppr``: True computes the PPR tables by the power
@@ -202,7 +240,15 @@ class Trainer:
         the JAX Trainer accepts it, where False picks XLA's dense score
         chain over the Pallas kernel, the same function: the port has one
         implementation of it on the card, the CUDA kernels of
-        ``ops/gat.py``, which every value launches."""
+        ``ops/gat.py``, which every value launches.
+        ``partition`` ("none", "dp", "feat" or "edge") and
+        ``partition_devices`` (0 or the world size) are the JAX
+        Trainer's: a partitioned Trainer is built on every rank of an
+        initialised process group whose world size divides the batch
+        size (``parallel/multihost.py:initialize``; the CLI's
+        ``--partition`` spawns the ranks)."""
+        if partition not in ("none", "dp", "feat", "edge"):
+            raise ValueError(f"unsupported partition {partition!r}")
         if feat_dtype not in ("float32", "bfloat16"):
             raise ValueError(f"unsupported feat_dtype {feat_dtype!r}")
         if fused_gat not in (None, True, False):
@@ -234,6 +280,15 @@ class Trainer:
             np.random.SeedSequence([seed, 0x9e3779b9]))
         self._neg_edge_keys: Optional[np.ndarray] = None
         self.batch_size = self.sampler_cfg_train["batch_size"]
+        self.partition = partition
+        self.partition_devices = partition_devices
+        if partition != "none":
+            _check_partition(partition, partition_devices, self.batch_size)
+        self._partition_fns: Dict[tuple, Any] = {}
+        # partitioned TRAIN epochs run (JAX counts the device programs
+        # of them, one epoch-scan program an epoch; the port runs each
+        # rank's batches eagerly, so this counts the epochs)
+        self.partition_train_dispatches = 0
         self.is_transductive = raw.is_transductive
         g_full = DeviceGraph.from_csr(raw.indptr_full, raw.indices_full,
                                       self.device)
@@ -436,6 +491,19 @@ class Trainer:
         three) share one push, its tables and its plan."""
         if mode in self.tables:
             return
+        # the ranks of a partition in turn, rank 0 first: it pushes (or
+        # loads) and writes the PPR cache that the others then read
+        turns = self.partition != "none"
+        if turns:
+            from shadow_gnn_torch.parallel import collectives as cc
+            from shadow_gnn_torch.parallel import multihost as mh
+            if mh.rank() > 0:
+                cc.barrier()
+        self._build_tables(mode)
+        if turns and mh.rank() == 0:
+            cc.barrier()
+
+    def _build_tables(self, mode: int):
         tabs = []
         for i_br, br in enumerate(self.branches):
             cfg = br["cfg"][mode]
@@ -716,6 +784,83 @@ class Trainer:
         return (torch.stack(losses).cpu().numpy(), torch.cat(preds).cpu().numpy(),
                 ovf)
 
+    # ------------------------------------------------------------------
+    # Partitioned epochs (parallel/)
+    def _partition_step(self, mode: int, train: bool):
+        """The step of this Trainer's partition for ``mode``, built once:
+        ``dp`` trains on the replicated state and evaluates through the
+        ``feat`` form (JAX's multi-process rule), ``feat`` and ``edge``
+        train and evaluate their own."""
+        key = (mode, train)
+        if key not in self._partition_fns:
+            if self.partition == "dp" and train:
+                from shadow_gnn_torch.parallel.dp import make_dp_train_step
+                step = make_dp_train_step(self, mode)
+            elif self.partition in ("dp", "feat"):
+                from shadow_gnn_torch.parallel.partition import make_sharded_train_step
+                step = make_sharded_train_step(self, mode, train)[0]
+            else:
+                from shadow_gnn_torch.parallel.edgepart import make_edgepart_train_step
+                step = make_edgepart_train_step(self, mode, train=train)[0]
+            self._partition_fns[key] = step
+        return self._partition_fns[key]
+
+    def _run_partition(self, mode: int, train: bool, nb: int, roots, rows, labels,
+                       w, seed: int):
+        """One partitioned pass over ``nb`` batches of the epoch arrays
+        (every rank passes the same): this rank runs its contiguous share
+        of each batch's columns.  Returns the global per-batch losses
+        [nb], the global predictions [nb * B, C] (numpy, rank order) and
+        the summed overflow; a TRAIN pass then checks that the
+        parameters are bit-equal across ranks."""
+        from shadow_gnn_torch.parallel import multihost as mh
+        step = self._partition_step(mode, train)
+        b, dev = self.batch_size, self.device
+        sl = mh.process_slice(b)
+        rng = EpochRNG.from_seed(rank_seed(seed, mh.rank()), dev)
+        cols = np.concatenate([np.arange(i * b + sl.start, i * b + sl.stop)
+                               for i in range(nb)])
+        per = sl.stop - sl.start
+        roots_d = torch.as_tensor(roots[cols].astype(np.int64), device=dev)
+        rows_d = torch.as_tensor(rows[cols].astype(np.int64), device=dev)
+        lab_d = torch.as_tensor(labels[cols].astype(
+            np.float32 if labels.ndim > 1 else np.int64), device=dev)
+        w_d = torch.as_tensor(w[cols], device=dev)
+        self.model.train(train)
+        losses, preds, ovf = [], [], 0
+        for i in range(nb):
+            p = slice(i * per, (i + 1) * per)
+            loss, pred, o = step(roots_d[p], rows_d[p], lab_d[p], w_d[p], rng)
+            losses.append(loss)
+            preds.append(pred)
+            ovf += o
+        self.model.eval()
+        if train:
+            self.partition_train_dispatches += 1
+            self.check_replicas()
+        return (torch.stack(losses).cpu().numpy(), torch.cat(preds).cpu().numpy(),
+                ovf)
+
+    def param_checksum(self) -> torch.Tensor:
+        """int64 [2]: the sum and an index-weighted sum of the bits of
+        every parameter (as int32 words); equal on ranks whose
+        parameters are equal bit for bit."""
+        with torch.no_grad():
+            words = torch.cat([p.detach().float().reshape(-1)
+                               for p in self.model.parameters()]).view(torch.int32)
+            words = words.to(torch.int64)
+            wt = torch.arange(words.numel(), device=words.device) % 65521 + 1
+            return torch.stack([words.sum(), (words * wt).sum()])
+
+    def check_replicas(self):
+        """Raise unless every rank's parameters equal rank 0's bit for
+        bit (an all-gathered checksum)."""
+        from shadow_gnn_torch.parallel import collectives as cc
+        sums = cc.all_gather(self.param_checksum()).cpu()
+        if not bool((sums == sums[0]).all()):
+            raise RuntimeError(f"the ranks' parameters differ after a TRAIN epoch: "
+                               f"checksums {sums.tolist()}")
+
     def run_epoch(self, epoch: int, mode: int, status: str = "running"):
         """One TRAIN (with updates) or evaluation pass over the mode's
         node set; logs and returns its stats."""
@@ -730,12 +875,17 @@ class Trainer:
             self.profiler.enabled = False
         train = mode == TRAIN and status == "running"
         nb, roots, rows, labels_np, w_np = self._epoch_arrays(mode)
-        rng = EpochRNG.from_seed(int(self.rng_np.integers(1 << 31)), self.device)
+        seed = int(self.rng_np.integers(1 << 31))
         traced = train and epoch == 1
         with _epoch_trace(self.trace_dir if traced else None, self.device):
             t0 = time.time()
-            losses, preds, ovf = self._run_batches(mode, train, nb, roots, rows,
-                                                   labels_np, w_np, rng)
+            if self.partition != "none":
+                losses, preds, ovf = self._run_partition(mode, train, nb, roots, rows,
+                                                         labels_np, w_np, seed)
+            else:
+                losses, preds, ovf = self._run_batches(
+                    mode, train, nb, roots, rows, labels_np, w_np,
+                    EpochRNG.from_seed(seed, self.device))
             t1 = time.time()
         if ovf > 0:
             print(f"[WARN] induction candidate overflow: {ovf} edges "

@@ -126,18 +126,32 @@ def _propagate(x: torch.Tensor, product, type_norm: str, order: int,
 
 def smooth_signal_full(indptr, indices, signal: np.ndarray, type_norm: str,
                        order: int, reduction: str, args: Dict,
-                       device="cpu") -> Tuple[np.ndarray, int]:
+                       device="cpu", n_shards: int = 0) -> Tuple[np.ndarray, int]:
     """Full-graph smoothening (preproc.py:143-165) on ``device``, each
-    propagated signal kept on the host.  Returns (smoothed signal,
-    propagation steps taken)."""
+    propagated signal kept on the host.  ``n_shards`` > 0 runs every
+    product as the ring SpMM over a process group of that many ranks
+    (``parallel/edgepart.py:make_ring_spmm``; raises outside one), each
+    rank on its own device.  Returns (smoothed signal, propagation steps
+    taken)."""
     n = indptr.size - 1
     norm = args["norm_adj"] if type_norm == "ppr" else type_norm
-    src, dst, val = (torch.as_tensor(a, device=device) for a in _norm_edges(
-        indptr, indices, norm, add_self_edge=type_norm == "ppr" and norm == "sym"))
-    src, dst = src.long(), dst.long()
+    edges = _norm_edges(indptr, indices, norm,
+                        add_self_edge=type_norm == "ppr" and norm == "sym")
+    if n_shards:
+        from shadow_gnn_torch.parallel.edgepart import make_ring_spmm
+        from shadow_gnn_torch.parallel import multihost as mh
+        device = mh.device() or device
+        product = make_ring_spmm(edges[0].astype(np.int64), edges[1].astype(np.int64),
+                                 edges[2], n, n_shards, device)
+    else:
+        src, dst, val = (torch.as_tensor(a, device=device) for a in edges)
+        src, dst = src.long(), dst.long()
+
+        def product(z):
+            return spmm_edges(src, dst, val, z, n)
     x = torch.as_tensor(signal.astype(np.float32), device=device)
-    out, steps = _propagate(x, lambda z: spmm_edges(src, dst, val, z, n),
-                            type_norm, order, reduction, args, lambda z: z.cpu())
+    out, steps = _propagate(x, product, type_norm, order, reduction, args,
+                            lambda z: z.cpu())
     return out.numpy(), steps
 
 

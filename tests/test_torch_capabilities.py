@@ -322,10 +322,18 @@ def test_cli_platform_refused(flags, name, capsys):
 
 
 @pytest.mark.parametrize("flags, reason", [
-    (["--distributed"], "ROADMAP A8"), (["--partition", "dp"], "ROADMAP A8"),
-    (["--partition_devices", "4"], "ROADMAP A8"),
+    (["--distributed", "--partition", "dp"], None), (["--partition", "dp"], None),
+    (["--partition_devices", "4"], None),
     (["--chunk_batches", "16"], "TPU-only"), (["--prng", "rbg"], "TPU-only")])
 def test_cli_refuses_by_name(flags, reason, capsys):
+    """The TPU-only flags are refused by name; the multi-card flags
+    (``parallel/``, tests/test_torch_parallel.py) parse."""
+    if reason is None:
+        args = tmain.parse_args(CLI_BASE + flags)
+        assert args.partition == ("dp" if "dp" in flags else "none")
+        assert args.distributed == ("--distributed" in flags)
+        assert args.partition_devices == (4 if "4" in flags else 0)
+        return
     with pytest.raises(SystemExit) as exc:
         tmain.parse_args(CLI_BASE + flags)
     err = capsys.readouterr().err

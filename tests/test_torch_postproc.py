@@ -73,7 +73,9 @@ def test_outcome_correlation_matches_jax(use_norm):
     got = tcns.general_outcome_correlation(indptr, indices, y0, use_norm=use_norm,
                                            device="cpu")
     np.testing.assert_allclose(got, want, **TOL)
-    with pytest.raises(NotImplementedError, match="n_shards"):
+    # the edge-partitioned propagation runs on the ranks of a group of
+    # n_shards (tests/test_torch_edgepart.py); outside one it raises
+    with pytest.raises(RuntimeError, match="n_shards=2 runs inside a process group"):
         tcns.general_outcome_correlation(indptr, indices, y0, n_shards=2,
                                          device="cpu")
 
@@ -97,7 +99,7 @@ def test_correct_smooth_accuracies_match_jax(use_norm):
                               use_norm, 0.8, device="cpu")
     assert got == want
     assert all(len(v) == 2 for v in got[1].values())
-    with pytest.raises(NotImplementedError, match="n_shards"):
+    with pytest.raises(RuntimeError, match="n_shards=4 runs inside a process group"):
         tcns.correct_smooth(indptr, indices, g.label_full, g.node_set, preds,
                             use_norm, 0.8, n_shards=4, device="cpu")
 

@@ -323,9 +323,9 @@ def test_cli_end_to_end(tmp_path):
     assert len(finished) == 1
     assert (finished[0] / "final.csv").is_file()
     assert (finished[0] / "config.yml").is_file()
-    # a flag of an unported part is refused by name; --fused_gat off is
-    # accepted (tests/test_torch_backbones_train.py runs it)
-    flag = ["--partition", "dp"]
+    # a TPU-only flag is refused by name; --fused_gat off is accepted
+    # (tests/test_torch_backbones_train.py runs it)
+    flag = ["--chunk_batches", "4"]
     r = subprocess.run(common + ["--device", "cpu"] + flag,
                        capture_output=True, text=True, env=env, cwd=ROOT,
                        timeout=300)
