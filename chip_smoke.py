@@ -252,7 +252,28 @@ Phases, each fatal on failure (an uncaught exception, non-zero exit):
              timed window (gloo's host staging apart), rank 0's
              device-busy share and each rank's peak memory, one summary
              line a run and partition (the ranks' own lines in the log);
-17. profile (``--profile`` only) — torch.profiler over cached requests
+17. graphs  — the compiled step (``shadow_gnn_torch/train/graphs.py``),
+             run after phase 7 for the flagship f32 and at bf16
+             precision and after phase 11 for the GAT-5 f32 (each at its
+             cuts, 1 epoch): an eager twin (``cuda_graphs=False``) and a
+             graphed trainer from the same seed (the graphed one takes
+             the eager one's feature table: GAT-5's label smoothening
+             sums with atomics); TRAIN epoch 0 and its VALID pass, per
+             step losses and predictions, the final parameters and Adam
+             state, every kernel's launches, then ``predict_nodes`` /
+             ``embed_nodes`` at every size (the warm-up, the capture,
+             replays), held graphed against eager bit for bit
+             (``GRAPH_TOLS`` where not, printed); every TRAIN and VALID
+             step but the first of its key, and every serving bucket,
+             must replay a graph.  Then in turns in the same call: the
+             TRAIN step (eager, graphed, graphed, eager windows of 16
+             steps, host clock), its device-busy share and host CUDA
+             calls (torch.profiler), the request p50 by size, the
+             capture seconds and the graph pool's MiB.  Every other
+             phase's cached steps replay graphs too (``phase_train`` and
+             ``phase_serve`` check that they did; the plain-version
+             checks run eagerly, ``StepGraphs.paused``);
+18. profile (``--profile`` only) — torch.profiler over cached requests
              (flagship 1 and 256 ids, GAT 128 ids, the power-law flagship
              1 and 256, the ensemble 1 and 128) and over 5 TRAIN steps of
              each model, f32 and at bf16 precision (the power-law
@@ -909,13 +930,13 @@ def _products_graph():
 
 def _flagship_trainer(g, epochs=EPOCHS, arch=None, sampler=None, tag="[serve]",
                       name="flickr_synth", data_dir="", use_device_ppr=None,
-                      **precision):
+                      cuda_graphs=True, **precision):
     """The flagship SAGE-3 trainer on the graph ``g``, ``epochs`` epochs;
     ``arch``: architecture keys that replace the yml's, ``sampler``: a
     sampler list that replaces its; ``name``, ``data_dir``: the dataset
-    and the dir of its PPR cache (none when empty); ``use_device_ppr``
-    and ``precision`` (``matmul_precision`` / ``compute_dtype`` /
-    ``feat_dtype``): the Trainer's arguments."""
+    and the dir of its PPR cache (none when empty); ``use_device_ppr``,
+    ``cuda_graphs`` and ``precision`` (``matmul_precision`` /
+    ``compute_dtype`` / ``feat_dtype``): the Trainer's arguments."""
     import torch
     from shadow_gnn_torch import TEST, TRAIN, VALID
     from shadow_gnn_torch.train.config import parse_config
@@ -925,7 +946,7 @@ def _flagship_trainer(g, epochs=EPOCHS, arch=None, sampler=None, tag="[serve]",
     tr = Trainer(name, data_dir, _own_splits(g),
                  parse_config(_flagship_cfg(epochs, arch, sampler)), seed=0,
                  device="cuda", packed_adj=True, use_device_ppr=use_device_ppr,
-                 **precision)
+                 cuda_graphs=cuda_graphs, **precision)
     _cut_splits(tr, ((TRAIN, TRAIN_NODES), (VALID, VALID_NODES), (TEST, TEST_NODES)))
     torch.cuda.synchronize()
     _detail(f"{tag} trainer {time.perf_counter() - t0:.1f}s {precision or ''}"
@@ -957,21 +978,24 @@ def _flagship_cfg(epochs=EPOCHS, arch=None, sampler=None):
     return cfg
 
 
-def _gat_trainer(g, epochs=EPOCHS, retrain_dir=None, **precision):
+def _gat_trainer(g, epochs=EPOCHS, retrain_dir=None, data_dir="", cuda_graphs=True,
+                 **precision):
     """The products GAT-5 leaderboard model at full width on the
     products-width synthetic graph ``g``; the preprocessing (ppr label
     smoothening of every TRAIN label) runs on the card while the trainer
     is built, before the splits are cut.  ``retrain_dir``: the run dir
-    whose checkpoint the trainer starts from.  ``precision``: the
-    Trainer's ``matmul_precision`` / ``compute_dtype`` / ``feat_dtype``."""
+    whose checkpoint the trainer starts from; ``data_dir``: the dir of
+    its PPR cache (none when empty).  ``cuda_graphs`` and ``precision``
+    (``matmul_precision`` / ``compute_dtype`` / ``feat_dtype``): the
+    Trainer's arguments."""
     import torch
     from shadow_gnn_torch import TEST, TRAIN, VALID
     from shadow_gnn_torch.train.config import parse_config
     from shadow_gnn_torch.train.pipeline import Trainer
     t0 = time.perf_counter()
-    tr = Trainer("products_synth", "", _own_splits(g),
+    tr = Trainer("products_synth", data_dir, _own_splits(g),
                  parse_config(_gat_cfg(epochs, retrain_dir)), seed=0, device="cuda",
-                 **precision)
+                 cuda_graphs=cuda_graphs, **precision)
     _cut_splits(tr, ((TRAIN, GAT_TRAIN), (VALID, GAT_VALID), (TEST, GAT_TEST)))
     torch.cuda.synchronize()
     log = tr.preproc_log
@@ -1106,8 +1130,10 @@ def phase_serve(tr, sizes, fwd, tag):
         raise AssertionError(f"expected {n_layers * n_req} {fwd.__name__} "
                              f"launches, got {launches}")
 
-    # the same requests through the plain versions on the card
-    with _plain_versions(_rounded(tr)):
+    _check_replays(tr, "serve", f"{tag} serving")
+    # the same requests through the plain versions on the card, eagerly
+    # (a replay would run the captured kernels)
+    with _plain_versions(_rounded(tr)), tr.step_graphs.paused():
         d_plain = _max_diff(lambda ids: tr.predict_nodes(ids, TEST), reqs, probs)
         d_plain_emb = float(np.abs(
             tr.embed_nodes(reqs[EMBED_SIZE][0], TEST)[0] - emb).max())
@@ -1372,7 +1398,10 @@ def phase_train(tr, reqs, fwd, bwd, tag, others=()):
     n_layers = _per_pass(tr)
 
     steps, evals, losses, epochs = [], [], [], []
-    orig = (tr._train_step, tr._eval_step, tr.run_epoch)
+    # a cached step goes through _cached_*_step (a graph replay on a
+    # graphed trainer), any other through _train_step / _eval_step
+    names = ("_train_step", "_cached_train_step", "_eval_step", "_cached_eval_step")
+    orig = {name: getattr(tr, name) for name in names + ("run_epoch",)}
 
     def counted(fn, want, log):
         def step(*args, **kw):
@@ -1393,12 +1422,13 @@ def phase_train(tr, reqs, fwd, bwd, tag, others=()):
 
     def run_epoch(epoch, mode, status="running"):
         t0 = time.perf_counter()
-        stats = orig[2](epoch, mode, status)
+        stats = orig["run_epoch"](epoch, mode, status)
         epochs.append((epoch, mode, status, time.perf_counter() - t0, stats))
         return stats
 
-    tr._train_step = counted(orig[0], (n_layers, n_layers), steps)
-    tr._eval_step = counted(orig[1], (n_layers, 0), evals)
+    for name in names:
+        setattr(tr, name, counted(orig[name], (n_layers, n_layers) if "train" in name
+                                  else (n_layers, 0), steps if "train" in name else evals))
     tr.run_epoch = run_epoch
     p0 = {k: v.clone() for k, v in tr.model.state_dict().items()}
     torch.cuda.synchronize()
@@ -1412,7 +1442,8 @@ def phase_train(tr, reqs, fwd, bwd, tag, others=()):
         final = tr.train()
         torch.cuda.synchronize()
     finally:
-        del tr._train_step, tr._eval_step, tr.run_epoch
+        for name in names + ("run_epoch",):
+            delattr(tr, name)
     wall = time.perf_counter() - t0
     launches = {fwd.__name__: fwd.launches, bwd.__name__: bwd.launches}
     stray = {c.__name__: c.launches for c in others if c.launches}
@@ -1437,6 +1468,8 @@ def phase_train(tr, reqs, fwd, bwd, tag, others=()):
         raise AssertionError("a training or evaluation loss is not finite")
     if not all(np.isfinite(v) for st in final.values() for v in st.values()):
         raise AssertionError(f"final stats not finite: {final}")
+    _check_replays(tr, "train", f"{tag} train()", TRAIN)
+    _check_replays(tr, "eval", f"{tag} train()", VALID)
     moved = sum(not torch.equal(p0[k], v) for k, v in tr.model.state_dict().items())
     if moved == 0:
         raise AssertionError("training moved no parameter")
@@ -1453,6 +1486,7 @@ def phase_train(tr, reqs, fwd, bwd, tag, others=()):
             f"{wall:.2f}s; step (CUDA events) median {_median(step_ms):.3f} ms, "
             f"epoch-1 median {_median(late_ms):.3f} ms, max "
             f"{max(step_ms):.3f} ms; peak device memory {peak / 2**30:.2f} GiB")
+    _detail(f"{tag} graphs: {tr.step_graphs.summary()}")
     _detail(f"{tag} launches over train(): {fwd.__name__} {launches[fwd.__name__]}"
             f" ({n_layers} per step and per eval batch), {bwd.__name__} "
             f"{launches[bwd.__name__]} ({n_layers} per step); {moved} parameters "
@@ -1471,6 +1505,22 @@ def phase_train(tr, reqs, fwd, bwd, tag, others=()):
         raise AssertionError(f"predict_nodes after training did not launch "
                              f"{fwd.__name__} {n_layers} times")
     return launches, _median(late_ms)
+
+
+def _check_replays(tr, kind, what, mode=None):
+    """On a graphed trainer whose ``mode`` (TEST by default) is cached,
+    every step key of ``kind`` ("train", "eval", "serve") of that mode
+    that ran must have replayed its graph: else the cached path ran
+    eagerly."""
+    from shadow_gnn_torch import TEST
+    mode = TEST if mode is None else mode
+    sg = tr.step_graphs
+    if not (sg.enabled and tr._cached(mode)):
+        return
+    keys = [k for k in sg.warmups if k[0] == kind and k[1] == mode]
+    if not keys or not all(sg.replays[k] > 0 for k in keys):
+        raise AssertionError(f"{what}: the graphed trainer replayed no {kind} graph "
+                             f"of a cached mode ({ {k: sg.replays[k] for k in keys} })")
 
 
 def phase_uncached(tr, reqs, sizes, fwd, per_request, tag):
@@ -1584,7 +1634,9 @@ def phase_time_train(bits, launches, max_abs_err, bf16=False, norm="rw"):
     from shadow_gnn_torch.sampling.cache import unpack_bits
     gen = torch.Generator(device="cuda").manual_seed(2)
     b, n, nbytes = bits.shape
-    seed = 12345
+    # the dropedge seed as a device tensor, made once: the int form would
+    # add the wrapper's fill kernel to every timed call
+    seed = torch.full((), 12345, dtype=torch.int64, device="cuda")
     adj_n = _DENSE_NORM[norm](unpack_bits(bits, n), seed, DROPEDGE)
     adj_t = adj_n.transpose(1, 2)
     nnz = int((adj_n > 0).sum())
@@ -1849,17 +1901,27 @@ def phase_profile(tr, reqs, p50, sizes, tag):
 
 
 def phase_profile_train(tr, step_ms, tag):
-    """Device-busy share of a TRAIN step: a profile of 5 steps against
-    the main path's epoch-1 median step time (``step_ms``)."""
+    """Device-busy share of a TRAIN step as ``train()`` runs it (a graph
+    replay on a graphed trainer): a profile of 5 steps against the main
+    path's epoch-1 median step time (``step_ms``)."""
+    import numpy as np
+    import torch
     from shadow_gnn_torch import TRAIN
     from shadow_gnn_torch.train.pipeline import EpochRNG
     rng = EpochRNG.from_seed(11, tr.device)
-    nb = len(tr.entity_set[TRAIN]) // tr.batch_size
-    batches = [_train_batch(tr, tr.batch_size * (i % nb)) for i in range(5)]
+    b = tr.batch_size
+    nb = len(tr.entity_set[TRAIN]) // b
+    labels = torch.as_tensor(tr.label_np[np.asarray(tr.entity_set[TRAIN])].astype(
+        np.int64), device="cuda")
+    w = torch.ones(b, device="cuda")
     tr.model.train()
-    tr._train_step(*batches[0], rng)                    # warm
-    _profile(f"{tag} TRAIN step (B={tr.batch_size})",
-             lambda i: tr._train_step(*batches[i], rng), 5, step_ms)
+    with tr.step_graphs.dropout(rng.dropout) as gen:
+        def step(i):
+            lo = b * (i % nb)
+            tr._cached_train_step(TRAIN, torch.arange(lo, lo + b, device="cuda"),
+                                  labels[lo:lo + b], w, rng, gen)
+        step(0)                                         # warm
+        _profile(f"{tag} TRAIN step (B={b})", lambda i: step(i + 1), 5, step_ms)
     tr.model.eval()
 
 
@@ -3279,6 +3341,248 @@ def phase_link(graph, profile=False):
 # (backend, world, device) of the phase's runs on one card: NCCL at world
 # 1 (it cannot hold two ranks of a group on one card) and gloo at world 4,
 # every rank on cuda:0 (gloo stages CUDA tensors through host memory)
+GRAPHS_BUDGET_S = 180           # the phase aims at 120 s
+GRAPH_WINDOW = 16               # TRAIN steps of a timed window
+GRAPH_ROUNDS = 3                # rounds of eager, graphed, graphed, eager windows
+GRAPH_REQS = 10                 # timed requests of each size and trainer, in turns
+# graphed against eager where they are not bit for bit (cuBLAS may pick
+# another algorithm under capture): (loss rel, each parameter and Adam
+# state of its max, probabilities and embeddings abs)
+GRAPH_TOLS = (1e-6, 1e-6, 1e-6)
+
+
+def _graph_twin(kind, g, data_dir, cuda_graphs):
+    """A 1-epoch trainer of the [graphs] model ``kind`` ("flagship",
+    "flagship bf16" or "gat"), its PPR tables through the cache in
+    ``data_dir``."""
+    if kind == "gat":
+        return _gat_trainer(g, epochs=1, data_dir=data_dir, cuda_graphs=cuda_graphs)
+    precision = {"matmul_precision": "bfloat16"} if kind == "flagship bf16" else {}
+    return _flagship_trainer(g, epochs=1, tag=f"[graphs {kind}]", data_dir=data_dir,
+                             cuda_graphs=cuda_graphs, **precision)
+
+
+def _counter_names(counters):
+    from shadow_gnn_torch.ops import packed
+    return [f"{'packed_spmm' if h is packed.packed_spmm.launches_by_norm else 'packed_spmm_t'}"
+            f"_{n}" if isinstance(h, dict) else f"{h.__name__}.{n}" for h, n in counters]
+
+
+def _graph_epoch(tr):
+    """TRAIN epoch 0 and its VALID pass through ``run_epoch``: each pass's
+    (per-batch losses, predictions) and the launch counts over both."""
+    import torch
+    from shadow_gnn_torch import TRAIN, VALID
+    from shadow_gnn_torch.train import graphs
+    passes, run_batches = [], tr._run_batches
+
+    def recorded(*args):
+        out = run_batches(*args)
+        passes.append(out[:2])
+        return out
+
+    counters = graphs.launch_counters()
+    before = graphs.counter_values(counters)
+    tr._run_batches = recorded
+    try:
+        tr.run_epoch(0, TRAIN)
+        tr.run_epoch(0, VALID)
+        torch.cuda.synchronize()
+    finally:
+        del tr._run_batches
+    after = graphs.counter_values(counters)
+    return passes, {name: a - b for name, a, b in
+                    zip(_counter_names(counters), after, before) if a != b}
+
+
+def _graph_diff(got, want, scale=False):
+    """(bit for bit, max |got - want|, over max |want| with ``scale``)."""
+    import numpy as np
+    got, want = np.asarray(got, np.float64), np.asarray(want, np.float64)
+    if got.shape != want.shape:
+        raise AssertionError(f"shapes {got.shape} and {want.shape}")
+    err = float(np.abs(got - want).max()) if got.size else 0.0
+    if scale:
+        err /= max(float(np.abs(want).max()), 1e-30)
+    return bool(np.array_equal(got, want)), err
+
+
+def _window_profile(fn, n):
+    """torch.profiler over ``fn()`` (``n`` steps): (device-busy ms, device
+    kernels, CUDA runtime calls of the host) per step; the busy ms is
+    None where the profiler sees no device time."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    kern = [e for e in prof.events()
+            if e.device_type == DeviceType.CUDA and not e.is_user_annotation]
+    api = [e for e in prof.events()
+           if e.device_type == DeviceType.CPU and e.name.startswith("cuda")]
+    busy = sum(e.time_range.elapsed_us() for e in kern) / 1e3 / n
+    return (busy or None), len(kern) / n, len(api) / n
+
+
+def phase_graphs(g, kinds):
+    """[graphs]: for each model of ``kinds``, an eager twin
+    (``cuda_graphs=False``) and a graphed trainer from the same seed: TRAIN
+    epoch 0 and its VALID pass (per-step losses and predictions, the final
+    parameters and Adam state, every kernel's launches), then serving at
+    every size, held graphed against eager bit for bit (``GRAPH_TOLS``
+    where not, printed); the graphed trainer must have replayed a graph
+    for every TRAIN and eval step but its key's first (the warm-up) and
+    for every serving bucket.  Then, in turns in this call: the TRAIN
+    step (``GRAPH_ROUNDS`` rounds of eager, graphed, graphed, eager
+    windows of ``GRAPH_WINDOW`` steps, host clock to a synchronise), its
+    device-busy share and host CUDA calls (torch.profiler, one window
+    each), the request p50 by size, the capture seconds and the graph
+    pool.  Returns the phase's seconds."""
+    import shutil
+    import tempfile
+    import numpy as np
+    import torch
+    from shadow_gnn_torch import TEST, TRAIN, VALID
+    from shadow_gnn_torch.sampling.induction import bucket_cap
+    from shadow_gnn_torch.train.pipeline import EpochRNG
+    t_phase = time.perf_counter()
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_graphs_")
+    try:
+        for kind in kinds:
+            tag = f"[graphs {kind}]"
+            t0 = time.perf_counter()
+            eager, graphed = (_graph_twin(kind, g, tmp, cg) for cg in (False, True))
+            if eager.step_graphs.enabled or not graphed.step_graphs.enabled:
+                raise AssertionError(f"{tag} the twins' graphs are not off and on")
+            # the preprocessing's index_add_ sums with atomics on the card
+            # (GAT-5's label smoothening): the graphed twin takes the eager
+            # twin's feature table, in place
+            n_feat = int((graphed.feat_tab != eager.feat_tab).sum())
+            graphed.feat_tab.copy_(eager.feat_tab)
+            _detail(f"{tag} feature tables of the twins' preprocessing differ in "
+                    f"{n_feat} entries; the graphed twin takes the eager twin's")
+            # the same epoch on both: losses, predictions, state, launches
+            (p_e, l_e), (p_g, l_g) = _graph_epoch(eager), _graph_epoch(graphed)
+            bits, errs = [], {}
+            for (le, pe), (lg, pg), what in zip(p_e, p_g, ("TRAIN", "VALID")):
+                for name, got, want, scale in ((f"{what} losses", lg, le, True),
+                                               (f"{what} predictions", pg, pe, False)):
+                    same, errs[name] = _graph_diff(got, want, scale)
+                    bits.append(same)
+            sd_e, sd_g = eager.model.state_dict(), graphed.model.state_dict()
+            o_e = eager.optimizer.state_dict()["state"]
+            o_g = graphed.optimizer.state_dict()["state"]
+            state = [(sd_g[k], sd_e[k]) for k in sd_e] + [
+                (o_g[k][n], o_e[k][n]) for k in o_e for n in o_e[k]]
+            diffs = [_graph_diff(a.cpu(), b.cpu(), True) for a, b in state]
+            bits += [same for same, _ in diffs]
+            errs["state"] = max(err for _, err in diffs)
+            sg = graphed.step_graphs
+            nbs = {m: -(-len(graphed.entity_set[m]) // graphed.batch_size)
+                   for m in (TRAIN, VALID)}
+            want_replays = {("train", TRAIN, graphed.batch_size): nbs[TRAIN] - 1,
+                            ("eval", VALID, False, graphed.batch_size): nbs[VALID] - 1}
+            got_replays = {k: sg.replays[k] for k in want_replays}
+            if got_replays != want_replays or l_e != l_g:
+                raise AssertionError(f"{tag} replays {got_replays}, want "
+                                     f"{want_replays}; launches eager {l_e}, "
+                                     f"graphed {l_g}")
+            # serving at every size: the warm-up, the capture, replays
+            sizes = GAT_SIZES if kind == "gat" else SERVE_SIZES
+            rng = np.random.default_rng(3)
+            test_ids = np.asarray(eager.entity_set[TEST])
+            reqs = {s: [rng.choice(test_ids, s, replace=False)
+                        for _ in range(GRAPH_REQS)] for s in sizes}
+            for tr in (eager, graphed):
+                tr.prepare_serving(TEST)
+            serve = []
+            for s in sizes:
+                want = (eager.predict_nodes(reqs[s][0]), eager.embed_nodes(reqs[s][0]))
+                for _ in range(3):
+                    got = (graphed.predict_nodes(reqs[s][0]),
+                           graphed.embed_nodes(reqs[s][0]))
+                    serve += [_graph_diff(got[0], want[0]),
+                              _graph_diff(np.stack(got[1]), np.stack(want[1]))]
+                key = ("serve", TEST, 8 if s <= 8 else bucket_cap(s))
+                if not sg.replays[key] > 0:
+                    raise AssertionError(f"{tag} the {s}-id bucket replayed no graph")
+            bits += [same for same, _ in serve]
+            errs["serving"] = max(err for _, err in serve)
+            if not all(bits):
+                _detail(f"{tag} graphed vs eager, not bit for bit: {errs}")
+                tol_loss, tol_state, tol_probs = GRAPH_TOLS
+                if not (max(errs["TRAIN losses"], errs["VALID losses"]) <= tol_loss
+                        and errs["state"] <= tol_state
+                        and max(errs["TRAIN predictions"], errs["VALID predictions"],
+                                errs["serving"]) <= tol_probs):
+                    raise AssertionError(f"{tag} graphed and eager differ: {errs}")
+
+            # timed in turns: TRAIN windows, their profiles, requests
+            b = graphed.batch_size
+            arrays = {id(tr): tr._epoch_arrays(TRAIN) for tr in (eager, graphed)}
+
+            def window(tr, k):
+                nb, roots, rows, labels, w = arrays[id(tr)]
+                lo = (k * GRAPH_WINDOW) % (nb - GRAPH_WINDOW + 1)
+                sl = slice(lo * b, (lo + GRAPH_WINDOW) * b)
+                tr._run_batches(TRAIN, True, GRAPH_WINDOW, roots[sl], rows[sl],
+                                labels[sl], w[sl], EpochRNG.from_seed(k, tr.device))
+
+            step = {id(eager): [], id(graphed): []}
+            for k in range(GRAPH_ROUNDS):
+                for tr in (eager, graphed, graphed, eager):
+                    torch.cuda.synchronize()
+                    t1 = time.perf_counter()
+                    window(tr, k)
+                    torch.cuda.synchronize()
+                    step[id(tr)].append((time.perf_counter() - t1) * 1e3 / GRAPH_WINDOW)
+            prof = {id(tr): _window_profile(lambda tr=tr: window(tr, GRAPH_ROUNDS),
+                                            GRAPH_WINDOW) for tr in (eager, graphed)}
+            lat = {(id(tr), s): [] for tr in (eager, graphed) for s in sizes}
+            for s in sizes:
+                for i, ids in enumerate(reqs[s]):
+                    for tr in ((eager, graphed) if i % 2 == 0 else (graphed, eager)):
+                        t1 = time.perf_counter()
+                        tr.predict_nodes(ids, TEST)
+                        lat[id(tr), s].append((time.perf_counter() - t1) * 1e3)
+            med = {i: _median(v) for i, v in step.items()}
+            for tr, name in ((eager, "eager"), (graphed, "graphed")):
+                busy, kern, api = prof[id(tr)]
+                share = "not measured" if busy is None else f"{busy / med[id(tr)]:.3f}"
+                busy_s = "not measured" if busy is None else f"{busy:.3f}"
+                _detail(f"{tag} {name}: step median {med[id(tr)]:.3f} ms (windows "
+                        + ", ".join(f"{x:.3f}" for x in step[id(tr)])
+                        + f"), device busy {busy_s} ms a step (share {share}), "
+                        f"{kern:.0f} device kernels and {api:.0f} host CUDA calls a "
+                        "step; request p50 ms by ids " + ", ".join(
+                            f"{s} {_median(lat[id(tr), s]):.3f}" for s in sizes))
+            print(f"{tag} graphed = eager "
+                  + ("bit for bit" if all(bits) else
+                     "within " + ", ".join(f"{k} {v:.1e}" for k, v in errs.items()))
+                  + f" (TRAIN+VALID {nbs[TRAIN]}+{nbs[VALID]} steps, state, serving "
+                  f"{len(sizes)} sizes); replays {sum(sg.replays.values())}; step ms "
+                  f"eager {med[id(eager)]:.3f} / graphed {med[id(graphed)]:.3f}, busy "
+                  "share " + " / ".join(
+                      "n/m" if prof[id(tr)][0] is None else
+                      f"{prof[id(tr)][0] / med[id(tr)]:.2f}" for tr in (eager, graphed))
+                  + ", host calls " + " / ".join(f"{prof[id(tr)][2]:.0f}"
+                                                  for tr in (eager, graphed))
+                  + f"; p50 ms {sizes[0]} id {_median(lat[id(eager), sizes[0]]):.2f} / "
+                  f"{_median(lat[id(graphed), sizes[0]]):.2f}, {sizes[-1]} ids "
+                  f"{_median(lat[id(eager), sizes[-1]]):.2f} / "
+                  f"{_median(lat[id(graphed), sizes[-1]]):.2f}; capture "
+                  f"{sg.capture_s:.2f}s, pool {sg.pool_bytes / 2**20:.0f} MiB; part "
+                  f"{time.perf_counter() - t0:.1f}s")
+            _detail(f"{tag} graphs: {sg.summary()}; launches over the epoch {l_g}")
+            del eager, graphed
+            torch.cuda.empty_cache()
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    return time.perf_counter() - t_phase
+
+
 PARALLEL_RUNS = (("nccl", 1, "cuda"), ("gloo", 4, "cuda:0"))
 PARALLEL_WINDOW = 8             # steps of each timed window
 PARALLEL_TIMEOUT_S = 300        # a rank's group fails a collective waiting longer
@@ -3770,6 +4074,9 @@ def _run(here):
     del tr, reqs, serve_bits
     torch.cuda.empty_cache()
 
+    # the compiled step: graphed against eager twins, f32 and bf16
+    t_graphs = phase_graphs(flickr, ("flagship", "flagship bf16"))
+
     # GCN-3, GIN-3, GATScatter-3 and SIGN on the same graph
     rows += phase_matrix(flickr, max_abs_err, profile)
     # the remaining single-card capabilities on the same graph
@@ -3821,6 +4128,12 @@ def _run(here):
     phase_train(tr, reqs, b2b, b3b, "[gat bf16 act]")
     del tr, reqs
     torch.cuda.empty_cache()
+    # the compiled step of the GAT-5, graphed against its eager twin
+    t_graphs += phase_graphs(products, ("gat",))
+    print(f"[graphs] phase {t_graphs:.1f}s (aim 120 s, budget {GRAPHS_BUDGET_S} s)")
+    if t_graphs > GRAPHS_BUDGET_S:
+        raise AssertionError(f"[graphs] took {t_graphs:.1f}s, over its "
+                             f"{GRAPHS_BUDGET_S} s budget")
     # partitioned training: the GAT-5 under edge
     t_parallel += phase_parallel(products, "gat")
     if t_parallel > PARALLEL_BUDGET_S:

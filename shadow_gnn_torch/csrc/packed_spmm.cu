@@ -23,6 +23,13 @@
 // keep(i,j); for sym also A(j,i) and keep(j,i) (s * s^T).  Degrees count
 // the survivors, clipped at 1.  Row scales: none 1; rw 1/deg_i; sym
 // deg_i^-1/2 on both sides; gin deg0_i / deg_i (deg0 = undropped degree).
+// The seed lives in device memory (an int64 whose low 32 bits are
+// hashed), as the TPU kernel takes it in a scalar-prefetch ref
+// (pallas_packed.py:83, seed_ref): a launch captured in a CUDA graph then
+// hashes the seed written before each replay.  Every thread loads the one
+// word once (a broadcast load), and only when dropedge is on; the pointer
+// may be null otherwise.  Against the by-value seed it replaced, B1a and
+// B1b moved 2% or less (H100 timings in turns, PERF.md §6).
 //
 // What bounds it: one call must read bits and x once and write out once,
 // B*(N*BYTES + 2*N*F*4) bytes, in either direction: 53.6 MB at B=64,
@@ -353,8 +360,8 @@ template <bool kT, bool kB, bool kVec>
 __global__ void __launch_bounds__(kThreads, kMinBlocks)
     packed_spmm_kernel(const uint8_t* __restrict__ bits, const float* __restrict__ x,
                        float* __restrict__ out, int n, int nbytes, int f, int norm,
-                       int drop_on, uint32_t seed, uint32_t thresh, int tile,
-                       int sub, int fsplit, int per) {
+                       int drop_on, const int64_t* __restrict__ seed,
+                       uint32_t thresh, int tile, int sub, int fsplit, int per) {
   extern __shared__ __align__(16) unsigned char smem[];
   cg::cluster_group cluster = cg::this_cluster();
   const int csize = (int)cluster.num_blocks();
@@ -373,7 +380,8 @@ __global__ void __launch_bounds__(kThreads, kMinBlocks)
   const uint8_t* blk = bits + (size_t)b * n * nbytes;
   const float* x_b = x + (size_t)b * n * f;
   float* out_b = out + (size_t)b * n * f;
-  const Drop d{drop_on != 0, mix32(mix32(seed) + (uint32_t)b), thresh};
+  const Drop d{drop_on != 0,
+               drop_on ? mix32(mix32((uint32_t)seed[0]) + (uint32_t)b) : 0u, thresh};
   const bool sym = norm == kSym;
 
   if (kT ? norm == kNone : !sym) {
@@ -448,7 +456,7 @@ __global__ void __launch_bounds__(kThreads, kMinBlocks)
 
 template <bool kT, bool kB, bool kVec>
 int launch_mode(const void* bits, const void* x, void* out, int n, int nbytes,
-                int f, int norm, int drop_on, uint32_t seed, uint32_t thresh,
+                int f, int norm, int drop_on, const void* seed, uint32_t thresh,
                 int cluster, int tile, int sub, int fsplit, int per, int grid,
                 int threads, int smem_bytes, void* stream) {
   auto kernel = packed_spmm_kernel<kT, kB, kVec>;
@@ -471,15 +479,15 @@ int launch_mode(const void* bits, const void* x, void* out, int n, int nbytes,
   cfg.numAttrs = 1;
   const cudaError_t e = cudaLaunchKernelEx(
       &cfg, kernel, static_cast<const uint8_t*>(bits), static_cast<const float*>(x),
-      static_cast<float*>(out), n, nbytes, f, norm, drop_on, seed, thresh, tile, sub,
-      fsplit, per);
+      static_cast<float*>(out), n, nbytes, f, norm, drop_on,
+      static_cast<const int64_t*>(seed), thresh, tile, sub, fsplit, per);
   if (e != cudaSuccess) return (int)e;
   return (int)cudaGetLastError();
 }
 
 template <bool kT>
 int launch(const void* bits, const void* x, void* out, int n, int nbytes, int f,
-           int norm, int drop_on, uint32_t seed, uint32_t thresh, int bf16, int vec,
+           int norm, int drop_on, const void* seed, uint32_t thresh, int bf16, int vec,
            int cluster, int tile, int sub, int fsplit, int per, int grid,
            int threads, int smem_bytes, void* stream) {
 #define PACKED_SPMM_LAUNCH(KB, KV)                                                  \
@@ -498,10 +506,12 @@ extern "C" {
 // Both launch on `stream`, in clusters of `cluster` CTAs; grid, block,
 // dynamic shared memory and the tiling come from the caller
 // (shadow_gnn_torch/ops/packed.py:launch_dims); bf16 != 0 selects the
-// bf16 mode, vec != 0 the float4 loads (F % 4 == 0, x 16-byte aligned).
+// bf16 mode, vec != 0 the float4 loads (F % 4 == 0, x 16-byte aligned);
+// `seed` points at the int64 dropedge seed in device memory (read only
+// when drop_on != 0).
 // Each returns the launch's CUDA error (0 = launched).
 int packed_spmm_forward(const void* bits, const void* x, void* out, int n,
-                        int nbytes, int f, int norm, int drop_on, uint32_t seed,
+                        int nbytes, int f, int norm, int drop_on, const void* seed,
                         uint32_t thresh, int bf16, int vec, int cluster, int tile,
                         int sub, int fsplit, int per, int grid, int threads,
                         int smem_bytes, void* stream) {
@@ -511,10 +521,10 @@ int packed_spmm_forward(const void* bits, const void* x, void* out, int n,
 }
 
 int packed_spmm_transposed(const void* bits, const void* g, void* out, int n,
-                           int nbytes, int f, int norm, int drop_on, uint32_t seed,
-                           uint32_t thresh, int bf16, int vec, int cluster,
-                           int tile, int sub, int fsplit, int per, int grid,
-                           int threads, int smem_bytes, void* stream) {
+                           int nbytes, int f, int norm, int drop_on,
+                           const void* seed, uint32_t thresh, int bf16, int vec,
+                           int cluster, int tile, int sub, int fsplit, int per,
+                           int grid, int threads, int smem_bytes, void* stream) {
   return launch<true>(bits, g, out, n, nbytes, f, norm, drop_on, seed, thresh, bf16,
                       vec, cluster, tile, sub, fsplit, per, grid, threads,
                       smem_bytes, stream);

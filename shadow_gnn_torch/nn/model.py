@@ -154,9 +154,11 @@ class ModelConfig:
 PACKED_NORM = {"gcn": "sym", "sage": "rw", "gin": "gin"}
 
 
-def branch_seed(seed: int, i: int) -> int:
+def branch_seed(seed, i: int):
     """Branch i's dropedge seed from the forward's ``seed`` (branch 0
-    uses ``seed`` itself), in [0, 2**31 - 1)."""
+    uses ``seed`` itself), in [0, 2**31 - 1): an int, or for an int64
+    tensor seed (a CUDA graph's static seed buffer) a new tensor of the
+    same value, computed on the device."""
     return (seed + i * 0x9E3779B1) % (2**31 - 1)
 
 
@@ -228,7 +230,7 @@ class DeepGNN(nn.Module):
         return (getattr(self, "aug" + sfx), getattr(self, convs),
                 getattr(self, "res_pool" + sfx))
 
-    def aggregator(self, batch: SubgraphBatch, seed: int = 0):
+    def aggregator(self, batch: SubgraphBatch, seed=0):
         """What each conv aggregates through for this batch, prepared once
         for all convs (edges dropped in training mode under ``seed``):
         SAGE, GCN and GIN a callable x -> A_norm @ x, GAT and GATScatter
@@ -254,14 +256,16 @@ class DeepGNN(nn.Module):
                                  cfg.matmul_precision)
 
     def forward(self, batches, feats, generator: Optional[torch.Generator] = None,
-                dropedge_seed: int = 0, mode_train: bool = False
+                dropedge_seed=0, mode_train: bool = False
                 ) -> Tuple[torch.Tensor, List[torch.Tensor]]:
         """batches / feats: one SubgraphBatch and one gathered [B, N, F]
         node-feature block (features, then ``dim_label_smooth``
         label-input columns) per branch, or the batch and the block of a
         one-branch model.  In training mode, ``generator`` (on feat's
         device) draws the dropout masks and ``dropedge_seed`` (an int in
-        [0, 2**31 - 1), drawn on the host) picks the dropedge masks.
+        [0, 2**31 - 1), drawn on the host, or an int64 tensor of one
+        element on the device that holds it: the same masks) picks the
+        dropedge masks.
         ``mode_train`` zeroes the label inputs at the targets
         (models.py:182-183).  Returns (logits [B, C], per-branch
         embeddings [B, dim])."""
@@ -279,7 +283,7 @@ class DeepGNN(nn.Module):
         return h.float(), embs
 
     def _branch(self, i: int, batch: SubgraphBatch, feat: torch.Tensor,
-                generator: Optional[torch.Generator], seed: int,
+                generator: Optional[torch.Generator], seed,
                 mode_train: bool) -> torch.Tensor:
         """Branch i's L2-normalised [B, dim] f32 embedding."""
         aug, convs, res_pool = self.branch_modules(i)

@@ -27,6 +27,11 @@ same mask without storing it.  Entries are kept with probability
 1 - p up to 2**-32.  On int64 tensors each 32x32-bit product is split
 into two 32x16-bit ones, so nothing exceeds 2**49 and the result is the
 CUDA kernel's bit for bit.
+
+The seed is an int, or a one-element integer tensor on the device (the
+static seed buffer of a step that a CUDA graph replays): the mask then
+reads the seed's value where it is computed, so a replay hashes the
+seed written before it.  Both forms give the same mask.
 """
 from __future__ import annotations
 
@@ -56,13 +61,23 @@ def drop_threshold(p: float) -> int:
     return int(p * (2**32 - 1))
 
 
-def dropedge_mask(seed: int, b: int, n: int, p: float,
+def seed_word(seed, device=None):
+    """``seed`` as the 32-bit word the mask hashes: an int, or an integer
+    tensor of one element (a CUDA graph's static seed buffer, read on the
+    device) as a 0-d int64 tensor on ``device``."""
+    if isinstance(seed, torch.Tensor):
+        return seed.to(device=device, dtype=torch.int64).reshape(()) & _M32
+    return int(seed) & _M32
+
+
+def dropedge_mask(seed, b: int, n: int, p: float,
                   device=None) -> torch.Tensor:
-    """[b, n, n] float keep-mask of blocks 0..b-1 under ``seed``; all
-    ones when p == 0 (see the module docstring for the hash)."""
+    """[b, n, n] float keep-mask of blocks 0..b-1 under ``seed`` (an int,
+    or an integer tensor of one element: the same mask); all ones when
+    p == 0 (see the module docstring for the hash)."""
     if p <= 0.0:
         return torch.ones((b, n, n), device=device)
-    key = mix32((mix32(int(seed) & _M32)
+    key = mix32((mix32(seed_word(seed, device))
                  + torch.arange(b, dtype=torch.int64, device=device)) & _M32)
     idx = torch.arange(n, dtype=torch.int64, device=device)
     ij = (idx[:, None] << 16) | idx[None, :]
@@ -70,7 +85,7 @@ def dropedge_mask(seed: int, b: int, n: int, p: float,
     return (h > drop_threshold(p)).float()
 
 
-def adj_norm_sym(adj: torch.Tensor, seed: int = 0,
+def adj_norm_sym(adj: torch.Tensor, seed=0,
                  dropedge: float = 0.0) -> torch.Tensor:
     """Symmetric D^-1/2 A_drop D^-1/2.  An edge survives dropedge only
     if both of its directions survive (s * s^T with s = A * keep)."""
@@ -82,7 +97,7 @@ def adj_norm_sym(adj: torch.Tensor, seed: int = 0,
     return adj * d_inv_sqrt[..., :, None] * d_inv_sqrt[..., None, :]
 
 
-def adj_norm_rw(adj: torch.Tensor, seed: int = 0,
+def adj_norm_rw(adj: torch.Tensor, seed=0,
                 dropedge: float = 0.0) -> torch.Tensor:
     """Random-walk D_drop^-1 A_drop: every surviving edge of row i gets
     1/deg_dropped(i)."""
@@ -92,7 +107,7 @@ def adj_norm_rw(adj: torch.Tensor, seed: int = 0,
     return adj / torch.clamp(adj.sum(-1), min=1.0)[..., :, None]
 
 
-def adj_gin_rescale(adj: torch.Tensor, seed: int = 0,
+def adj_gin_rescale(adj: torch.Tensor, seed=0,
                     dropedge: float = 0.0) -> torch.Tensor:
     """GIN dropedge: surviving edges of row i get deg(i)/deg_dropped(i);
     no normalisation."""
@@ -104,7 +119,7 @@ def adj_gin_rescale(adj: torch.Tensor, seed: int = 0,
     return adj_d * (deg / torch.clamp(adj_d.sum(-1), min=1.0))[..., :, None]
 
 
-def adj_drop(adj: torch.Tensor, seed: int = 0,
+def adj_drop(adj: torch.Tensor, seed=0,
              dropedge: float = 0.0) -> torch.Tensor:
     """The raw 0/1 adjacency with dropped edges zeroed: norm "none", and
     GAT's ``adj_gat_drop`` (its softmax renormalises downstream)."""
@@ -120,7 +135,7 @@ _PREPARE = {"gcn": adj_norm_sym, "sage": adj_norm_rw, "gin": adj_gin_rescale,
             "gat": adj_drop, "gatscat": adj_drop}
 
 
-def prepare_adj(aggr: str, adj: torch.Tensor, seed: int = 0,
+def prepare_adj(aggr: str, adj: torch.Tensor, seed=0,
                 dropedge: float = 0.0):
     """Once-per-batch adjacency of a conv stack: (normalised, edge-dropped
     block, structural block before the drop), as the JAX package's

@@ -6,7 +6,12 @@ the bits, so the dense [B, N, N] block never exists in device memory.
 It is differentiable in ``x``: its backward is the transposed product
 :func:`packed_spmm_t`, ``dx[b] = norm(unpack(bits[b]) * keep)^T @ g[b]``,
 under the same dropedge mask, regenerated from ``seed``
-(``ops/normalize.py`` defines the counter-hash mask ``keep``).
+(``ops/normalize.py`` defines the counter-hash mask ``keep``).  The seed
+is an int or a one-element integer tensor on the device (a CUDA graph's
+static seed buffer); the kernels read it from device memory, so a
+captured launch hashes the seed of each replay.  The int form is kept:
+the wrapper writes it into a fresh one-element device tensor (one fill
+kernel, no copy from the host).
 
 * on CUDA tensors each direction launches its hand-written kernel in
   ``csrc/packed_spmm.cu`` (or raises);
@@ -98,7 +103,7 @@ def launch_dims(b: int, n: int, f: int, transpose: bool = False) -> LaunchDims:
 
 
 def packed_spmm_plain(bits: torch.Tensor, x: torch.Tensor, norm: str = "none",
-                      dropedge: float = 0.0, seed: int = 0,
+                      dropedge: float = 0.0, seed=0,
                       transpose: bool = False, bf16: bool = False) -> torch.Tensor:
     """Plain PyTorch version: unpack -> mask -> dense normalise -> bmm
     (with the normalised block transposed when ``transpose``); ``bf16``
@@ -118,7 +123,7 @@ def _kernel_fn(transpose: bool):
     if fn.argtypes is None:
         fn.restype = ctypes.c_int
         fn.argtypes = ([ctypes.c_void_p] * 3 + [ctypes.c_int] * 4
-                       + [ctypes.c_int, ctypes.c_uint32, ctypes.c_uint32]
+                       + [ctypes.c_int, ctypes.c_void_p, ctypes.c_uint32]
                        + [ctypes.c_int] * 10 + [ctypes.c_void_p])
     return fn
 
@@ -142,12 +147,13 @@ def _aggregate(bits, x, norm, dropedge, seed, transpose, bf16):
     if b == 0 or n == 0 or f == 0:
         return out
     d = launch_dims(b, n, f, transpose)
+    seed_d = _device_seed(seed, x.device) if dropedge > 0.0 else None
     with torch.cuda.device(x.device):
         stream = torch.cuda.current_stream().cuda_stream
         rc = _kernel_fn(transpose)(
             bits.data_ptr(), x.data_ptr(), out.data_ptr(), n, bits.shape[-1],
             f, _NORM_CODE[norm], int(dropedge > 0.0),
-            ctypes.c_uint32(int(seed) & 0xFFFFFFFF),
+            None if seed_d is None else seed_d.data_ptr(),
             ctypes.c_uint32(drop_threshold(dropedge)), int(bf16),
             int(d.vec and x.data_ptr() % 16 == 0), d.cluster, d.tile, d.sub,
             d.fsplit, d.per, d.grid, d.threads, d.smem, stream)
@@ -162,13 +168,34 @@ def _aggregate(bits, x, norm, dropedge, seed, transpose, bf16):
     return out
 
 
+def _device_seed(seed, device) -> torch.Tensor:
+    """The dropedge seed as the int64 word the kernels read on
+    ``device``: a tensor seed as it is (cast where it is not int64), an
+    int written by a fill kernel."""
+    if isinstance(seed, torch.Tensor):
+        if seed.numel() != 1 or seed.device != device:
+            raise ValueError(f"the seed must be one element on {device}, got "
+                             f"{tuple(seed.shape)} on {seed.device}")
+        return seed.to(torch.int64).reshape(())
+    return torch.full((), int(seed) & 0xFFFFFFFF, dtype=torch.int64, device=device)
+
+
+def _seed_arg(seed):
+    """A seed argument as the wrappers pass it on: a tensor as it is,
+    anything else as an int."""
+    return seed if isinstance(seed, torch.Tensor) else int(seed)
+
+
 class _PackedSpmm(torch.autograd.Function):
     """The forward product; its backward is the transposed product over
     the same bits, norm and dropedge seed (``_fwd``/``_bwd`` of the JAX
-    package's custom VJP)."""
+    package's custom VJP).  A tensor seed is copied for the backward: a
+    step's seed buffer may be overwritten before it runs."""
 
     @staticmethod
     def forward(ctx, bits, x, norm, dropedge, seed, bf16):
+        if isinstance(seed, torch.Tensor) and dropedge > 0.0:
+            seed = seed.detach().clone()
         ctx.save_for_backward(bits)
         ctx.args = (norm, dropedge, seed, bf16)
         return _aggregate(bits, x, norm, dropedge, seed, False, bf16)
@@ -187,12 +214,13 @@ def _check_args(norm: str, dropedge: float):
 
 
 def packed_spmm(bits: torch.Tensor, x: torch.Tensor, norm: str = "none",
-                dropedge: float = 0.0, seed: int = 0,
+                dropedge: float = 0.0, seed=0,
                 bf16: bool = False) -> torch.Tensor:
     """out[b] = norm(unpack(bits[b]) * keep(seed, b)) @ x[b].
 
     bits [B, N, ceil(N/8)] uint8, x [B, N, F] f32 -> [B, N, F] f32;
-    ``seed`` picks the dropedge mask (ignored at dropedge 0); ``bf16``
+    ``seed`` (an int, or an integer tensor of one element on x's device)
+    picks the dropedge mask (ignored at dropedge 0); ``bf16``
     the bf16 mode (its backward too).  Differentiable in ``x``.
     ``packed_spmm.calls`` counts every call; ``packed_spmm.launches``
     and ``packed_spmm.launches_bf16`` count the forward kernel's
@@ -201,11 +229,12 @@ def packed_spmm(bits: torch.Tensor, x: torch.Tensor, norm: str = "none",
     """
     _check_args(norm, dropedge)
     packed_spmm.calls += 1
-    return _PackedSpmm.apply(bits, x, norm, float(dropedge), int(seed), bool(bf16))
+    return _PackedSpmm.apply(bits, x, norm, float(dropedge), _seed_arg(seed),
+                             bool(bf16))
 
 
 def packed_spmm_t(bits: torch.Tensor, g: torch.Tensor, norm: str = "none",
-                  dropedge: float = 0.0, seed: int = 0,
+                  dropedge: float = 0.0, seed=0,
                   bf16: bool = False) -> torch.Tensor:
     """dx[b] = norm(unpack(bits[b]) * keep(seed, b))^T @ g[b]: the
     backward of :func:`packed_spmm`.  ``packed_spmm_t.launches`` and
@@ -213,7 +242,8 @@ def packed_spmm_t(bits: torch.Tensor, g: torch.Tensor, norm: str = "none",
     launches in each mode, ``packed_spmm_t.launches_by_norm`` in each
     norm."""
     _check_args(norm, dropedge)
-    return _aggregate(bits, g, norm, float(dropedge), int(seed), True, bool(bf16))
+    return _aggregate(bits, g, norm, float(dropedge), _seed_arg(seed), True,
+                      bool(bf16))
 
 
 packed_spmm.calls = 0

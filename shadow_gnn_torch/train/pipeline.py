@@ -19,9 +19,21 @@ post-processing reads (:meth:`Trainer.predict_full` /
 :meth:`Trainer.embed_full`).
 
 Differences from the JAX Trainer:
-* everything runs eagerly on ``device`` (default ``"cuda"``; CUDA
-  absent raises), one batch at a time: there are no epoch-scan or chunk
-  programs;
+* everything runs on ``device`` (default ``"cuda"``; CUDA absent
+  raises), one batch at a time: there are no epoch-scan or chunk
+  programs.  Where JAX compiles its epochs and its serve programs, a
+  CUDA Trainer (``cuda_graphs=True``, the default) captures each cached
+  step in a CUDA graph and replays it (``train/graphs.py``): the TRAIN
+  step (gather, forward, backward, clip, Adam), the eval step of the
+  VALID/TEST passes and of ``predict_full`` / ``embed_full``, and each
+  serving bucket of ``predict_nodes`` / ``embed_nodes``.  A step is
+  cached when every branch of its mode gathers from a built subgraph
+  cache; it is then a function of static buffers (``_static_train``,
+  ``_static_eval``, ``_static_serve``), which the CPU, an eager twin
+  (``cuda_graphs=False``) and a partitioned Trainer call directly.  The
+  rest runs eagerly: the uncached branches (khop, nodeIID, a cache over
+  its budget, ``disable_cache`` and ``inference``), the link task, the
+  partitioned steps and the first-epoch profile;
 * ``partition`` (``dp``, ``feat``, ``edge``; ``parallel/``) runs inside
   a process group, one Trainer a rank (``parallel/multihost.py``): each
   rank builds the same Trainer from the same seed, draws the same epoch
@@ -99,6 +111,7 @@ from shadow_gnn_torch.sampling.induction import (PLAN_GATHER_BUDGET, bucket_cap,
                                                  plan_ppr_induction)
 from shadow_gnn_torch.sampling.samplers import PPRTables, sample_subgraphs
 from shadow_gnn_torch.train.config import DATA_METRIC, decouple_ensemble
+from shadow_gnn_torch.train.graphs import StepGraphs
 from shadow_gnn_torch.train.logger import Logger, find_checkpoint
 from shadow_gnn_torch.train.metrics import Metrics
 from shadow_gnn_torch.train.profiler import SubgraphProfiler, batch_stats
@@ -167,8 +180,15 @@ def clip_grad_global_norm_(params, max_norm: float) -> torch.Tensor:
 
 def make_optimizer(params, lr: float) -> torch.optim.Optimizer:
     """optax.adam(lr) with its defaults (the clip is applied to the
-    gradients first, by :func:`clip_grad_global_norm_`)."""
-    return torch.optim.Adam(params, lr=lr, betas=(0.9, 0.999), eps=1e-8)
+    gradients first, by :func:`clip_grad_global_norm_`).  On a card it
+    is ``capturable``: its step count lives on the device and the bias
+    corrections are formed there in f32 (as optax forms them), so a CUDA
+    graph can hold the update; the eager and the graphed steps use the
+    same arithmetic.  The CPU, where torch refuses ``capturable``, keeps
+    the count on the host and forms them in double."""
+    params = list(params)
+    return torch.optim.Adam(params, lr=lr, betas=(0.9, 0.999), eps=1e-8,
+                            capturable=any(p.is_cuda for p in params))
 
 
 def _check_partition(partition: str, partition_devices: int, batch_size: int):
@@ -226,7 +246,8 @@ class Trainer:
                  compute_dtype: str = "float32", feat_dtype: str = "float32",
                  fused_gat: Optional[bool] = None,
                  use_device_ppr: Optional[bool] = None,
-                 partition: str = "none", partition_devices: int = 0):
+                 partition: str = "none", partition_devices: int = 0,
+                 cuda_graphs: bool = True):
         """``metrics`` defaults to the dataset's metric (DATA_METRIC,
         else accuracy) and ``logger`` to one that writes no files.
         ``use_device_ppr``: True computes the PPR tables by the power
@@ -246,7 +267,11 @@ class Trainer:
         Trainer's: a partitioned Trainer is built on every rank of an
         initialised process group whose world size divides the batch
         size (``parallel/multihost.py:initialize``; the CLI's
-        ``--partition`` spawns the ranks)."""
+        ``--partition`` spawns the ranks).  ``cuda_graphs`` (True) lets a
+        CUDA Trainer that is not partitioned replay its cached steps
+        from CUDA graphs; False runs them eagerly, the same functions
+        (the eager twin that ``chip_smoke.py`` compares); the CPU
+        ignores it."""
         if partition not in ("none", "dp", "feat", "edge"):
             raise ValueError(f"unsupported partition {partition!r}")
         if feat_dtype not in ("float32", "bfloat16"):
@@ -366,6 +391,9 @@ class Trainer:
             matmul_precision=matmul_precision or "float32",
             compute_dtype=compute_dtype,
         )
+        # the cached steps' graphs (train/graphs.py), before a reload
+        # can drop them
+        self.step_graphs = StepGraphs(self.device, cuda_graphs and partition == "none")
         self.model = DeepGNN(self.model_cfg)
         init_params(self.model, torch.Generator().manual_seed(seed))
         self.model.to(self.device).eval()
@@ -382,6 +410,20 @@ class Trainer:
         # --trace_dir: a torch.profiler trace of TRAIN epoch 1
         self.trace_dir: Optional[str] = None
         self.profiler = SubgraphProfiler(self.num_ensemble)
+        print(f"[graphs] {self._graph_plan()}")
+
+    def _graph_plan(self) -> str:
+        """Which steps replay CUDA graphs, fixed by the configuration."""
+        if self.step_graphs.enabled:
+            if self.task == "link":
+                return ("off in effect: the link task samples every batch, so "
+                        "every step runs eagerly")
+            return ("the cached TRAIN and eval steps and the serving buckets "
+                    "replay CUDA graphs; uncached branches run eagerly")
+        why = ("on the CPU" if self.device.type != "cuda" else
+               f"partition {self.partition}" if self.partition != "none"
+               else "cuda_graphs=False")
+        return f"off ({why}): every step runs eagerly"
 
     def load_run(self, run_dir: str, optimizer: bool = False):
         """Load the newest checkpoint of the run dir ``run_dir`` into the
@@ -392,7 +434,9 @@ class Trainer:
         model_sd, opt_sd = Logger.load_checkpoint(pm, po)
         self.model.load_state_dict(model_sd)
         if opt_sd is not None:
+            # new state tensors: the TRAIN graphs read the old ones
             self.optimizer.load_state_dict(opt_sd)
+            self.step_graphs.drop()
         self.logger.record_loaded_checkpoint(pm, po)
 
     # ------------------------------------------------------------------
@@ -607,11 +651,25 @@ class Trainer:
                 torch.cuda.synchronize(self.device)
             print(f"[cache] built branch {i} {MODE2STR[mode]}: {ent.size} "
                   f"subgraphs, {est / 1e6:.0f}MB, {time.time() - t0:.1f}s")
+        if self.step_graphs.enabled:
+            eager = [f"{i} ({br['cfg'][mode].method})" for i, br in
+                     enumerate(self.branches) if self.caches[mode][i] is None]
+            print(f"[graphs] {MODE2STR[mode]}: " + (
+                f"branch {', '.join(eager)} uncached: its steps run eagerly"
+                if eager else "every branch cached: its steps replay CUDA graphs"))
 
     def disable_cache(self, mode: int):
-        """Serve ``mode`` by sampling every request (no cache)."""
+        """Serve ``mode`` by sampling every request (no cache): its steps
+        run eagerly from now on."""
         self.nocache_modes.add(mode)
         self.caches[mode] = [None] * self.num_ensemble
+        self.step_graphs.drop(lambda key: key[1] == mode)
+
+    def _cached(self, mode: int) -> bool:
+        """Whether every branch of ``mode`` gathers from a built cache, so
+        that its steps are functions of static buffers."""
+        caches = self.caches.get(mode)
+        return caches is not None and all(c is not None for c in caches)
 
     def _sample_branch_batches(self, mode: int, roots: torch.Tensor,
                                rows: torch.Tensor,
@@ -622,19 +680,31 @@ class Trainer:
         batches, feats = [], []
         for i, br in enumerate(self.branches):
             cfg = br["cfg"][mode]
-            cache = self.caches.get(mode, [None] * self.num_ensemble)[i]
-            if cache is not None:
-                # a model that reads the packed bits, or no block, gets none
-                batch = cache_mod.gather_batch(
-                    cache, rows[:, 0], cfg.n_pad, self.num_nodes,
-                    unpack=self.model_cfg.needs_dense_adj)
+            if self.caches.get(mode, [None] * self.num_ensemble)[i] is not None:
+                batch = self._gather_branch(mode, i, rows[:, 0])
             else:
                 batch = sample_subgraphs(cfg, self.graph[mode], roots, rows,
                                          self.tables[mode][i], generator)
-            feats.append(self.feat_tab[torch.clamp(
-                batch.nodes, 0, self.num_nodes - 1)].to(self.model_cfg.dtype))
+            feats.append(self._features(batch))
             batches.append(batch)
         return batches, feats
+
+    def _gather_branch(self, mode: int, i: int, rows: torch.Tensor) -> SubgraphBatch:
+        """Branch i's batch of cache rows ``rows`` [B]; a model that reads
+        the packed bits, or no block, gets no dense block."""
+        return cache_mod.gather_batch(
+            self.caches[mode][i], rows, self.branches[i]["cfg"][mode].n_pad,
+            self.num_nodes, unpack=self.model_cfg.needs_dense_adj)
+
+    def _features(self, batch: SubgraphBatch) -> torch.Tensor:
+        """The batch's feature block in the compute dtype."""
+        return self.feat_tab[torch.clamp(batch.nodes, 0, self.num_nodes - 1)].to(
+            self.model_cfg.dtype)
+
+    def _gather_cached(self, mode: int, rows: torch.Tensor):
+        """Every branch's batch and feature block from the mode's caches."""
+        batches = [self._gather_branch(mode, i, rows) for i in range(self.num_ensemble)]
+        return batches, [self._features(b) for b in batches]
 
     # ------------------------------------------------------------------
     # Training
@@ -747,6 +817,73 @@ class Trainer:
                                           mode_train=mode_train)
         return loss, predict_fn(self.model_cfg, logits)
 
+    # The cached steps as functions of static buffers (``buf``: rows [B]
+    # of the mode's cache, labels, weights, the dropedge seed), captured
+    # in CUDA graphs on a graphed Trainer (train/graphs.py)
+    def _static_train(self, mode: int, buf, generator):
+        """The cached TRAIN step: gather, forward (dropout from
+        ``generator``, dropedge from ``buf["seed"]``), backward, clip and
+        Adam.  Returns (loss, predictions, the gradients)."""
+        batches, feats = self._gather_cached(mode, buf["rows"])
+        self.optimizer.zero_grad(set_to_none=True)
+        logits, _ = self.model(batches, feats, generator, buf["seed"], True)
+        loss = weighted_loss_fn(self.model_cfg, logits, buf["labels"], buf["w"])
+        loss.backward()
+        clip_grad_global_norm_(self.model.parameters(), CLIP_NORM)
+        self.optimizer.step()
+        # the gradients stay with the graph: a replay writes them
+        return (loss.detach(), predict_fn(self.model_cfg, logits.detach()),
+                [p.grad for p in self.model.parameters()])
+
+    @torch.no_grad()
+    def _static_eval(self, mode: int, buf, mode_train: bool):
+        """The cached evaluation step: (loss, probabilities, per-branch
+        embeddings)."""
+        batches, feats = self._gather_cached(mode, buf["rows"])
+        logits, embs = self.model(batches, feats, mode_train=mode_train)
+        return (weighted_loss_fn(self.model_cfg, logits, buf["labels"], buf["w"]),
+                predict_fn(self.model_cfg, logits), embs)
+
+    @torch.no_grad()
+    def _static_serve(self, mode: int, buf):
+        """A cached request bucket: (probabilities [cap, C], embeddings
+        [branches, cap, dim])."""
+        batches, feats = self._gather_cached(mode, buf["rows"])
+        logits, embs = self.model(batches, feats)
+        return predict_fn(self.model_cfg, logits), torch.stack(embs)
+
+    def _graph_deps(self, mode: int, train: bool) -> tuple:
+        """The objects whose tensors a cached step of ``mode`` reads."""
+        deps = (self.model, self.feat_tab, *self.caches[mode])
+        return deps + (self.optimizer, self.optimizer.state) if train else deps
+
+    def _cached_train_step(self, mode: int, rows, labels, w, rng: EpochRNG,
+                           generator: Optional[torch.Generator]):
+        """One TRAIN step of a cached batch (``rows`` [B] of the mode's
+        cache): its inputs and one fresh dropedge seed written into the
+        static buffers, then :meth:`_static_train`, replayed from a CUDA
+        graph on a graphed Trainer.  ``generator``: the pass's dropout
+        generator (``StepGraphs.dropout``).  Returns (loss, predictions),
+        copied out."""
+        seed = rng.dropedge_seed() if self.model_cfg.dropedge > 0.0 else 0
+        key = ("train", mode, rows.shape[0])
+        buf = self.step_graphs.inputs(key, rows=rows, labels=labels, w=w, seed=seed)
+        loss, pred, _ = self.step_graphs.run(
+            key, self._graph_deps(mode, True),
+            lambda: self._static_train(mode, buf, generator))
+        return loss.clone(), pred.clone()
+
+    def _cached_eval_step(self, mode: int, rows, labels, w, mode_train: bool):
+        """One evaluation step of a cached batch through
+        :meth:`_static_eval` (replayed on a graphed Trainer): (loss,
+        probabilities, per-branch embeddings), copied out."""
+        key = ("eval", mode, mode_train, rows.shape[0])
+        buf = self.step_graphs.inputs(key, rows=rows, labels=labels, w=w)
+        loss, probs, embs = self.step_graphs.run(
+            key, self._graph_deps(mode, False),
+            lambda: self._static_eval(mode, buf, mode_train))
+        return loss.clone(), probs.clone(), [e.clone() for e in embs]
+
     def _batches(self, mode: int, nb: int, roots, rows,
                  generator: Optional[torch.Generator]):
         """Yield (row slice, branch batches, feature blocks) of each of
@@ -771,15 +908,32 @@ class Trainer:
         w_d = torch.as_tensor(w, device=dev)
         self.model.train(train)
         losses, preds, ovf = [], [], 0
-        for sl, batches, feats in self._batches(mode, nb, roots, rows, rng.sample):
-            ovf += sum(bt.overflow for bt in batches)
-            if train:
-                loss, pred = self._train_step(batches, feats, lab_d[sl], w_d[sl], rng)
-            else:
-                loss, pred = self._eval_step(batches, feats, lab_d[sl], w_d[sl],
-                                             mode_train=mode == TRAIN)
-            losses.append(loss)
-            preds.append(pred)
+        if self._cached(mode):
+            b = self.batch_size
+            rows_d = torch.as_tensor(rows[:, 0].astype(np.int64), device=dev)
+            with self.step_graphs.dropout(rng.dropout) as gen:
+                for i in range(nb):
+                    sl = slice(i * b, (i + 1) * b)
+                    if train:
+                        loss, pred = self._cached_train_step(
+                            mode, rows_d[sl], lab_d[sl], w_d[sl], rng, gen)
+                    else:
+                        loss, pred, _ = self._cached_eval_step(
+                            mode, rows_d[sl], lab_d[sl], w_d[sl], mode == TRAIN)
+                    losses.append(loss)
+                    preds.append(pred)
+        else:
+            for sl, batches, feats in self._batches(mode, nb, roots, rows,
+                                                    rng.sample):
+                ovf += sum(bt.overflow for bt in batches)
+                if train:
+                    loss, pred = self._train_step(batches, feats, lab_d[sl],
+                                                  w_d[sl], rng)
+                else:
+                    loss, pred = self._eval_step(batches, feats, lab_d[sl], w_d[sl],
+                                                 mode_train=mode == TRAIN)
+                losses.append(loss)
+                preds.append(pred)
         self.model.eval()
         return (torch.stack(losses).cpu().numpy(), torch.cat(preds).cpu().numpy(),
                 ovf)
@@ -985,19 +1139,42 @@ class Trainer:
         self.model.eval()
         for md in modes:
             self._ensure_tables(md)
-            nb, roots, rows, _labels, w = self._epoch_arrays(md, ordered=True)
+            nb, roots, rows, labels, w = self._epoch_arrays(md, ordered=True)
             gen = torch.Generator(device=self.device).manual_seed(SERVE_SEED)
             n_valid = int((w > 0).sum())           # the padding rows come last
             ids = torch.as_tensor(roots[:n_valid, 0].astype(np.int64),
                                   device=self.device)
             with torch.inference_mode():
-                for sl, batches, feats in self._batches(md, nb, roots, rows, gen):
-                    logits, embs = self.model(batches, feats, mode_train=md == TRAIN)
-                    res = embs if embed else [predict_fn(self.model_cfg, logits)]
+                for sl, probs, embs in self._eval_outputs(md, nb, roots, rows,
+                                                          labels, w, gen):
+                    res = embs if embed else [probs]
                     hi = min(sl.stop, n_valid)
                     for o, r in zip(out, res):
                         o[ids[sl.start:hi]] = r[:hi - sl.start]
         return out
+
+    def _eval_outputs(self, mode: int, nb: int, roots, rows, labels, w,
+                      generator: torch.Generator):
+        """Yield (row slice, probabilities, per-branch embeddings) of each
+        of ``nb`` evaluation batches of ``mode``: the cached eval step
+        (its graph) where the mode is cached, else the sampled batch's
+        forward (the khop picks from ``generator``)."""
+        mode_train = mode == TRAIN
+        if not self._cached(mode):
+            for sl, batches, feats in self._batches(mode, nb, roots, rows, generator):
+                logits, embs = self.model(batches, feats, mode_train=mode_train)
+                yield sl, predict_fn(self.model_cfg, logits), embs
+            return
+        b, dev = self.batch_size, self.device
+        rows_d = torch.as_tensor(rows[:, 0].astype(np.int64), device=dev)
+        lab_d = torch.as_tensor(labels.astype(np.float32 if labels.ndim > 1
+                                              else np.int64), device=dev)
+        w_d = torch.as_tensor(w, device=dev)
+        for i in range(nb):
+            sl = slice(i * b, (i + 1) * b)
+            _, probs, embs = self._cached_eval_step(mode, rows_d[sl], lab_d[sl],
+                                                    w_d[sl], mode_train)
+            yield sl, probs, embs
 
     def predict_full(self, modes=(TRAIN, VALID, TEST)) -> np.ndarray:
         """Full-graph prediction matrix pred_mat[node id] = probabilities
@@ -1051,6 +1228,13 @@ class Trainer:
         if cap > n:
             ids = np.concatenate([ids, np.full(cap - n, ids[0])])
             rows = np.concatenate([rows, np.full(cap - n, rows[0])])
+        if self._cached(mode):
+            # the bucket's serve step (its graph)
+            key = ("serve", mode, cap)
+            buf = self.step_graphs.inputs(key, rows=torch.from_numpy(rows))
+            probs, embs = self.step_graphs.run(key, self._graph_deps(mode, False),
+                                               lambda: self._static_serve(mode, buf))
+            return probs[:n].cpu().numpy(), embs[:, :n].cpu().numpy()
         with torch.inference_mode():
             batches, feats = self._sample_branch_batches(
                 mode, torch.as_tensor(ids[:, None], device=self.device),
