@@ -212,22 +212,26 @@ Phases, each fatal on failure (an uncaught exception, non-zero exit):
              ``scripts/cold_bench.py`` (235,000 nodes, avg deg 10, 128
              features, seed 0), TRAIN positives cut to 20,480 edges of
              the message graph (256 steps an epoch with the trainer's
-             negatives), 2 epochs: one host PPR push over every node at
-             k_tab 400, shared by the three modes (seconds printed), the
+             negatives), 2 epochs: one device PPR power iteration over
+             every node at k_tab 400 (``--device_ppr device``; the host
+             push took 417-446 s and ``rest`` holds the two against each
+             other), shared by the three modes (seconds printed), the
              plans; one TRAIN batch through the port on the card and on
              the CPU with the same parameters, roots and ppr_st uniforms
              at dropout and dropedge 0 (node tables, blocks, targets and
              DRNL equal bit for bit; loss within 1e-5 relative and each
              gradient within 1e-4 of its max on a batch whose sort-pool
              ranks do not swap; swaps counted); ``train()`` and then
-             ``inference`` of VALID and TEST with every kernel count set
-             to 0 just before and read as 0 just after (a link batch is
-             never cached, so it takes the dense ``torch.bmm``), finite
+             ``inference`` of VALID and TEST with every packed and GAT
+             kernel count set to 0 just before and read as 0 just after
+             (a link batch is never cached, so it takes the dense
+             ``torch.bmm``; its DRNL BFS is the BFS kernel), finite
              losses, every parameter moved, hits@50 in [0, 1], the final
              stats reproduced by ``inference``, its edges per second;
              then 10 timed TRAIN steps (sampling included) with the share
              of sampling, induction and DRNL, and their device-busy share
-             (torch.profiler; its top operations under ``--profile``);
+             (torch.profiler; its top operations under ``--profile``),
+             and the BFS kernel timed at the link's shape (S = 2);
 16. parallel — partitioned training (``shadow_gnn_torch/parallel``),
              run twice: after ``rest`` the flagship (its cuts, dropout 0,
              dropedge 0, 1 epoch) and after the GAT-5 phases the GAT-5
@@ -273,7 +277,32 @@ Phases, each fatal on failure (an uncaught exception, non-zero exit):
              phase's cached steps replay graphs too (``phase_train`` and
              ``phase_serve`` check that they did; the plain-version
              checks run eagerly, ``StepGraphs.paused``);
-18. profile (``--profile`` only) — torch.profiler over cached requests
+18. bfs     — after phase 2, the BFS kernel (``csrc/bfs_hops.cu``) against
+             its plain version (the host loop) bit for bit on a chain (N
+             - 1 levels), two components, a block with padding rows and
+             a random block at N 24/208/408/907, S = 1 and 2, and its
+             refusal of N above ``MAX_N``; in ``power``, the cached TRAIN
+             subgraphs (hops through the kernel) byte-equal to a cache
+             built through the plain BFS, and the kernel timed on one
+             cold TRAIN batch (B=64, N=208, S=1): the ``bfs_hops`` row of
+             the ``kernels`` line, its launches those of the graphed
+             twins below;
+19. sampled graphs — the compiled sampled step, run at the end of
+             ``power`` (the cold steps: TRAIN uncached), ``gat`` (the
+             GAT-5's ``inference`` of VALID and TEST), ``ensemble`` (its
+             TRAIN steps, PPR gathered and khop sampled in one graph,
+             and requests of 1/8/64/128 ids) and ``link`` (its TRAIN
+             step: ``ppr_st``, induction, DRNL, sort-25, Adam): an eager
+             twin and a graphed trainer from one seed on the source
+             phase's PPR tables, their passes (per-step losses and
+             predictions, the epoch's overflow, every kernel's launches),
+             parameters, Adam state and requests held bit for bit
+             (``GRAPH_TOLS`` where not, printed), every sampled key
+             replayed after its first call; then steps (2 rounds of
+             eager, graphed, graphed, eager windows of 8) and requests
+             timed in turns, with the device-busy share and host CUDA
+             calls a step; ``SAMPLED_BUDGET_S`` for the four parts;
+20. profile (``--profile`` only) — torch.profiler over cached requests
              (flagship 1 and 256 ids, GAT 128 ids, the power-law flagship
              1 and 256, the ensemble 1 and 128) and over 5 TRAIN steps of
              each model, f32 and at bf16 precision (the power-law
@@ -1398,9 +1427,9 @@ def phase_train(tr, reqs, fwd, bwd, tag, others=()):
     n_layers = _per_pass(tr)
 
     steps, evals, losses, epochs = [], [], [], []
-    # a cached step goes through _cached_*_step (a graph replay on a
-    # graphed trainer), any other through _train_step / _eval_step
-    names = ("_train_step", "_cached_train_step", "_eval_step", "_cached_eval_step")
+    # every step goes through _graph_*_step (a graph replay on a graphed
+    # trainer)
+    names = ("_graph_train_step", "_graph_eval_step")
     orig = {name: getattr(tr, name) for name in names + ("run_epoch",)}
 
     def counted(fn, want, log):
@@ -1911,15 +1940,18 @@ def phase_profile_train(tr, step_ms, tag):
     rng = EpochRNG.from_seed(11, tr.device)
     b = tr.batch_size
     nb = len(tr.entity_set[TRAIN]) // b
-    labels = torch.as_tensor(tr.label_np[np.asarray(tr.entity_set[TRAIN])].astype(
-        np.int64), device="cuda")
+    ent = np.asarray(tr.entity_set[TRAIN])
+    roots = torch.as_tensor(ent[:, None], device="cuda")
+    rows = torch.arange(ent.size, device="cuda")[:, None]
+    labels = torch.as_tensor(tr.label_np[ent].astype(np.int64), device="cuda")
     w = torch.ones(b, device="cuda")
     tr.model.train()
-    with tr.step_graphs.dropout(rng.dropout) as gen:
+    sg = tr.step_graphs
+    with sg.dropout(rng.dropout) as gen, sg.sampling(rng.sample) as sampler:
         def step(i):
-            lo = b * (i % nb)
-            tr._cached_train_step(TRAIN, torch.arange(lo, lo + b, device="cuda"),
-                                  labels[lo:lo + b], w, rng, gen)
+            sl = slice(b * (i % nb), b * (i % nb + 1))
+            tr._graph_train_step(TRAIN, roots[sl], rows[sl], labels[sl], w, rng,
+                                 gen, sampler)
         step(0)                                         # warm
         _profile(f"{tag} TRAIN step (B={b})", lambda i: step(i + 1), 5, step_ms)
     tr.model.eval()
@@ -2228,7 +2260,7 @@ def _rest_device_ppr(g, host_tabs, host_s, tag="[rest device ppr]"):
                              f"enabled after: {tr.profiler.enabled}")
     s = summaries[0]
     hops = ", ".join(f"{v:.3f}" for v in s["hop_composition"][0])
-    print(f"[rest profiler] first TRAIN epoch's subgraphs: avg nodes "
+    _detail(f"[rest profiler] first TRAIN epoch's subgraphs: avg nodes "
           f"{s['avg_nodes'][0]:.1f}, avg edges {s['avg_edges'][0]:.1f}, avg deg "
           f"{s['avg_deg'][0]:.2f}; hop composition (unreached, self, 1-5 hops) "
           f"{hops}; launches over train() {launches}, those of a profile-off "
@@ -2405,7 +2437,7 @@ def phase_rest(g):
         l2, name_l2 = max(((grads_t[k] - grads_f[k]).norm().item()
                            / max(grads_f[k].norm().item(), 1e-30), k) for k in grads_f)
         flips = sum(int((a != b).sum()) for a, b in zip(signs_t, signs_f))
-        print(f"{tag} first step against the f32 model of the same weights (no "
+        _detail(f"{tag} first step against the f32 model of the same weights (no "
               f"bound): loss {loss_t:.7f} vs {loss_f:.7f} (rel "
               f"{abs(loss_t - loss_f) / abs(loss_f):.2e}); worst gradient {err:.2e} "
               f"of its max ({name}), worst relative L2 {l2:.2e} ({name_l2}); relu "
@@ -2577,7 +2609,7 @@ def _timed_steps(tr, n_steps):
     ``sample_subgraphs`` call (by sampler), every ``induce`` and every
     ``drnl_labels`` (link task).  Returns the medians {"step", "sample
     <method>", "induce <method>", "drnl"} in ms and the summed induction
-    overflow."""
+    overflow, read once after the steps."""
     import torch
     from shadow_gnn_torch.sampling import induction, samplers
     from shadow_gnn_torch.train import pipeline
@@ -2593,7 +2625,7 @@ def _timed_steps(tr, n_steps):
             rec.append((kind if cfg_at is None else f"{kind} {args[cfg_at].method}",
                          ev))
             if kind == "induce":
-                overflow[0] += out.overflow
+                overflow[0] = overflow[0] + out.overflow     # on the device
             return out
         return wrapper
 
@@ -2620,7 +2652,7 @@ def _timed_steps(tr, n_steps):
             one[key] = one.get(key, 0.0) + e[0].elapsed_time(e[1])
         for key, ms in one.items():
             per.setdefault(key, []).append(ms)
-    return {k: _median(v) for k, v in per.items()}, overflow[0]
+    return {k: _median(v) for k, v in per.items()}, int(overflow[0])
 
 
 def _profile_steps(tr, label, wall_ms, top=True):
@@ -2638,7 +2670,10 @@ def phase_power_law(graph, profile=False):
     graph: the plans (TRAIN must take hub slots), cached serving against
     the plain versions and against uncached serving, the hub-induced
     blocks against the search strategy, 1 epoch of ``train()`` through
-    B1a/B1b, and cold (uncached) TRAIN steps with ``induce`` timed."""
+    B1a/B1b, the TRAIN cache through the BFS kernel against the plain
+    BFS's, and cold (uncached) TRAIN steps with ``induce`` timed, then
+    ``phase_sampled("power")``.  Returns (the launches, the BFS kernel's
+    row)."""
     import torch
     from shadow_gnn_torch import TRAIN
     from shadow_gnn_torch.ops.packed import packed_spmm, packed_spmm_t
@@ -2654,6 +2689,7 @@ def phase_power_law(graph, profile=False):
     if profile:
         phase_profile_train(tr, step_ms, "power")
     phase_hub_block(tr, tag)
+    bfs_row = phase_bfs_cache(tr, tag)
     phase_uncached(tr, reqs, SERVE_SIZES, packed_spmm, 0, tag)
     tr.disable_cache(TRAIN)
     cold, overflow = _timed_steps(tr, COLD_STEPS)
@@ -2667,17 +2703,20 @@ def phase_power_law(graph, profile=False):
     if profile:
         _profile_steps(tr, "power cold TRAIN step (sampling included)",
                        cold["step"])
+    # the cold step graphed against its eager twin
+    phase_sampled("power", graph, tr)
     del tr, reqs
     torch.cuda.empty_cache()
-    return launches
+    return launches, bfs_row
 
 
-def _ensemble_trainer(g, epochs=EPOCHS):
+def _ensemble_trainer(g, epochs=EPOCHS, cuda_graphs=True):
     """configs/arxiv_ensemble_ppr_khop.yml at full width (GAT, 2 heads, dim
     256, 3 layers, hop augment, sum residue, mean pooling; a PPR-100 and a
     khop depth-2 budget-10 branch, softmax attention over them; batch 64,
     dropout 0.3, dropedge 0.05) on the arxiv-width power-law graph ``g``,
-    TRAIN cut to 4096 nodes, VALID 1024, TEST 2048, random weights."""
+    TRAIN cut to 4096 nodes, VALID 1024, TEST 2048, random weights.
+    ``cuda_graphs``: the Trainer's argument."""
     import torch
     from shadow_gnn_torch import TEST, TRAIN, VALID
     from shadow_gnn_torch.train.config import parse_config
@@ -2698,7 +2737,7 @@ def _ensemble_trainer(g, epochs=EPOCHS):
     }
     t0 = time.perf_counter()
     tr = Trainer("arxiv_synth", "", _own_splits(g), parse_config(cfg), seed=0,
-                 device="cuda")
+                 device="cuda", cuda_graphs=cuda_graphs)
     _cut_splits(tr, ((TRAIN, GAT_TRAIN), (VALID, GAT_VALID), (TEST, GAT_TEST)))
     torch.cuda.synchronize()
     widths = tuple(br["cfg"][TRAIN].n_pad for br in tr.branches)
@@ -2725,9 +2764,10 @@ def phase_ensemble(graph, profile=False):
     by_n, tally = {}, {}
 
     def tallied(*args, **kw):
+        # counts on the host only: a call may run under a graph's capture,
+        # which must neither read a device value nor keep one it replaces
         out = sample_subgraphs(*args, **kw)
-        n, o = tally.get(args[0].method, (0, 0))
-        tally[args[0].method] = (n + out.nodes.shape[0], o + out.overflow)
+        tally[args[0].method] = tally.get(args[0].method, 0) + out.nodes.shape[0]
         return out
 
     sample_subgraphs = pipeline.sample_subgraphs
@@ -2737,9 +2777,10 @@ def phase_ensemble(graph, profile=False):
         by_n.clear()
         launches, step_ms = phase_train(tr, reqs, gat_attention, gat_attention_bwd,
                                         tag)
-    print(f"{tag} B2/B3 launches by block width: serving {serve_n}; the first "
-          f"step's checks and train() {by_n}; subgraphs sampled and their "
-          f"induction overflow by sampler {tally}")
+    _detail(f"{tag} B2/B3 launches by block width (Python calls: eager steps, "
+          f"warm-ups and captures): serving {serve_n}; the first step's checks and "
+          f"train() {by_n}; subgraphs sampled by sampler in those calls {tally} "
+          f"(the overflow: the timed steps' line and [sampled ensemble])")
     want = {(k, n) for k in ("B2", "B3") for n in ENSEMBLE_WIDTHS}
     if not all(by_n.get(key, 0) > 0 for key in want) or not all(
             serve_n.get(("B2", n), 0) > 0 for n in ENSEMBLE_WIDTHS):
@@ -2755,6 +2796,7 @@ def phase_ensemble(graph, profile=False):
         _profile_steps(tr, "ensemble TRAIN step (sampling included)",
                        timed["step"])
     phase_infer_ensemble(tr)
+    phase_sampled("ensemble", graph, tr)
     del tr, reqs
     torch.cuda.empty_cache()
     return launches, by_n
@@ -2967,23 +3009,30 @@ def phase_infer_ensemble(tr):
     from shadow_gnn_torch.postproc.ens import ensemble_multirun
     tag, modes, t_phase = "[infer]", (TRAIN, VALID, TEST), time.perf_counter()
     n_b = _n_batches(tr, modes)
-    by_n = {}
-    # the main path: counts at 0 just before, read just after
+    # the main path (graph replays): counts at 0 just before, read just after
     gat_attention.launches = 0
-    with _gat_launches_by_width(by_n):
-        t0 = time.perf_counter()
-        embs = tr.embed_full(modes)
-        secs = time.perf_counter() - t0
-        launches = gat_attention.launches
+    t0 = time.perf_counter()
+    embs = tr.embed_full(modes)
+    secs = time.perf_counter() - t0
+    launches = gat_attention.launches
     n = [_check_full(tr, e, modes, tr.model_cfg.dim, tag, unit_rows=True)
          for e in embs][0]
+    # the block widths of each launch, seen by Python only on eager steps:
+    # the TEST rows again with the graphs paused, equal bit for bit
+    by_n, n_test = {}, _n_batches(tr, (TEST,))
+    with _gat_launches_by_width(by_n), tr.step_graphs.paused():
+        test = tr.embed_full((TEST,))
+    ids = np.asarray(tr.entity_set[TEST])
+    same = all(np.array_equal(a[ids], b[ids]) for a, b in zip(embs, test))
+    _detail(f"{tag} ensemble embed_full TEST rows eagerly: by block width {by_n} "
+            f"over {n_test} batches, equal to the graphed ones: {same}")
     print(f"{tag} ensemble embed_full: {len(embs)} branches, {n} nodes in "
           f"{secs:.3f}s ({n / secs:.0f} nodes/s); gat_attention {launches} launches "
-          f"over {n_b} batches, by block width {by_n}")
-    if (len(embs) != 2 or launches != 6 * n_b
-            or any(by_n.get(("B2", w), 0) != 3 * n_b for w in ENSEMBLE_WIDTHS)):
+          f"over {n_b} batches")
+    if (len(embs) != 2 or launches != 6 * n_b or not same
+            or any(by_n.get(("B2", w), 0) != 3 * n_test for w in ENSEMBLE_WIDTHS)):
         raise AssertionError(f"{tag} embed_full did not launch B2 3 times a batch "
-                             f"from each branch")
+                             f"from each branch, or its eager TEST rows differ")
     arch = {"dim": 64, "act": "leakyrelu", "loss": "softmax"}
     hp = {"lr": 0.01, "batch_size": 256, "end": 5, "dropout": 0.0}
     t0 = time.perf_counter()
@@ -3017,7 +3066,7 @@ def _collab_graph():
                             seed=0, task="link")
 
 
-def _link_trainer(g, epochs=EPOCHS):
+def _link_trainer(g, epochs=EPOCHS, cuda_graphs=True):
     """configs/collab_sage_pprst_leaderboard.yml at full width (SAGE, 5
     layers, dim 256, elu, sigmoid loss, DRNL one-hots concatenated, concat
     residue, sort-25 pooling; ppr_st k 200, threshold 0.01, eps 1e-6;
@@ -3025,7 +3074,11 @@ def _link_trainer(g, epochs=EPOCHS):
     on the collab-shape graph ``g``, ``packed_adj`` on; TRAIN positives
     cut to ``LINK_TRAIN_POS`` edges of the message graph (a seeded
     permutation; the trainer draws as many negatives), VALID and TEST the
-    synthetic held-out sets; random weights from seed 0."""
+    synthetic held-out sets; random weights from seed 0.  Its PPR tables
+    come from the power iteration on the card (``--device_ppr device``):
+    the host push over every node took 417-446 s of the script's time
+    limit, and ``[rest]`` holds the push and the device tables against
+    each other.  ``cuda_graphs``: the Trainer's argument."""
     import dataclasses
     import numpy as np
     import torch
@@ -3052,7 +3105,8 @@ def _link_trainer(g, epochs=EPOCHS):
     edge_set = dict(g.edge_set)
     edge_set[TRAIN] = {"pos": pool[pick]}
     tr = Trainer("collab", "", dataclasses.replace(g, edge_set=edge_set),
-                 parse_config(cfg), seed=0, device="cuda", packed_adj=True)
+                 parse_config(cfg), seed=0, device="cuda", packed_adj=True,
+                 use_device_ppr=True, cuda_graphs=cuda_graphs)
     torch.cuda.synchronize()
     n_params = sum(p.numel() for p in tr.model.parameters())
     print(f"[link] trainer {time.perf_counter() - t0:.1f}s; {n_params} parameters, "
@@ -3243,7 +3297,8 @@ def phase_link(graph, profile=False):
         del tr._compute_ppr
     ppr_s = time.perf_counter() - t0
     tab = tr.tables[TRAIN][0]
-    print(f"{tag} PPR tables: {len(calls)} host push over {tr.num_nodes} nodes at "
+    print(f"{tag} PPR tables: {len(calls)} device power iteration over "
+          f"{tr.num_nodes} nodes at "
           f"k_tab {calls[0] if calls else None}, shared by TRAIN, VALID and TEST, "
           f"with the plans: {ppr_s:.1f}s ({card})")
     if (calls != [LINK_K_TAB] or not tab is tr.tables[VALID][0] is tr.tables[TEST][0]
@@ -3255,7 +3310,7 @@ def phase_link(graph, profile=False):
     _link_card_vs_cpu(tr, tag)
 
     steps, losses = [], []
-    train_step = tr._train_step
+    train_step = tr._graph_train_step
 
     def timed_step(*args, **kw):
         ev = (torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True))
@@ -3266,7 +3321,7 @@ def phase_link(graph, profile=False):
         losses.append(out[0])
         return out
 
-    tr._train_step = timed_step
+    tr._graph_train_step = timed_step
     p0 = {k: v.clone() for k, v in tr.model.state_dict().items()}
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
@@ -3278,7 +3333,7 @@ def phase_link(graph, profile=False):
             torch.cuda.synchronize()
             wall = time.perf_counter() - t0
     finally:
-        del tr._train_step
+        del tr._graph_train_step
     peak = torch.cuda.max_memory_allocated()
     n_epochs = int(tr.params_train["end"])
     nb = -(-int(np.ceil(0.1 * 2 * LINK_TRAIN_POS)) // tr.batch_size)
@@ -3329,6 +3384,14 @@ def phase_link(graph, profile=False):
     _profile_steps(tr, "link TRAIN step (sampling included)", timed["step"],
                    top=profile)
     _time_optimizer(tr, tag)
+    # the BFS kernel at the link shape (DRNL: S = 2), then the step graphed
+    roots = tr._epoch_arrays(TRAIN)[1]
+    roots_d = torch.as_tensor(roots[:tr.batch_size], device="cuda")
+    with torch.no_grad():
+        batch = tr._sample_branch_batches(TRAIN, roots_d, roots_d,
+                                          torch.Generator(device="cuda"))[0][0]
+    _bfs_time(batch, 2, tag)
+    phase_sampled("link", graph, tr)
 
     del tr
     torch.cuda.empty_cache()
@@ -3370,15 +3433,15 @@ def _counter_names(counters):
 
 def _graph_epoch(tr):
     """TRAIN epoch 0 and its VALID pass through ``run_epoch``: each pass's
-    (per-batch losses, predictions) and the launch counts over both."""
+    (name, per-batch losses, predictions) and the launch counts over both."""
     import torch
-    from shadow_gnn_torch import TRAIN, VALID
+    from shadow_gnn_torch import MODE2STR, TRAIN, VALID
     from shadow_gnn_torch.train import graphs
     passes, run_batches = [], tr._run_batches
 
-    def recorded(*args):
-        out = run_batches(*args)
-        passes.append(out[:2])
+    def recorded(mode, *args):
+        out = run_batches(mode, *args)
+        passes.append((MODE2STR[mode].upper(), *out[:2]))
         return out
 
     counters = graphs.launch_counters()
@@ -3426,6 +3489,111 @@ def _window_profile(fn, n):
     return (busy or None), len(kern) / n, len(api) / n
 
 
+def _twin_check(tag, p_e, p_g, eager, graphed, state, serve):
+    """Graphed against eager twin: each pass's losses and predictions
+    ((name, losses, predictions) of each), with ``state`` every parameter
+    and Adam state, and the requests' ``serve`` (``_twin_serving``); bit
+    for bit, else within ``GRAPH_TOLS`` (the errors to the log).  Returns
+    (bit for bit, the errors by name)."""
+    bits, errs = [], {}
+    for (what, le, pe), (_, lg, pg) in zip(p_e, p_g):
+        for name, got, want, scale in ((f"{what} losses", lg, le, True),
+                                       (f"{what} predictions", pg, pe, False)):
+            same, errs[name] = _graph_diff(got, want, scale)
+            bits.append(same)
+    diffs = {"serving": serve}
+    if state:
+        sd_e, sd_g = eager.model.state_dict(), graphed.model.state_dict()
+        o_e = eager.optimizer.state_dict()["state"]
+        o_g = graphed.optimizer.state_dict()["state"]
+        diffs["state"] = [_graph_diff(sd_g[k].cpu(), sd_e[k].cpu(), True)
+                          for k in sd_e] + [
+            _graph_diff(o_g[k][n].cpu(), o_e[k][n].cpu(), True)
+            for k in o_e for n in o_e[k]]
+    for name, d in diffs.items():
+        if d:
+            bits += [same for same, _ in d]
+            errs[name] = max(err for _, err in d)
+    if not all(bits):
+        _detail(f"{tag} graphed vs eager, not bit for bit: {errs}")
+        tol_loss, tol_state, tol_probs = GRAPH_TOLS
+        if not (max(v for k, v in errs.items() if k.endswith("losses")) <= tol_loss
+                and errs.get("state", 0.0) <= tol_state
+                and max(v for k, v in errs.items()
+                        if k.endswith("predictions") or k == "serving") <= tol_probs):
+            raise AssertionError(f"{tag} graphed and eager differ: {errs}")
+    return all(bits), errs
+
+
+def _twin_serving(eager, graphed, reqs, tag):
+    """The first request of each size in ``reqs`` on both twins, three
+    times on the graphed one (its warm-up, capture and a replay), whose
+    bucket must have replayed.  Returns ``_graph_diff`` of the served
+    probabilities and embeddings, graphed against eager."""
+    import numpy as np
+    from shadow_gnn_torch import TEST
+    from shadow_gnn_torch.sampling.induction import bucket_cap
+    diffs = []
+    for s, ids in ((s, r[0]) for s, r in reqs.items()):
+        want = (eager.predict_nodes(ids), np.stack(eager.embed_nodes(ids)))
+        for _ in range(3):
+            got = (graphed.predict_nodes(ids), np.stack(graphed.embed_nodes(ids)))
+            diffs += [_graph_diff(a, b) for a, b in zip(got, want)]
+        key = ("serve", TEST, 8 if s <= 8 else bucket_cap(s), graphed._cache_sig(TEST))
+        if not graphed.step_graphs.replays[key] > 0:
+            raise AssertionError(f"{tag} the {s}-id bucket replayed no graph")
+    return diffs
+
+
+def _twin_timing(tag, what, eager, graphed, window, rounds, n, reqs):
+    """In turns: ``rounds`` rounds of eager, graphed, graphed, eager
+    windows (``window(tr, k)``: ``n`` steps, host clock to a synchronise),
+    one profiled window each (``_window_profile``), then the requests of
+    ``reqs`` alternating; each twin's line to the log.  Returns the
+    summary's timing text."""
+    import torch
+    from shadow_gnn_torch import TEST
+    step = {id(eager): [], id(graphed): []}
+    for k in range(rounds):
+        for tr in (eager, graphed, graphed, eager):
+            torch.cuda.synchronize()
+            t1 = time.perf_counter()
+            window(tr, k)
+            torch.cuda.synchronize()
+            step[id(tr)].append((time.perf_counter() - t1) * 1e3 / n)
+    prof = {id(tr): _window_profile(lambda tr=tr: window(tr, rounds), n)
+            for tr in (eager, graphed)}
+    lat = {(id(tr), s): [] for tr in (eager, graphed) for s in reqs}
+    for s, batch in reqs.items():
+        for i, ids in enumerate(batch):
+            for tr in ((eager, graphed) if i % 2 == 0 else (graphed, eager)):
+                t1 = time.perf_counter()
+                tr.predict_nodes(ids, TEST)
+                lat[id(tr), s].append((time.perf_counter() - t1) * 1e3)
+    med = {i: _median(v) for i, v in step.items()}
+    sizes = list(reqs)
+    for tr, name in ((eager, "eager"), (graphed, "graphed")):
+        busy, kern, api = prof[id(tr)]
+        share = "not measured" if busy is None else f"{busy / med[id(tr)]:.3f}"
+        busy_s = "not measured" if busy is None else f"{busy:.3f}"
+        _detail(f"{tag} {name}: {what} median {med[id(tr)]:.3f} ms (windows "
+                + ", ".join(f"{x:.3f}" for x in step[id(tr)])
+                + f"), device busy {busy_s} ms a step (share {share}), {kern:.0f} "
+                f"device kernels and {api:.0f} host CUDA calls a step"
+                + ("; request p50 ms by ids " + ", ".join(
+                    f"{s} {_median(lat[id(tr), s]):.3f}" for s in sizes)
+                   if sizes else ""))
+    e, g = id(eager), id(graphed)
+    return (f"{what} ms eager {med[e]:.3f} / graphed {med[g]:.3f}, busy share "
+            + " / ".join("n/m" if prof[i][0] is None else f"{prof[i][0] / med[i]:.2f}"
+                         for i in (e, g))
+            + ", host calls " + " / ".join(f"{prof[i][2]:.0f}" for i in (e, g))
+            + (f"; p50 ms {sizes[0]} id {_median(lat[e, sizes[0]]):.2f} / "
+               f"{_median(lat[g, sizes[0]]):.2f}, {sizes[-1]} ids "
+               f"{_median(lat[e, sizes[-1]]):.2f} / {_median(lat[g, sizes[-1]]):.2f}"
+               if sizes else ""))
+
+
 def phase_graphs(g, kinds):
     """[graphs]: for each model of ``kinds``, an eager twin
     (``cuda_graphs=False``) and a graphed trainer from the same seed: TRAIN
@@ -3445,7 +3613,6 @@ def phase_graphs(g, kinds):
     import numpy as np
     import torch
     from shadow_gnn_torch import TEST, TRAIN, VALID
-    from shadow_gnn_torch.sampling.induction import bucket_cap
     from shadow_gnn_torch.train.pipeline import EpochRNG
     t_phase = time.perf_counter()
     tmp = tempfile.mkdtemp(prefix="chip_smoke_graphs_")
@@ -3465,25 +3632,13 @@ def phase_graphs(g, kinds):
                     f"{n_feat} entries; the graphed twin takes the eager twin's")
             # the same epoch on both: losses, predictions, state, launches
             (p_e, l_e), (p_g, l_g) = _graph_epoch(eager), _graph_epoch(graphed)
-            bits, errs = [], {}
-            for (le, pe), (lg, pg), what in zip(p_e, p_g, ("TRAIN", "VALID")):
-                for name, got, want, scale in ((f"{what} losses", lg, le, True),
-                                               (f"{what} predictions", pg, pe, False)):
-                    same, errs[name] = _graph_diff(got, want, scale)
-                    bits.append(same)
-            sd_e, sd_g = eager.model.state_dict(), graphed.model.state_dict()
-            o_e = eager.optimizer.state_dict()["state"]
-            o_g = graphed.optimizer.state_dict()["state"]
-            state = [(sd_g[k], sd_e[k]) for k in sd_e] + [
-                (o_g[k][n], o_e[k][n]) for k in o_e for n in o_e[k]]
-            diffs = [_graph_diff(a.cpu(), b.cpu(), True) for a, b in state]
-            bits += [same for same, _ in diffs]
-            errs["state"] = max(err for _, err in diffs)
             sg = graphed.step_graphs
             nbs = {m: -(-len(graphed.entity_set[m]) // graphed.batch_size)
                    for m in (TRAIN, VALID)}
-            want_replays = {("train", TRAIN, graphed.batch_size): nbs[TRAIN] - 1,
-                            ("eval", VALID, False, graphed.batch_size): nbs[VALID] - 1}
+            cached = ("cached",)
+            want_replays = {("train", TRAIN, graphed.batch_size, cached): nbs[TRAIN] - 1,
+                            ("eval", VALID, False, graphed.batch_size, cached):
+                            nbs[VALID] - 1}
             got_replays = {k: sg.replays[k] for k in want_replays}
             if got_replays != want_replays or l_e != l_g:
                 raise AssertionError(f"{tag} replays {got_replays}, want "
@@ -3497,27 +3652,8 @@ def phase_graphs(g, kinds):
                         for _ in range(GRAPH_REQS)] for s in sizes}
             for tr in (eager, graphed):
                 tr.prepare_serving(TEST)
-            serve = []
-            for s in sizes:
-                want = (eager.predict_nodes(reqs[s][0]), eager.embed_nodes(reqs[s][0]))
-                for _ in range(3):
-                    got = (graphed.predict_nodes(reqs[s][0]),
-                           graphed.embed_nodes(reqs[s][0]))
-                    serve += [_graph_diff(got[0], want[0]),
-                              _graph_diff(np.stack(got[1]), np.stack(want[1]))]
-                key = ("serve", TEST, 8 if s <= 8 else bucket_cap(s))
-                if not sg.replays[key] > 0:
-                    raise AssertionError(f"{tag} the {s}-id bucket replayed no graph")
-            bits += [same for same, _ in serve]
-            errs["serving"] = max(err for _, err in serve)
-            if not all(bits):
-                _detail(f"{tag} graphed vs eager, not bit for bit: {errs}")
-                tol_loss, tol_state, tol_probs = GRAPH_TOLS
-                if not (max(errs["TRAIN losses"], errs["VALID losses"]) <= tol_loss
-                        and errs["state"] <= tol_state
-                        and max(errs["TRAIN predictions"], errs["VALID predictions"],
-                                errs["serving"]) <= tol_probs):
-                    raise AssertionError(f"{tag} graphed and eager differ: {errs}")
+            exact, errs = _twin_check(tag, p_e, p_g, eager, graphed, True,
+                                      _twin_serving(eager, graphed, reqs, tag))
 
             # timed in turns: TRAIN windows, their profiles, requests
             b = graphed.batch_size
@@ -3530,57 +3666,325 @@ def phase_graphs(g, kinds):
                 tr._run_batches(TRAIN, True, GRAPH_WINDOW, roots[sl], rows[sl],
                                 labels[sl], w[sl], EpochRNG.from_seed(k, tr.device))
 
-            step = {id(eager): [], id(graphed): []}
-            for k in range(GRAPH_ROUNDS):
-                for tr in (eager, graphed, graphed, eager):
-                    torch.cuda.synchronize()
-                    t1 = time.perf_counter()
-                    window(tr, k)
-                    torch.cuda.synchronize()
-                    step[id(tr)].append((time.perf_counter() - t1) * 1e3 / GRAPH_WINDOW)
-            prof = {id(tr): _window_profile(lambda tr=tr: window(tr, GRAPH_ROUNDS),
-                                            GRAPH_WINDOW) for tr in (eager, graphed)}
-            lat = {(id(tr), s): [] for tr in (eager, graphed) for s in sizes}
-            for s in sizes:
-                for i, ids in enumerate(reqs[s]):
-                    for tr in ((eager, graphed) if i % 2 == 0 else (graphed, eager)):
-                        t1 = time.perf_counter()
-                        tr.predict_nodes(ids, TEST)
-                        lat[id(tr), s].append((time.perf_counter() - t1) * 1e3)
-            med = {i: _median(v) for i, v in step.items()}
-            for tr, name in ((eager, "eager"), (graphed, "graphed")):
-                busy, kern, api = prof[id(tr)]
-                share = "not measured" if busy is None else f"{busy / med[id(tr)]:.3f}"
-                busy_s = "not measured" if busy is None else f"{busy:.3f}"
-                _detail(f"{tag} {name}: step median {med[id(tr)]:.3f} ms (windows "
-                        + ", ".join(f"{x:.3f}" for x in step[id(tr)])
-                        + f"), device busy {busy_s} ms a step (share {share}), "
-                        f"{kern:.0f} device kernels and {api:.0f} host CUDA calls a "
-                        "step; request p50 ms by ids " + ", ".join(
-                            f"{s} {_median(lat[id(tr), s]):.3f}" for s in sizes))
+            timing = _twin_timing(tag, "step", eager, graphed, window, GRAPH_ROUNDS,
+                                  GRAPH_WINDOW, reqs)
             print(f"{tag} graphed = eager "
-                  + ("bit for bit" if all(bits) else
+                  + ("bit for bit" if exact else
                      "within " + ", ".join(f"{k} {v:.1e}" for k, v in errs.items()))
                   + f" (TRAIN+VALID {nbs[TRAIN]}+{nbs[VALID]} steps, state, serving "
-                  f"{len(sizes)} sizes); replays {sum(sg.replays.values())}; step ms "
-                  f"eager {med[id(eager)]:.3f} / graphed {med[id(graphed)]:.3f}, busy "
-                  "share " + " / ".join(
-                      "n/m" if prof[id(tr)][0] is None else
-                      f"{prof[id(tr)][0] / med[id(tr)]:.2f}" for tr in (eager, graphed))
-                  + ", host calls " + " / ".join(f"{prof[id(tr)][2]:.0f}"
-                                                  for tr in (eager, graphed))
-                  + f"; p50 ms {sizes[0]} id {_median(lat[id(eager), sizes[0]]):.2f} / "
-                  f"{_median(lat[id(graphed), sizes[0]]):.2f}, {sizes[-1]} ids "
-                  f"{_median(lat[id(eager), sizes[-1]]):.2f} / "
-                  f"{_median(lat[id(graphed), sizes[-1]]):.2f}; capture "
-                  f"{sg.capture_s:.2f}s, pool {sg.pool_bytes / 2**20:.0f} MiB; part "
-                  f"{time.perf_counter() - t0:.1f}s")
+                  f"{len(sizes)} sizes); replays {sum(sg.replays.values())}; {timing}; "
+                  f"capture {sg.capture_s:.2f}s, pool {sg.pool_bytes / 2**20:.0f} MiB; "
+                  f"part {time.perf_counter() - t0:.1f}s")
             _detail(f"{tag} graphs: {sg.summary()}; launches over the epoch {l_g}")
             del eager, graphed
             torch.cuda.empty_cache()
     finally:
         shutil.rmtree(tmp, ignore_errors=True)
     return time.perf_counter() - t_phase
+
+
+# --------------------------------------------------------------------------
+# [sampled graphs]: the compiled sampled step, and the BFS kernel
+# --------------------------------------------------------------------------
+SAMPLED_BUDGET_S = 150          # the phase aims at 90 s
+SAMPLED_WINDOW = 8              # steps of a timed window
+SAMPLED_ROUNDS = 2              # rounds of eager, graphed, graphed, eager windows
+SAMPLED_REQS = 6                # timed requests of each size and twin, in turns
+BFS_SIZES = (24, 208, 408, 907)
+# what the [sampled graphs] parts add up: their seconds, and the BFS
+# kernel's launches over the graphed twins' passes (its main paths)
+_SAMPLED = {"seconds": 0.0, "bfs_launches": 0}
+
+
+def _bfs_cases(n, gen):
+    """[4, n, n] f32 blocks on the card, a self edge on every valid node:
+    a chain (n - 1 levels from node 0), two components, a block whose last
+    quarter is padding (masked, its rows empty), a random sparse block;
+    the mask; starts [4, 2] (the padded block's second on padding, the
+    random block's second beyond N)."""
+    import torch
+    adj = torch.zeros(4, n, n, device="cuda")
+    i = torch.arange(n - 1, device="cuda")
+    adj[0, i, i + 1] = 1.0
+    adj[0, i + 1, i] = 1.0
+    h = n // 2
+    adj[1, :h, :h] = (torch.rand(h, h, generator=gen, device="cuda") < 3.0 / n).float()
+    adj[1, h:, h:] = (torch.rand(n - h, n - h, generator=gen, device="cuda")
+                      < 3.0 / n).float()
+    adj[2] = (torch.rand(n, n, generator=gen, device="cuda") < 3.0 / n).float()
+    adj[3] = (torch.rand(n, n, generator=gen, device="cuda") < 2.0 / n).float()
+    mask = torch.ones(4, n, dtype=torch.bool, device="cuda")
+    mask[2, n - n // 4:] = False
+    adj[2, n - n // 4:] = 0.0
+    eye = torch.eye(n, device="cuda").bool()
+    adj = torch.where(eye[None] & mask[:, :, None], 1.0, adj)
+    starts = torch.tensor([[0, n - 1], [1, h + 1], [2, n - 1], [3, n]], device="cuda")
+    return adj, starts, mask
+
+
+def phase_bfs():
+    """The BFS kernel (``csrc/bfs_hops.cu``) against its plain version,
+    bit for bit: chain, disconnected, padded and random blocks at N of
+    ``BFS_SIZES``, S = 1 and 2; an N above its limit is refused by name.
+    Returns the largest |kernel - plain|."""
+    import torch
+    from shadow_gnn_torch.ops import bfs
+    gen = torch.Generator(device="cuda").manual_seed(4)
+    cases, err = 0, 0
+    for n in BFS_SIZES:
+        adj, starts, mask = _bfs_cases(n, gen)
+        for s in (1, 2):
+            st = starts[:, :s].contiguous()
+            got = bfs.bfs_hops_multi(adj, st, mask)
+            want = bfs.bfs_hops_plain(adj, st, mask)
+            torch.cuda.synchronize()
+            err = max(err, int((got - want).abs().max()))
+            if not torch.equal(got, want):
+                raise AssertionError(f"[bfs] N={n} S={s}: the kernel differs from the "
+                                     f"plain version in {int((got != want).sum())} "
+                                     "entries")
+            cases += 1
+            _detail(f"[bfs] N={n} S={s}: kernel = plain bit for bit (levels "
+                    f"{[int(x) for x in want.amax((1, 2))]}, "
+                    f"{int((want >= 0).sum())} nodes reached)")
+    big = bfs.MAX_N + 1
+    try:
+        bfs.check_shapes(torch.empty(1, big, big, device="meta"),
+                         torch.zeros(1, 1, dtype=torch.int64, device="meta"),
+                         torch.ones(1, big, dtype=torch.bool, device="meta"))
+    except ValueError as e:
+        refused = str(e)
+    else:
+        raise AssertionError(f"[bfs] N={big} was not refused")
+    _detail(f"[bfs] refused: {refused}")
+    print(f"[bfs] kernel = plain bit for bit over {cases} cases (N {BFS_SIZES}, S 1 "
+          f"and 2); N={big} refused")
+    return err
+
+
+def _time_eager_ms(fn, iters=10, warmup=2):
+    """Device time of one call of ``fn`` that reads the device on the host
+    (it cannot be captured): CUDA events around ``iters`` calls."""
+    import torch
+    for _ in range(warmup):
+        fn()
+    ev = (torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True))
+    ev[0].record()
+    for _ in range(iters):
+        fn()
+    ev[1].record()
+    torch.cuda.synchronize()
+    return ev[0].elapsed_time(ev[1]) / iters
+
+
+def _bfs_time(batch, s, tag):
+    """The BFS kernel and its plain version on ``batch``'s blocks from its
+    first ``s`` targets: (kernel ms, plain ms, bound ms, bytes); the
+    bound counts the rows of the nodes the sources reach (each read once),
+    the mask, the starts and the output."""
+    import torch
+    from shadow_gnn_torch.ops import bfs
+    adj = batch.adj.contiguous()
+    starts = batch.targets[:, :s].contiguous()
+    mask = batch.node_mask
+    dist = bfs.bfs_hops_multi(adj, starts, mask)
+    if not torch.equal(dist, bfs.bfs_hops_plain(adj, starts, mask)):
+        raise AssertionError(f"{tag} the BFS kernel differs from the plain version")
+    b, n, _ = adj.shape
+    rows = int((dist >= 0).any(1).sum())
+    byts = rows * n * 4 + b * n + b * s * 8 + b * s * n * 8
+    bound_ms = byts / HBM_BYTES_PER_S * 1e3
+    count = bfs.bfs_hops_multi.launches
+    ms = _time_ms(lambda: bfs.bfs_hops_multi(adj, starts, mask))
+    bfs.bfs_hops_multi.launches = count
+    plain_ms = _time_eager_ms(lambda: bfs.bfs_hops_plain(adj, starts, mask))
+    _detail(f"{tag} bfs_hops B={b} N={n} S={s}: kernel {ms:.4f} ms, plain "
+            f"{plain_ms:.4f} ms (a host read a level, {int(dist.max())} levels), "
+            f"bound {bound_ms:.5f} ms (bytes: {rows} reached rows of {n * 4} B, "
+            f"{byts / 1e6:.3f} MB)")
+    return ms, plain_ms, bound_ms, byts
+
+
+def phase_bfs_cache(tr, tag):
+    """The cached TRAIN subgraphs of ``tr`` (hop annotation through the BFS
+    kernel) against a cache built through the plain BFS on the same
+    tables: byte-equal.  Then the kernel timed on one cold TRAIN batch
+    (the main path's shape).  Returns the kernels-line row (its launches
+    filled in at the end)."""
+    import torch
+    from shadow_gnn_torch import TRAIN
+    from shadow_gnn_torch.ops import bfs
+    from shadow_gnn_torch.sampling import cache as cache_mod
+    from shadow_gnn_torch.sampling import induction
+    from shadow_gnn_torch.sampling.samplers import sample_subgraphs
+    cfg, graph, tabs = (tr.branches[0]["cfg"][TRAIN], tr.graph[TRAIN],
+                        tr.tables[TRAIN][0])
+    ent = tr.entity_set[TRAIN]
+    roots = torch.as_tensor(ent[:, None], device="cuda")
+    rows = torch.arange(len(ent), device="cuda")[:, None]
+    with _Swap((induction, "bfs_hops_multi", bfs.bfs_hops_plain)), torch.no_grad():
+        plain = cache_mod.build_cache(
+            lambda r, rw: sample_subgraphs(cfg, graph, r, rw, tabs), roots, rows, cfg)
+    kern = tr.caches[TRAIN][0]
+    for f in ("nodes", "adj_bits", "targets", "hop", "ppr", "drnl"):
+        if not torch.equal(getattr(kern, f), getattr(plain, f)):
+            raise AssertionError(f"{tag} the TRAIN cache through the BFS kernel "
+                                 f"differs from the plain BFS's in {f}")
+    b = tr.batch_size
+    with torch.no_grad():
+        batch = sample_subgraphs(cfg, graph, roots[:b], rows[:b], tabs)
+    ms, plain_ms, bound_ms, _ = _bfs_time(batch, 1, tag)
+    print(f"{tag} TRAIN cache via the BFS kernel = via the plain BFS ({len(ent)} "
+          f"subgraphs); bfs_hops {ms:.4f} ms, plain {plain_ms:.4f}, bound "
+          f"{bound_ms:.5f}")
+    return {"name": "bfs_hops", "route": "cuda",
+            "source": "shadow_gnn_torch/csrc/bfs_hops.cu",
+            "replaces": "shadow_gnn_tpu/sampling/induction.py:422",
+            "launches": None, "max_abs_err": None, "ms": ms, "plain_ms": plain_ms,
+            "bound_ms": bound_ms, "bound_by": "bytes", "library_ms": None}
+
+
+def _sampled_twin(kind, g, src, cuda_graphs):
+    """A 1-epoch trainer of the [sampled graphs] path ``kind`` ("power",
+    "ensemble", "gat" or "link") that takes ``src``'s PPR tables and
+    induction plans (the same graph, seed and splits: no second push),
+    its first-epoch profile off."""
+    from shadow_gnn_torch import TRAIN
+    if kind == "power":
+        tr = _flagship_trainer(g, epochs=1, tag="[sampled power]",
+                               cuda_graphs=cuda_graphs)
+    elif kind == "ensemble":
+        tr = _ensemble_trainer(g, epochs=1, cuda_graphs=cuda_graphs)
+    elif kind == "gat":
+        tr = _gat_trainer(g, epochs=1, cuda_graphs=cuda_graphs)
+    else:
+        tr = _link_trainer(g, epochs=1, cuda_graphs=cuda_graphs)
+    tr.tables = dict(src.tables)
+    for mine, theirs in zip(tr.branches, src.branches):
+        mine["cfg"] = dict(theirs["cfg"])
+    tr.profiler.enabled = False
+    if kind == "power":
+        tr.disable_cache(TRAIN)             # its cold steps
+    return tr
+
+
+def _sampled_passes(tr, kind):
+    """The path's passes on ``tr`` (``inference`` of VALID and TEST for
+    "gat", else TRAIN epoch 0 and its VALID pass), each ``_run_batches``
+    recorded as (what, losses, predictions, overflow); the launch counts
+    over them, the BFS kernel's set to 0 just before and read just after."""
+    import torch
+    from shadow_gnn_torch import MODE2STR, TEST, TRAIN, VALID
+    from shadow_gnn_torch.ops import bfs
+    from shadow_gnn_torch.train import graphs
+    passes, run_batches = [], tr._run_batches
+
+    def recorded(mode, train, *args):
+        out = run_batches(mode, train, *args)
+        passes.append((f"{MODE2STR[mode]} {'train' if train else 'eval'}", out[0],
+                       out[1], int(out[2])))
+        return out
+
+    counters = graphs.launch_counters()
+    bfs.bfs_hops_multi.launches = 0
+    before = graphs.counter_values(counters)
+    tr._run_batches = recorded
+    try:
+        if kind == "gat":
+            tr.inference((VALID, TEST))
+        else:
+            tr.run_epoch(0, TRAIN)
+            tr.run_epoch(0, VALID)
+        torch.cuda.synchronize()
+    finally:
+        del tr._run_batches
+    after = graphs.counter_values(counters)
+    return passes, {name: a - b for name, a, b in
+                    zip(_counter_names(counters), after, before) if a != b}
+
+
+def phase_sampled(kind, g, src):
+    """[sampled graphs] for one path: an eager twin (``cuda_graphs=False``)
+    and a graphed trainer from one seed, both on ``src``'s PPR tables:
+    their passes (``_sampled_passes``: per-step losses and predictions,
+    the overflow, every kernel's launches), the final parameters and Adam
+    state, and for the ensemble requests of 1/8/64/128 ids (its PPR branch
+    gathered, its khop branch sampled), held graphed against eager bit for
+    bit (``GRAPH_TOLS`` where not, printed); every sampled step key but its
+    first call must replay.  Then in turns: the step (eager, graphed,
+    graphed, eager windows of ``SAMPLED_WINDOW`` steps, host clock to a
+    synchronise; eval steps for "gat"), its device-busy share and host
+    CUDA calls (torch.profiler), and the ensemble's request p50.  Adds
+    its seconds and the graphed twin's BFS launches to ``_SAMPLED``."""
+    import numpy as np
+    import torch
+    from shadow_gnn_torch import TEST, TRAIN, VALID
+    from shadow_gnn_torch.train.pipeline import EpochRNG
+    tag = f"[sampled {kind}]"
+    t0 = time.perf_counter()
+    eager, graphed = (_sampled_twin(kind, g, src, cg) for cg in (False, True))
+    if eager.step_graphs.enabled or not graphed.step_graphs.enabled:
+        raise AssertionError(f"{tag} the twins' graphs are not off and on")
+    if kind == "gat":
+        # GAT-5's label smoothening sums with atomics: one feature table
+        graphed.feat_tab.copy_(eager.feat_tab)
+    (p_e, l_e), (p_g, l_g) = (_sampled_passes(tr, kind) for tr in (eager, graphed))
+    _SAMPLED["bfs_launches"] += l_g.get("bfs_hops_multi.launches", 0)
+    ovf = {w: (oe, og) for (w, _, _, oe), (_, _, _, og) in zip(p_e, p_g)}
+    if len(p_e) != 2 or len(p_g) != 2 or any(a != b for a, b in ovf.values()):
+        raise AssertionError(f"{tag} passes {len(p_e)} / {len(p_g)}, overflow eager "
+                             f"/ graphed {ovf}")
+    if l_e != l_g:
+        raise AssertionError(f"{tag} launches eager {l_e}, graphed {l_g}")
+    sg, b = graphed.step_graphs, graphed.batch_size
+    want_replays = {}
+    for m, (_, losses, _, _) in zip((VALID, TEST) if kind == "gat" else (TRAIN,), p_g):
+        sig = graphed._cache_sig(m)
+        key = ("eval", m, False, b, sig) if kind == "gat" else ("train", m, b, sig)
+        if "sampled" not in sig:
+            raise AssertionError(f"{tag} {key} has no sampled branch")
+        want_replays[key] = len(losses) - 1
+    got_replays = {k: sg.replays[k] for k in want_replays}
+    if got_replays != want_replays:
+        raise AssertionError(f"{tag} replays {got_replays}, want {want_replays}")
+    reqs = {}
+    if kind == "ensemble":
+        rng = np.random.default_rng(3)
+        test_ids = np.asarray(eager.entity_set[TEST])
+        reqs = {s: [rng.choice(test_ids, s, replace=False)
+                    for _ in range(SAMPLED_REQS)] for s in GAT_SIZES}
+    exact, errs = _twin_check(tag, [p[:3] for p in p_e], [p[:3] for p in p_g], eager,
+                              graphed, kind != "gat",
+                              _twin_serving(eager, graphed, reqs, tag))
+
+    # timed in turns: windows of steps, their profiles, requests
+    mode, train = (VALID, False) if kind == "gat" else (TRAIN, True)
+    arrays = {id(tr): tr._epoch_arrays(mode) for tr in (eager, graphed)}
+    win = min(SAMPLED_WINDOW, arrays[id(eager)][0])
+
+    def window(tr, k):
+        nb, roots, rows, labels, w = arrays[id(tr)]
+        lo = (k * win) % (nb - win + 1)
+        sl = slice(lo * b, (lo + win) * b)
+        tr._run_batches(mode, train, win, roots[sl], rows[sl], labels[sl], w[sl],
+                        EpochRNG.from_seed(k, tr.device))
+
+    timing = _twin_timing(tag, "eval step" if kind == "gat" else "TRAIN step", eager,
+                          graphed, window, SAMPLED_ROUNDS, win, reqs)
+    part = time.perf_counter() - t0
+    _SAMPLED["seconds"] += part
+    _detail(f"{tag} passes {' + '.join(f'{w} {len(l)}' for w, l, _, _ in p_g)} "
+            f"steps{', state' if kind != 'gat' else ''}"
+            f"{f', serving {len(reqs)} sizes' if reqs else ''}; launches equal, "
+            f"bfs {l_g.get('bfs_hops_multi.launches', 0)}; replays "
+            f"{sum(sg.replays.values())}; part {part:.1f}s")
+    print(f"{tag} graphed = eager "
+          + ("bit for bit" if exact else
+             "within " + ", ".join(f"{k} {v:.1e}" for k, v in errs.items()))
+          + f", overflow {sum(o for _, o in ovf.values())}; {timing}")
+    _detail(f"{tag} graphs: {sg.summary()}; launches over the passes {l_g}")
+    del eager, graphed
+    torch.cuda.empty_cache()
 
 
 PARALLEL_RUNS = (("nccl", 1, "cuda"), ("gloo", 4, "cuda:0"))
@@ -4033,6 +4437,7 @@ def _run(here):
     phase_precision()
     max_abs_err.update(phase_kernels_bf16())
     max_abs_err.update(phase_kernels_gat_bf16())
+    max_abs_err["bfs_hops"] = phase_bfs()
     from shadow_gnn_torch import TEST, TRAIN
     from shadow_gnn_torch.ops.gat import gat_attention, gat_attention_bwd
     from shadow_gnn_torch.ops.packed import packed_spmm, packed_spmm_t
@@ -4101,6 +4506,8 @@ def _run(here):
     rows += phase_time_gat(tr, gat_launches, max_abs_err)
     phase_clocks_gat(tr)
     phase_infer_gat(tr, products)
+    # GAT-5 inference over VALID + TEST, graphed against its eager twin
+    phase_sampled("gat", products, tr)
     del tr, reqs
     torch.cuda.empty_cache()
 
@@ -4142,11 +4549,24 @@ def _run(here):
     del products
 
     # the flagship on a power-law graph: hub induction, cold steps
-    phase_power_law(_flickr_power_graph(), profile)
+    _, bfs_row = phase_power_law(_flickr_power_graph(), profile)
     # the two-branch PPR + khop GAT ensemble
     phase_ensemble(_arxiv_graph(), profile)
-    # the collab link model: no kernel of the repo on its path
+    # the collab link model: no packed or GAT kernel on its path
     phase_link(_collab_graph(), profile)
+    # [sampled graphs]: the parts run in power, gat, ensemble and link
+    t_sampled = _SAMPLED["seconds"]
+    print(f"[sampled graphs] phase {t_sampled:.1f}s (aim 90 s, budget "
+          f"{SAMPLED_BUDGET_S} s); bfs_hops launches over the graphed twins' "
+          f"passes {_SAMPLED['bfs_launches']}")
+    if t_sampled > SAMPLED_BUDGET_S:
+        raise AssertionError(f"[sampled graphs] took {t_sampled:.1f}s, over its "
+                             f"{SAMPLED_BUDGET_S} s budget")
+    if not _SAMPLED["bfs_launches"] > 0:
+        raise AssertionError("the main paths launched the BFS kernel no time")
+    bfs_row.update(launches=_SAMPLED["bfs_launches"],
+                   max_abs_err=max_abs_err["bfs_hops"])
+    rows.append(bfs_row)
     closing = [
         f"[chip_smoke] all phases passed in {time.perf_counter() - t_all:.1f}s",
         _card(), json.dumps({"kernels": rows}),

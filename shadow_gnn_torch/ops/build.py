@@ -20,7 +20,7 @@ _PKG = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 CSRC = os.path.join(_PKG, "csrc")
 BUILD_DIR = os.path.join(_PKG, "_build")
 # library name -> source file in csrc/
-KERNEL_SOURCES = {"packed_spmm": "packed_spmm.cu",
+KERNEL_SOURCES = {"packed_spmm": "packed_spmm.cu", "bfs_hops": "bfs_hops.cu",
                   "gat_attention": "gat_attention.cu",
                   "gat_attention_clocks": "gat_attention.cu"}
 # library name -> extra nvcc flags: the GAT kernels with their per-phase

@@ -206,14 +206,14 @@ def rows_to_adj(nodes: torch.Tensor, nbrs: torch.Tensor, deg: torch.Tensor,
     come from the small side once mirrored, and from the hub tier).  The
     other members' entries are the candidates, in (member, position)
     order; those beyond ``cand_cap`` a subgraph are dropped and counted.
-    Returns (adj, is_hub [B, N], overflow)."""
+    Returns (adj, is_hub [B, N], overflow: a 0-d int64 tensor)."""
     b, n = nodes.shape
     d = nbrs.shape[-1]
     row_valid = nodes < num_nodes
     is_hub = (deg > deg_cap) & row_valid
     dgc = torch.where(row_valid & ~is_hub, torch.clamp(deg, max=d), 0)
     csum = torch.cumsum(dgc, -1)
-    overflow = int(torch.clamp(csum[:, -1] - cand_cap, min=0).sum())
+    overflow = torch.clamp(csum[:, -1] - cand_cap, min=0).sum()
     j = torch.arange(d, device=nodes.device)
     valid = (j < dgc[..., None]) & ((csum - dgc)[..., None] + j < cand_cap)
     loc, hit = _locate(nodes, nbrs.reshape(b, -1), valid.reshape(b, -1))
@@ -244,7 +244,7 @@ def induce_edgepart(csr: Tuple[torch.Tensor, torch.Tensor], nodes: torch.Tensor,
         order = torch.sort(-deg_eff, dim=-1, stable=True)[1][:, :h]
         h = order.shape[1]
         hub_valid = torch.gather(is_hub, 1, order)
-        overflow += int(torch.clamp(is_hub.sum(-1) - h, min=0).sum())
+        overflow = overflow + torch.clamp(is_hub.sum(-1) - h, min=0).sum()
         hnodes = torch.where(hub_valid, torch.gather(nodes, 1, order), num_nodes)
         exists = fetch_edge_queries(
             csr_ptr, csr_idx, hnodes[:, :, None].expand(b, h, h),

@@ -43,6 +43,7 @@ import torch
 from shadow_gnn_torch.nn.model import predict_fn
 from shadow_gnn_torch.parallel import collectives as cc
 from shadow_gnn_torch.parallel import multihost as mh
+from shadow_gnn_torch.sampling.batch import total_overflow
 
 
 def pad_rows_to_shards(tab: np.ndarray, n_shards: int) -> np.ndarray:
@@ -116,13 +117,14 @@ def all_reduce_grads(params: List[torch.nn.Parameter]):
         off += n
 
 
-def _overflow(batches, device) -> int:
-    ovf = torch.tensor(float(sum(int(b.overflow) for b in batches)), device=device)
-    return int(cc.all_reduce_sum(ovf).item())
+def _overflow(batches, device) -> torch.Tensor:
+    """The batches' overflow summed on the device, then over the ranks: a
+    0-d int64 tensor, read once at the epoch's end."""
+    return cc.all_reduce_sum(total_overflow(batches, device))
 
 
 def spmd_train_update(trainer, batches, feats, labels, w, rng
-                      ) -> Tuple[torch.Tensor, torch.Tensor, int]:
+                      ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
     """One SPMD update shared by every partition step: forward and
     backward on this rank's rows, global loss normalisation, summed
     gradients, the global-norm clip, Adam.  Returns (global loss, this

@@ -26,7 +26,11 @@ class SubgraphBatch:
     hop        [B, N] int64  BFS hop from the target (-1 = unreachable)
     ppr        [B, N] f32    PPR score annotations (0 when absent)
     drnl       [B, N] int64  DRNL labels (link task; 0 otherwise)
-    overflow   int           over-degree members dropped by induction
+    overflow   [] int64      over-degree members and candidate edges
+                             dropped by induction: a 0-d device tensor,
+                             never read on the host inside a step (a
+                             pass sums it on the device); None for a
+                             batch gathered from a cache
     adj_bits   [B, N, ceil(N/8)] uint8 packed adjacency (cached batches)
     """
 
@@ -38,8 +42,20 @@ class SubgraphBatch:
     hop: torch.Tensor
     ppr: torch.Tensor
     drnl: torch.Tensor
-    overflow: int = 0
+    overflow: Optional[torch.Tensor] = None
     adj_bits: Optional[torch.Tensor] = None
+
+
+def no_overflow(device) -> torch.Tensor:
+    """The overflow of an induction that drops nothing: a 0-d int64 zero."""
+    return torch.zeros((), dtype=torch.int64, device=device)
+
+
+def total_overflow(batches, device) -> torch.Tensor:
+    """The batches' induction overflow summed on the device: a 0-d int64
+    tensor (a batch gathered from a cache carries none)."""
+    ovf = [b.overflow.to(device) for b in batches if b.overflow is not None]
+    return torch.stack(ovf).sum() if ovf else no_overflow(device)
 
 
 @dataclasses.dataclass(frozen=True)
@@ -127,14 +143,23 @@ def hop2onehot(hop: torch.Tensor, dim: int = DIM_1HOT_HOP) -> torch.Tensor:
     return oh * valid.unsqueeze(-1)
 
 
+_PPR_BOUNDS = {}     # (dim, device) -> [2, dim] upper and lower bucket bounds
+
+
 def ppr2onehot(ppr: torch.Tensor, dim: int = DIM_1HOT_PPR) -> torch.Tensor:
     """[..., N] f32 -> [..., N, dim] f32: bucket i holds scores in
     [0.25^(i+1), 0.25^i] (the last bucket down to 0); at dim 1, 1 iff
-    0 <= ppr <= 1."""
-    uppers = torch.tensor([0.25 ** i for i in range(dim)], dtype=torch.float32,
-                          device=ppr.device)
-    lowers = torch.tensor([0.25 ** (i + 1) for i in range(dim - 1)] + [0.0],
-                          dtype=torch.float32, device=ppr.device)
+    0 <= ppr <= 1.  The bucket bounds are copied to the device once per
+    (dim, device), on a step's first (eager) call: a CUDA graph's capture
+    copies nothing from the host."""
+    key = (dim, ppr.device)
+    if key not in _PPR_BOUNDS:
+        with torch.inference_mode(False):
+            _PPR_BOUNDS[key] = torch.tensor(
+                [[0.25 ** i for i in range(dim)],
+                 [0.25 ** (i + 1) for i in range(dim - 1)] + [0.0]],
+                dtype=torch.float32, device=ppr.device)
+    uppers, lowers = _PPR_BOUNDS[key]
     p = ppr[..., None]
     return ((p <= uppers) & (p >= lowers)).float()
 

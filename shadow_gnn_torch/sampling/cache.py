@@ -91,8 +91,9 @@ def build_cache(sample_fn: Callable[[torch.Tensor, torch.Tensor], SubgraphBatch]
     for s in range(0, t, chunk):
         e = min(s + chunk, t)
         b = sample_fn(roots_all[s:e], rows_all[s:e])
-        if b.overflow:
-            raise RuntimeError(f"induction overflowed by {b.overflow} in a "
+        # the build runs outside any step: one host read a chunk
+        if int(b.overflow):
+            raise RuntimeError(f"induction overflowed by {int(b.overflow)} in a "
                                "cached subgraph")
         nodes[s:e] = b.nodes
         bits[s:e] = pack_bits(b.adj)

@@ -28,6 +28,11 @@ package, each giving JAX's 0/1 block and ``overflow``:
 Hits are scattered into ``[B, N*N]``; the JAX package's one-hot einsums
 only move the same 0/1 values.  Every strategy works through the batch
 in chunks whose scratch fits ``ROWS_GATHER_BUDGET``.
+
+Nothing here reads a device tensor on the host: the overflow is a 0-d
+int64 device tensor, and on CUDA tensors the BFS of the hop and DRNL
+annotations is one kernel launch (``ops/bfs.py``), so a CUDA graph can
+hold a whole sample-and-induce step.
 """
 from __future__ import annotations
 
@@ -36,7 +41,9 @@ from typing import Callable
 import torch
 
 from shadow_gnn_torch.data.graph import DeviceGraph
-from shadow_gnn_torch.sampling.batch import SamplerConfig, SubgraphBatch
+# [B, S] starts -> [B, S, N] distances: the kernel on CUDA tensors
+from shadow_gnn_torch.ops.bfs import bfs_hops_multi
+from shadow_gnn_torch.sampling.batch import SamplerConfig, SubgraphBatch, no_overflow
 
 # device-memory budget for one chunk of an induction's scratch (the
 # [B, N, deg_cap] gather of rows, the [B, cand_cap] candidates, the
@@ -133,14 +140,14 @@ def plan_ppr_induction(scope_deg, root_deg, *, n_pad: int, num_targets: int,
 def _by_chunks(fn: Callable, nodes: torch.Tensor, per_root: int) -> tuple:
     """``fn(nodes chunk) -> (adj, overflow)`` over chunks of the batch
     whose scratch (``per_root`` bytes a subgraph) fits
-    ``ROWS_GATHER_BUDGET``; the blocks concatenated, the overflows
-    summed."""
+    ``ROWS_GATHER_BUDGET``; the blocks concatenated, the overflows (0-d
+    int64 device tensors) summed on the device."""
     b = nodes.shape[0]
     chunk = max(1, ROWS_GATHER_BUDGET // max(per_root, 1))
     if b <= chunk:
         return fn(nodes)
     parts = [fn(nodes[i:i + chunk]) for i in range(0, b, chunk)]
-    return torch.cat([a for a, _ in parts]), sum(o for _, o in parts)
+    return torch.cat([a for a, _ in parts]), torch.stack([o for _, o in parts]).sum()
 
 
 def _members(graph: DeviceGraph, nodes: torch.Tensor):
@@ -196,7 +203,7 @@ def membership_matrix(graph: DeviceGraph, nodes: torch.Tensor) -> torch.Tensor:
         found = _csr_search(graph, lo[:, :, None], (lo + deg)[:, :, None],
                             nd[:, None, :])
         adj = found & (nd < graph.num_nodes)[:, None, :] & row_valid[:, :, None]
-        return adj.float(), 0
+        return adj.float(), no_overflow(nd.device)
     return _by_chunks(one, nodes, search_bytes(1, nodes.shape[1]))[0]
 
 
@@ -204,11 +211,12 @@ def _candidates(graph: DeviceGraph, nodes: torch.Tensor, lo: torch.Tensor,
                 deg: torch.Tensor, cand_cap: int) -> tuple:
     """The first ``cand_cap`` out-edges of the members (degrees ``deg``),
     in (member, position) order, located in the node table.  Returns
-    (block [B,N,N] bool, overflow = Σ_b max(total_b − cand_cap, 0))."""
+    (block [B,N,N] bool, overflow = Σ_b max(total_b − cand_cap, 0), a 0-d
+    int64 tensor)."""
     b, n = nodes.shape
     csum = torch.cumsum(deg, -1)                         # inclusive [B, N]
     total = csum[:, -1]
-    overflow = int(torch.clamp(total - cand_cap, min=0).sum())
+    overflow = torch.clamp(total - cand_cap, min=0).sum()
     e = torch.arange(cand_cap, device=nodes.device).repeat(b, 1)        # [B, E]
     owner = torch.clamp(torch.searchsorted(csum, e, right=True), max=n - 1)
     start = torch.where(owner > 0, torch.gather(csum, 1, torch.clamp(owner - 1, min=0)),
@@ -224,7 +232,7 @@ def membership_matrix_cand(graph: DeviceGraph, nodes: torch.Tensor,
     """The ``cand`` strategy (directed graphs with hubs): every out-edge
     of every member is a candidate, up to ``cand_cap`` a subgraph; the
     dropped ones are counted in the overflow.
-    Returns (adj [B,N,N] f32, overflow int)."""
+    Returns (adj [B,N,N] f32, overflow 0-d int64 tensor)."""
     def one(nd):
         row_valid, lo, deg = _members(graph, nd)
         adj, overflow = _candidates(graph, nd, lo, deg, cand_cap)
@@ -238,7 +246,7 @@ def _hub_pairs(graph: DeviceGraph, nodes: torch.Tensor, lo: torch.Tensor,
     ascending index, a stable sort of -deg, the set JAX's two-key sort
     picks); each hub x hub pair is searched in the hub's CSR row.
     Members above ``deg_cap`` beyond the slots are the overflow.
-    Returns (adj_hub [B,N,N] bool, overflow int)."""
+    Returns (adj_hub [B,N,N] bool, overflow 0-d int64 tensor)."""
     b, n = nodes.shape
     order = torch.sort(-deg, dim=-1, stable=True)[1][:, :hub_slots]   # [B, H]
     hdeg = torch.gather(deg, 1, order)
@@ -246,7 +254,7 @@ def _hub_pairs(graph: DeviceGraph, nodes: torch.Tensor, lo: torch.Tensor,
     hnodes = torch.gather(nodes, 1, order)
     hub_valid = hdeg > deg_cap
     n_hubs = (deg > deg_cap).sum(-1)
-    overflow = int(torch.clamp(n_hubs - hub_slots, min=0).sum())
+    overflow = torch.clamp(n_hubs - hub_slots, min=0).sum()
     found = _csr_search(graph, hlo[:, :, None], (hlo + hdeg)[:, :, None],
                         hnodes[:, None, :])
     s = found & hub_valid[:, :, None] & hub_valid[:, None, :]          # [B, H, H]
@@ -262,7 +270,7 @@ def membership_matrix_hub(graph: DeviceGraph, nodes: torch.Tensor,
     the members of degree at most ``deg_cap`` (an edge to a hub is found
     from the small side and mirrored), then the hub table.  Overflow:
     candidates beyond ``cand_cap`` plus hubs beyond the slots.
-    Returns (adj [B,N,N] f32, overflow int)."""
+    Returns (adj [B,N,N] f32, overflow 0-d int64 tensor)."""
     def one(nd):
         row_valid, lo, deg = _members(graph, nd)
         small = torch.where(deg <= deg_cap, deg, torch.zeros_like(deg))
@@ -286,7 +294,7 @@ def membership_matrix_rows(graph: DeviceGraph, nodes: torch.Tensor,
     the overflow is the hubs beyond the slots.  The [B, N, deg_cap]
     neighbour gather runs over chunks of the batch that each fit
     ``ROWS_GATHER_BUDGET``.
-    Returns (adj [B,N,N] f32, overflow int).
+    Returns (adj [B,N,N] f32, overflow 0-d int64 tensor).
     """
     return _by_chunks(lambda nd: _membership_rows(graph, nd, deg_cap, hub_slots),
                       nodes, rows_gather_bytes(1, nodes.shape[1], deg_cap))
@@ -301,41 +309,24 @@ def _membership_rows(graph: DeviceGraph, nodes: torch.Tensor, deg_cap: int,
     take = (off < deg[..., None]) & (deg <= deg_cap)[..., None]      # [B,N,D]
     nbr = _edge_at(graph, lo[..., None] + off).reshape(b, -1)        # [B,N*D]
     loc, hit = _locate(nodes, nbr, take.reshape(b, -1))
-    row = torch.arange(n, device=nodes.device).repeat_interleave(deg_cap)
-    adj = _scatter_block(b, n, row.expand(b, -1), loc, hit)
+    row = torch.arange(n, device=nodes.device)[:, None].expand(n, deg_cap)
+    adj = _scatter_block(b, n, row.reshape(1, -1).expand(b, -1), loc, hit)
     if hub_slots > 0:
         adj = adj | adj.transpose(1, 2)
         adj_h, overflow = _hub_pairs(graph, nodes, lo, deg, deg_cap, hub_slots)
         adj = adj | adj_h
     else:
-        overflow = int((deg > deg_cap).sum())
+        overflow = (deg > deg_cap).sum()
     return (adj & row_valid[:, :, None]).float(), overflow
 
 
 def bfs_hops(adj: torch.Tensor, start_local: torch.Tensor,
              node_mask: torch.Tensor) -> torch.Tensor:
     """Batched BFS distance from a start node over dense blocks, along
-    out-edges.  Returns [B, N] int64 with -1 for unreachable/padding."""
+    out-edges.  Returns [B, N] int64 with -1 for unreachable/padding.
+    :func:`bfs_hops_multi` (``ops/bfs.py``) at S = 1: the BFS kernel on
+    CUDA tensors, the plain host loop on CPU ones."""
     return bfs_hops_multi(adj, start_local[:, None], node_mask)[:, 0]
-
-
-def bfs_hops_multi(adj: torch.Tensor, starts_local: torch.Tensor,
-                   node_mask: torch.Tensor) -> torch.Tensor:
-    """Batched multi-source BFS: [B, S] start nodes -> [B, S, N] distances
-    (-1 for unreachable/padding).  All sources advance in one loop, so a
-    batch pays max(levels) host syncs, not their sum."""
-    n = adj.shape[1]
-    ar = torch.arange(n, device=adj.device)
-    frontier = ar[None, None, :] == starts_local[..., None]
-    dist = torch.where(frontier, 0, -1)
-    lvl = 0
-    while bool(frontier.any()):
-        nxt = torch.bmm(frontier.float(), adj) > 0
-        new = nxt & (dist < 0) & node_mask[:, None, :]
-        dist = torch.where(new, lvl + 1, dist)
-        frontier = new
-        lvl += 1
-    return dist
 
 
 def drnl_labels(adj: torch.Tensor, targets: torch.Tensor,
@@ -370,11 +361,11 @@ def induce(graph: DeviceGraph, nodes: torch.Tensor, ppr_vals: torch.Tensor,
     elif cfg.induction == "cand" and cfg.cand_cap > 0:
         adj, overflow = membership_matrix_cand(graph, nodes, cfg.cand_cap)
     else:
-        adj, overflow = membership_matrix(graph, nodes), 0
+        adj, overflow = membership_matrix(graph, nodes), no_overflow(nodes.device)
     return annotate(adj, overflow, nodes, ppr_vals, roots, cfg, graph.num_nodes)
 
 
-def annotate(adj: torch.Tensor, overflow: int, nodes: torch.Tensor,
+def annotate(adj: torch.Tensor, overflow: torch.Tensor, nodes: torch.Tensor,
              ppr_vals: torch.Tensor, roots: torch.Tensor, cfg: SamplerConfig,
              num_nodes: int) -> SubgraphBatch:
     """The SubgraphBatch of an induced block ``adj`` [B, N, N] f32 whose

@@ -1,17 +1,21 @@
-"""CUDA-graph capture and replay of a Trainer's cached steps.
+"""CUDA-graph capture and replay of a Trainer's steps.
 
 The port's counterpart of the JAX package's compiled programs: the
 jitted TRAIN and eval epochs (``shadow_gnn_tpu/train/pipeline.py:
 _make_epoch_fn``) and the serve program of each request bucket
-(``_serve_fn``).  JAX's epoch scan and chunking are TPU mechanics and
-are not carried over; what is carried over is the compiled step.  A
-step here is a function of static buffers (``Trainer._static_train``,
-``_static_eval``, ``_static_serve``): its only inputs are the tensors
-of :meth:`StepGraphs.inputs`, written before each call, and everything
-else it reads (the subgraph cache, the feature table, the model, Adam's
-state) stays where it is between calls.  On a graphed Trainer each step
-key (the kind, the mode, the data mode or the bucket, the batch size)
-is
+(``_serve_fn``), which sample and induce inside the program.  JAX's
+epoch scan and chunking are TPU mechanics and are not carried over;
+what is carried over is the compiled step.  A step here is a function
+of static buffers (``Trainer._static_train``, ``_static_eval``,
+``_static_serve``): its only inputs are the tensors of
+:meth:`StepGraphs.inputs` (roots, table rows, labels, weights, the
+dropedge seed), written before each call, and everything else it reads
+(the graph's CSR, the PPR tables, the subgraph caches, the feature
+table, the model, Adam's state) stays where it is between calls.  A
+branch with a built cache gathers its batch; any other samples and
+induces it inside the step.  On a graphed Trainer each step key (the
+kind, the mode, the data mode or the bucket, the batch size, which
+branches are cached) is
 
 1. run once eagerly on a side stream: the warm-up, which is a real
    step of the run (it initialises Adam's state and loads every kernel);
@@ -19,11 +23,14 @@ is
    memory pool that the Trainer's graphs share, and replayed at once;
 3. replayed on every later call.
 
-The dropout generator of every graph is one device generator
-(:attr:`StepGraphs.generator`), registered with each graph; a pass
-loads the epoch generator's state into it and gives the state back
-after (:meth:`StepGraphs.dropout`), so the replays draw the eager
-steps' masks.  The kernel wrappers count their launches in Python,
+Two device generators are registered with every graph: the dropout
+generator (:attr:`StepGraphs.generator`) and the samplers' generator
+(:attr:`StepGraphs.sampler`: the khop picks and the ``ppr_st``
+uniforms).  A pass loads the epoch generator's state into each and
+gives the state back after (:meth:`StepGraphs.dropout`,
+:meth:`StepGraphs.sampling`; a request loads a generator seeded with
+``SERVE_SEED``), so the replays draw the eager steps' masks and
+picks.  The kernel wrappers count their launches in Python,
 which a replay does not run: the capture's count is taken back and
 credited on every replay instead (:func:`launch_counters`).
 
@@ -49,11 +56,11 @@ import torch
 
 def launch_counters():
     """(holder, name) of every kernel launch counter of the port: the
-    packed wrappers' (calls, per mode, per norm) and the attention
-    wrappers' (per level).  A holder is the wrapper or its per-norm
-    dict."""
-    from shadow_gnn_torch.ops import gat, packed
-    out = [(packed.packed_spmm, "calls")]
+    packed wrappers' (calls, per mode, per norm), the attention
+    wrappers' (per level) and the BFS kernel's.  A holder is the wrapper
+    or its per-norm dict."""
+    from shadow_gnn_torch.ops import bfs, gat, packed
+    out = [(packed.packed_spmm, "calls"), (bfs.bfs_hops_multi, "launches")]
     for fn in (packed.packed_spmm, packed.packed_spmm_t):
         out += [(fn, "launches"), (fn, "launches_bf16")]
         out += [(fn.launches_by_norm, n) for n in packed.NORMS]
@@ -109,9 +116,9 @@ def _same(a: Optional[tuple], b: tuple) -> bool:
 
 
 class StepGraphs:
-    """The CUDA graphs of one Trainer's cached steps, one per key, with
-    their static input buffers, their shared memory pool and the dropout
-    generator registered with each.  ``enabled`` False (the CPU, an eager
+    """The CUDA graphs of one Trainer's steps, one per key, with their
+    static input buffers, their shared memory pool and the dropout and
+    sampler generators registered with each.  ``enabled`` False (the CPU, an eager
     twin, a partitioned Trainer) runs every step function directly.
 
     ``replays`` counts the replays by key, ``warmups`` the eager warm-up
@@ -128,6 +135,7 @@ class StepGraphs:
         self._pool = None
         self._side = None
         self.generator = (torch.Generator(device=device) if self.enabled else None)
+        self.sampler = (torch.Generator(device=device) if self.enabled else None)
         self.replays: collections.Counter = collections.Counter()
         self.warmups: collections.Counter = collections.Counter()
         self.capture_s = 0.0
@@ -153,20 +161,28 @@ class StepGraphs:
                 buf[k].fill_(int(v))
         return buf
 
-    @contextlib.contextmanager
     def dropout(self, generator: Optional[torch.Generator]):
-        """The dropout generator of a pass: on a graphed Trainer the one
-        registered with every graph, holding ``generator``'s state for
-        the pass, which ``generator`` gets back after it; else
-        ``generator`` itself."""
-        if not self.enabled or generator is None:
+        """The dropout generator of a pass (:meth:`_lend`)."""
+        return self._lend(self.generator, generator)
+
+    def sampling(self, generator: Optional[torch.Generator]):
+        """The samplers' generator of a pass or a request (:meth:`_lend`)."""
+        return self._lend(self.sampler, generator)
+
+    @contextlib.contextmanager
+    def _lend(self, registered: Optional[torch.Generator],
+              generator: Optional[torch.Generator]):
+        """On a graphed Trainer ``registered`` (a generator registered with
+        every graph) holding ``generator``'s state within the block, which
+        ``generator`` gets back after it; else ``generator`` itself."""
+        if not self.enabled or generator is None or registered is None:
             yield generator
             return
-        self.generator.set_state(generator.get_state())
+        registered.set_state(generator.get_state())
         try:
-            yield self.generator
+            yield registered
         finally:
-            generator.set_state(self.generator.get_state())
+            generator.set_state(registered.get_state())
 
     @contextlib.contextmanager
     def paused(self):
@@ -234,8 +250,9 @@ class StepGraphs:
 
     def _record(self, fn):
         """(a CUDA graph of ``fn()`` from the shared pool, with the
-        dropout generator registered, and its static outputs); the
-        device memory the capture reserved is added to ``pool_bytes``."""
+        dropout and sampler generators registered, and its static
+        outputs); the device memory the capture reserved is added to
+        ``pool_bytes``."""
         with torch.cuda.device(self.device):
             torch.cuda.synchronize()
             torch.cuda.empty_cache()
@@ -244,6 +261,7 @@ class StepGraphs:
                 self._pool = torch.cuda.graph_pool_handle()
             graph = torch.cuda.CUDAGraph()
             graph.register_generator_state(self.generator)
+            graph.register_generator_state(self.sampler)
             with torch.cuda.graph(graph, pool=self._pool):
                 outputs = fn()
             self.pool_bytes += torch.cuda.memory_reserved() - reserved

@@ -22,18 +22,20 @@ Differences from the JAX Trainer:
 * everything runs on ``device`` (default ``"cuda"``; CUDA absent
   raises), one batch at a time: there are no epoch-scan or chunk
   programs.  Where JAX compiles its epochs and its serve programs, a
-  CUDA Trainer (``cuda_graphs=True``, the default) captures each cached
-  step in a CUDA graph and replays it (``train/graphs.py``): the TRAIN
-  step (gather, forward, backward, clip, Adam), the eval step of the
-  VALID/TEST passes and of ``predict_full`` / ``embed_full``, and each
-  serving bucket of ``predict_nodes`` / ``embed_nodes``.  A step is
-  cached when every branch of its mode gathers from a built subgraph
-  cache; it is then a function of static buffers (``_static_train``,
-  ``_static_eval``, ``_static_serve``), which the CPU, an eager twin
-  (``cuda_graphs=False``) and a partitioned Trainer call directly.  The
-  rest runs eagerly: the uncached branches (khop, nodeIID, a cache over
-  its budget, ``disable_cache`` and ``inference``), the link task, the
-  partitioned steps and the first-epoch profile;
+  CUDA Trainer (``cuda_graphs=True``, the default) captures each step in
+  a CUDA graph and replays it (``train/graphs.py``): the TRAIN step
+  (each branch's batch, forward, backward, clip, Adam), the eval step of
+  the VALID/TEST passes, ``inference`` and ``predict_full`` /
+  ``embed_full``, and each serving bucket of ``predict_nodes`` /
+  ``embed_nodes``.  A step is a function of static buffers
+  (``_static_train``, ``_static_eval``, ``_static_serve``): a branch
+  whose mode has a built subgraph cache gathers from it, any other
+  (khop, nodeIID, ppr_st, a cache over its budget, ``disable_cache``,
+  ``inference``, the link task) samples and induces inside the step, as
+  JAX's ``_sample_branch_batches`` does inside its programs.  The CPU,
+  an eager twin (``cuda_graphs=False``) and a partitioned Trainer call
+  the same functions directly.  The partitioned steps and the
+  first-epoch profile run eagerly;
 * ``partition`` (``dp``, ``feat``, ``edge``; ``parallel/``) runs inside
   a process group, one Trainer a rank (``parallel/multihost.py``): each
   rank builds the same Trainer from the same seed, draws the same epoch
@@ -105,7 +107,9 @@ from shadow_gnn_torch.nn.model import (ADJ_FREE, DeepGNN, ModelConfig, predict_f
                                        row_losses)
 from shadow_gnn_torch.sampling import cache as cache_mod
 from shadow_gnn_torch.sampling import ppr as ppr_mod
-from shadow_gnn_torch.sampling.batch import SamplerConfig, SubgraphBatch, default_n_pad
+from shadow_gnn_torch.sampling.batch import (SamplerConfig, SubgraphBatch,
+                                             default_n_pad, no_overflow,
+                                             total_overflow)
 from shadow_gnn_torch.sampling.induction import (PLAN_GATHER_BUDGET, bucket_cap,
                                                  plan_gather_bytes,
                                                  plan_ppr_induction)
@@ -268,10 +272,10 @@ class Trainer:
         initialised process group whose world size divides the batch
         size (``parallel/multihost.py:initialize``; the CLI's
         ``--partition`` spawns the ranks).  ``cuda_graphs`` (True) lets a
-        CUDA Trainer that is not partitioned replay its cached steps
-        from CUDA graphs; False runs them eagerly, the same functions
-        (the eager twin that ``chip_smoke.py`` compares); the CPU
-        ignores it."""
+        CUDA Trainer that is not partitioned replay its steps, cached or
+        sampled, from CUDA graphs; False runs them eagerly, the same
+        functions (the eager twin that ``chip_smoke.py`` compares); the
+        CPU ignores it."""
         if partition not in ("none", "dp", "feat", "edge"):
             raise ValueError(f"unsupported partition {partition!r}")
         if feat_dtype not in ("float32", "bfloat16"):
@@ -391,8 +395,8 @@ class Trainer:
             matmul_precision=matmul_precision or "float32",
             compute_dtype=compute_dtype,
         )
-        # the cached steps' graphs (train/graphs.py), before a reload
-        # can drop them
+        # the steps' graphs (train/graphs.py), before a reload can drop
+        # them
         self.step_graphs = StepGraphs(self.device, cuda_graphs and partition == "none")
         self.model = DeepGNN(self.model_cfg)
         init_params(self.model, torch.Generator().manual_seed(seed))
@@ -415,11 +419,13 @@ class Trainer:
     def _graph_plan(self) -> str:
         """Which steps replay CUDA graphs, fixed by the configuration."""
         if self.step_graphs.enabled:
-            if self.task == "link":
-                return ("off in effect: the link task samples every batch, so "
-                        "every step runs eagerly")
-            return ("the cached TRAIN and eval steps and the serving buckets "
-                    "replay CUDA graphs; uncached branches run eagerly")
+            steps = ("the TRAIN and eval steps replay CUDA graphs (negatives "
+                     "drawn on the host once an epoch)" if self.task == "link" else
+                     "the TRAIN and eval steps and the serving buckets replay "
+                     "CUDA graphs")
+            return (f"{steps}; a cached branch gathers and any other samples "
+                    "and induces inside the graph; the first-epoch profile runs "
+                    "eagerly")
         why = ("on the CPU" if self.device.type != "cuda" else
                f"partition {self.partition}" if self.partition != "none"
                else "cuda_graphs=False")
@@ -652,24 +658,31 @@ class Trainer:
             print(f"[cache] built branch {i} {MODE2STR[mode]}: {ent.size} "
                   f"subgraphs, {est / 1e6:.0f}MB, {time.time() - t0:.1f}s")
         if self.step_graphs.enabled:
-            eager = [f"{i} ({br['cfg'][mode].method})" for i, br in
-                     enumerate(self.branches) if self.caches[mode][i] is None]
+            sampled = [f"{i} ({br['cfg'][mode].method})" for i, br in
+                       enumerate(self.branches) if self.caches[mode][i] is None]
             print(f"[graphs] {MODE2STR[mode]}: " + (
-                f"branch {', '.join(eager)} uncached: its steps run eagerly"
-                if eager else "every branch cached: its steps replay CUDA graphs"))
+                f"branch {', '.join(sampled)} uncached: sampled and induced "
+                "inside its graphs" if sampled else
+                "every branch cached: gathered inside its graphs"))
 
     def disable_cache(self, mode: int):
-        """Serve ``mode`` by sampling every request (no cache): its steps
-        run eagerly from now on."""
+        """Serve ``mode`` by sampling every request (no cache): its cached
+        steps' graphs are dropped, and its steps replay sampled ones from
+        now on."""
         self.nocache_modes.add(mode)
         self.caches[mode] = [None] * self.num_ensemble
-        self.step_graphs.drop(lambda key: key[1] == mode)
+        self.step_graphs.drop(lambda key: key[1] == mode and "cached" in key[-1])
 
     def _cached(self, mode: int) -> bool:
-        """Whether every branch of ``mode`` gathers from a built cache, so
-        that its steps are functions of static buffers."""
-        caches = self.caches.get(mode)
-        return caches is not None and all(c is not None for c in caches)
+        """Whether every branch of ``mode`` gathers from a built cache."""
+        return "sampled" not in self._cache_sig(mode)
+
+    def _cache_sig(self, mode: int) -> tuple:
+        """Each branch's form in ``mode``'s steps, "cached" (gathered) or
+        "sampled": the last part of a step key, so that a mode's cached
+        and sampled forms never share a graph."""
+        caches = self.caches.get(mode) or [None] * self.num_ensemble
+        return tuple("sampled" if c is None else "cached" for c in caches)
 
     def _sample_branch_batches(self, mode: int, roots: torch.Tensor,
                                rows: torch.Tensor,
@@ -678,9 +691,10 @@ class Trainer:
         """Every branch's batch (gathered from its cache, or sampled and
         induced; the khop picks from ``generator``) and feature block."""
         batches, feats = [], []
+        caches = self.caches.get(mode) or [None] * self.num_ensemble
         for i, br in enumerate(self.branches):
             cfg = br["cfg"][mode]
-            if self.caches.get(mode, [None] * self.num_ensemble)[i] is not None:
+            if caches[i] is not None:
                 batch = self._gather_branch(mode, i, rows[:, 0])
             else:
                 batch = sample_subgraphs(cfg, self.graph[mode], roots, rows,
@@ -700,11 +714,6 @@ class Trainer:
         """The batch's feature block in the compute dtype."""
         return self.feat_tab[torch.clamp(batch.nodes, 0, self.num_nodes - 1)].to(
             self.model_cfg.dtype)
-
-    def _gather_cached(self, mode: int, rows: torch.Tensor):
-        """Every branch's batch and feature block from the mode's caches."""
-        batches = [self._gather_branch(mode, i, rows) for i in range(self.num_ensemble)]
-        return batches, [self._features(b) for b in batches]
 
     # ------------------------------------------------------------------
     # Training
@@ -803,7 +812,9 @@ class Trainer:
         return weighted_loss_fn(self.model_cfg, logits, labels, w), logits
 
     def _train_step(self, batches, feats, labels, w, rng: EpochRNG):
-        """Forward, backward, clip and Adam update of one TRAIN batch."""
+        """Forward, backward, clip and Adam update of one TRAIN batch,
+        eagerly: the reference the static step (:meth:`_static_train`)
+        is held to."""
         self.optimizer.zero_grad(set_to_none=True)
         loss, logits = self._forward_loss(batches, feats, labels, w, rng)
         loss.backward()
@@ -813,18 +824,28 @@ class Trainer:
 
     @torch.no_grad()
     def _eval_step(self, batches, feats, labels, w, mode_train: bool = False):
+        """One evaluation batch, eagerly (the reference of
+        :meth:`_static_eval`)."""
         loss, logits = self._forward_loss(batches, feats, labels, w,
                                           mode_train=mode_train)
         return loss, predict_fn(self.model_cfg, logits)
 
-    # The cached steps as functions of static buffers (``buf``: rows [B]
-    # of the mode's cache, labels, weights, the dropedge seed), captured
-    # in CUDA graphs on a graphed Trainer (train/graphs.py)
-    def _static_train(self, mode: int, buf, generator):
-        """The cached TRAIN step: gather, forward (dropout from
+    # The steps as functions of static buffers (``buf``: roots [B, T] and
+    # PPR table rows [B, T], labels, weights, the dropedge seed), captured
+    # in CUDA graphs on a graphed Trainer (train/graphs.py).  Each branch
+    # gathers from its cache, or samples and induces with the picks and
+    # uniforms of ``sampler``
+    def _static_batches(self, mode: int, buf, sampler):
+        with torch.no_grad():
+            return self._sample_branch_batches(mode, buf["roots"], buf["rows"],
+                                               sampler)
+
+    def _static_train(self, mode: int, buf, generator, sampler):
+        """The TRAIN step: every branch's batch, forward (dropout from
         ``generator``, dropedge from ``buf["seed"]``), backward, clip and
-        Adam.  Returns (loss, predictions, the gradients)."""
-        batches, feats = self._gather_cached(mode, buf["rows"])
+        Adam.  Returns (loss, predictions, the gradients, the induction
+        overflow)."""
+        batches, feats = self._static_batches(mode, buf, sampler)
         self.optimizer.zero_grad(set_to_none=True)
         logits, _ = self.model(batches, feats, generator, buf["seed"], True)
         loss = weighted_loss_fn(self.model_cfg, logits, buf["labels"], buf["w"])
@@ -833,61 +854,69 @@ class Trainer:
         self.optimizer.step()
         # the gradients stay with the graph: a replay writes them
         return (loss.detach(), predict_fn(self.model_cfg, logits.detach()),
-                [p.grad for p in self.model.parameters()])
+                [p.grad for p in self.model.parameters()],
+                total_overflow(batches, self.device))
 
     @torch.no_grad()
-    def _static_eval(self, mode: int, buf, mode_train: bool):
-        """The cached evaluation step: (loss, probabilities, per-branch
-        embeddings)."""
-        batches, feats = self._gather_cached(mode, buf["rows"])
+    def _static_eval(self, mode: int, buf, mode_train: bool, sampler):
+        """The evaluation step: (loss, probabilities, per-branch
+        embeddings, the induction overflow)."""
+        batches, feats = self._static_batches(mode, buf, sampler)
         logits, embs = self.model(batches, feats, mode_train=mode_train)
         return (weighted_loss_fn(self.model_cfg, logits, buf["labels"], buf["w"]),
-                predict_fn(self.model_cfg, logits), embs)
+                predict_fn(self.model_cfg, logits), embs,
+                total_overflow(batches, self.device))
 
     @torch.no_grad()
-    def _static_serve(self, mode: int, buf):
-        """A cached request bucket: (probabilities [cap, C], embeddings
+    def _static_serve(self, mode: int, buf, sampler):
+        """A request bucket: (probabilities [cap, C], embeddings
         [branches, cap, dim])."""
-        batches, feats = self._gather_cached(mode, buf["rows"])
+        batches, feats = self._static_batches(mode, buf, sampler)
         logits, embs = self.model(batches, feats)
         return predict_fn(self.model_cfg, logits), torch.stack(embs)
 
     def _graph_deps(self, mode: int, train: bool) -> tuple:
-        """The objects whose tensors a cached step of ``mode`` reads."""
-        deps = (self.model, self.feat_tab, *self.caches[mode])
+        """The objects whose tensors a step of ``mode`` reads."""
+        deps = (self.model, self.feat_tab, self.graph[mode],
+                *(self.tables.get(mode) or ()),
+                *(self.caches.get(mode) or ()))
         return deps + (self.optimizer, self.optimizer.state) if train else deps
 
-    def _cached_train_step(self, mode: int, rows, labels, w, rng: EpochRNG,
-                           generator: Optional[torch.Generator]):
-        """One TRAIN step of a cached batch (``rows`` [B] of the mode's
-        cache): its inputs and one fresh dropedge seed written into the
-        static buffers, then :meth:`_static_train`, replayed from a CUDA
-        graph on a graphed Trainer.  ``generator``: the pass's dropout
-        generator (``StepGraphs.dropout``).  Returns (loss, predictions),
-        copied out."""
+    def _graph_train_step(self, mode: int, roots, rows, labels, w, rng: EpochRNG,
+                          generator: Optional[torch.Generator],
+                          sampler: Optional[torch.Generator]):
+        """One TRAIN step (``roots`` / ``rows`` [B, T]): its inputs and one
+        fresh dropedge seed written into the static buffers, then
+        :meth:`_static_train`, replayed from a CUDA graph on a graphed
+        Trainer.  ``generator`` / ``sampler``: the pass's dropout and
+        sampler generators (``StepGraphs.dropout`` / ``sampling``).
+        Returns (loss, predictions), copied out, and the overflow."""
         seed = rng.dropedge_seed() if self.model_cfg.dropedge > 0.0 else 0
-        key = ("train", mode, rows.shape[0])
-        buf = self.step_graphs.inputs(key, rows=rows, labels=labels, w=w, seed=seed)
-        loss, pred, _ = self.step_graphs.run(
+        key = ("train", mode, roots.shape[0], self._cache_sig(mode))
+        buf = self.step_graphs.inputs(key, roots=roots, rows=rows, labels=labels,
+                                      w=w, seed=seed)
+        loss, pred, _, ovf = self.step_graphs.run(
             key, self._graph_deps(mode, True),
-            lambda: self._static_train(mode, buf, generator))
-        return loss.clone(), pred.clone()
+            lambda: self._static_train(mode, buf, generator, sampler))
+        return loss.clone(), pred.clone(), ovf.clone()
 
-    def _cached_eval_step(self, mode: int, rows, labels, w, mode_train: bool):
-        """One evaluation step of a cached batch through
-        :meth:`_static_eval` (replayed on a graphed Trainer): (loss,
-        probabilities, per-branch embeddings), copied out."""
-        key = ("eval", mode, mode_train, rows.shape[0])
-        buf = self.step_graphs.inputs(key, rows=rows, labels=labels, w=w)
-        loss, probs, embs = self.step_graphs.run(
+    def _graph_eval_step(self, mode: int, roots, rows, labels, w, mode_train: bool,
+                         sampler: Optional[torch.Generator]):
+        """One evaluation step through :meth:`_static_eval` (replayed on a
+        graphed Trainer): (loss, probabilities, per-branch embeddings, the
+        overflow), copied out."""
+        key = ("eval", mode, mode_train, roots.shape[0], self._cache_sig(mode))
+        buf = self.step_graphs.inputs(key, roots=roots, rows=rows, labels=labels, w=w)
+        loss, probs, embs, ovf = self.step_graphs.run(
             key, self._graph_deps(mode, False),
-            lambda: self._static_eval(mode, buf, mode_train))
-        return loss.clone(), probs.clone(), [e.clone() for e in embs]
+            lambda: self._static_eval(mode, buf, mode_train, sampler))
+        return loss.clone(), probs.clone(), [e.clone() for e in embs], ovf.clone()
 
     def _batches(self, mode: int, nb: int, roots, rows,
                  generator: Optional[torch.Generator]):
         """Yield (row slice, branch batches, feature blocks) of each of
-        ``nb`` batches of ``mode``, eagerly, one batch at a time."""
+        ``nb`` batches of ``mode``, eagerly, one batch at a time (the
+        first-epoch profile and the cost count)."""
         b, dev = self.batch_size, self.device
         roots_d = torch.as_tensor(roots.astype(np.int64), device=dev)
         rows_d = torch.as_tensor(rows.astype(np.int64), device=dev)
@@ -898,42 +927,41 @@ class Trainer:
                     mode, roots_d[sl], rows_d[sl], generator)
             yield sl, batches, feats
 
+    def _epoch_tensors(self, roots, rows, labels, w):
+        """The epoch arrays on the device: roots and rows [M, T] int64,
+        labels (f32 where they are 2-D, else int64) and weights."""
+        dev = self.device
+        return (torch.as_tensor(roots.astype(np.int64), device=dev),
+                torch.as_tensor(rows.astype(np.int64), device=dev),
+                torch.as_tensor(labels.astype(np.float32 if labels.ndim > 1
+                                              else np.int64), device=dev),
+                torch.as_tensor(w, device=dev))
+
     def _run_batches(self, mode: int, train: bool, nb: int, roots, rows,
                      labels, w, rng: EpochRNG):
-        """One pass over ``nb`` batches.  Returns per-batch losses [nb],
-        predictions [nb * B, C] (numpy) and the induction overflow."""
-        dev = self.device
-        lab_d = torch.as_tensor(labels.astype(np.float32 if labels.ndim > 1
-                                              else np.int64), device=dev)
-        w_d = torch.as_tensor(w, device=dev)
+        """One pass over ``nb`` batches, each through the step graphs.
+        Returns per-batch losses [nb], predictions [nb * B, C] (numpy)
+        and the induction overflow, summed on the device (a 0-d int64
+        tensor)."""
+        roots_d, rows_d, lab_d, w_d = self._epoch_tensors(roots, rows, labels, w)
         self.model.train(train)
-        losses, preds, ovf = [], [], 0
-        if self._cached(mode):
-            b = self.batch_size
-            rows_d = torch.as_tensor(rows[:, 0].astype(np.int64), device=dev)
-            with self.step_graphs.dropout(rng.dropout) as gen:
-                for i in range(nb):
-                    sl = slice(i * b, (i + 1) * b)
-                    if train:
-                        loss, pred = self._cached_train_step(
-                            mode, rows_d[sl], lab_d[sl], w_d[sl], rng, gen)
-                    else:
-                        loss, pred, _ = self._cached_eval_step(
-                            mode, rows_d[sl], lab_d[sl], w_d[sl], mode == TRAIN)
-                    losses.append(loss)
-                    preds.append(pred)
-        else:
-            for sl, batches, feats in self._batches(mode, nb, roots, rows,
-                                                    rng.sample):
-                ovf += sum(bt.overflow for bt in batches)
+        losses, preds = [], []
+        ovf = no_overflow(self.device)
+        b, sg = self.batch_size, self.step_graphs
+        with sg.dropout(rng.dropout) as gen, sg.sampling(rng.sample) as sampler:
+            for i in range(nb):
+                sl = slice(i * b, (i + 1) * b)
                 if train:
-                    loss, pred = self._train_step(batches, feats, lab_d[sl],
-                                                  w_d[sl], rng)
+                    loss, pred, o = self._graph_train_step(
+                        mode, roots_d[sl], rows_d[sl], lab_d[sl], w_d[sl], rng, gen,
+                        sampler)
                 else:
-                    loss, pred = self._eval_step(batches, feats, lab_d[sl], w_d[sl],
-                                                 mode_train=mode == TRAIN)
+                    loss, pred, _, o = self._graph_eval_step(
+                        mode, roots_d[sl], rows_d[sl], lab_d[sl], w_d[sl],
+                        mode == TRAIN, sampler)
                 losses.append(loss)
                 preds.append(pred)
+                ovf += o
         self.model.eval()
         return (torch.stack(losses).cpu().numpy(), torch.cat(preds).cpu().numpy(),
                 ovf)
@@ -965,8 +993,8 @@ class Trainer:
         (every rank passes the same): this rank runs its contiguous share
         of each batch's columns.  Returns the global per-batch losses
         [nb], the global predictions [nb * B, C] (numpy, rank order) and
-        the summed overflow; a TRAIN pass then checks that the
-        parameters are bit-equal across ranks."""
+        the summed overflow (a 0-d int64 tensor); a TRAIN pass then
+        checks that the parameters are bit-equal across ranks."""
         from shadow_gnn_torch.parallel import multihost as mh
         step = self._partition_step(mode, train)
         b, dev = self.batch_size, self.device
@@ -1041,6 +1069,7 @@ class Trainer:
                     mode, train, nb, roots, rows, labels_np, w_np,
                     EpochRNG.from_seed(seed, self.device))
             t1 = time.time()
+        ovf = int(ovf)                  # the epoch's one read of it
         if ovf > 0:
             print(f"[WARN] induction candidate overflow: {ovf} edges "
                   f"dropped this epoch (raise cand_cap)")
@@ -1105,8 +1134,9 @@ class Trainer:
 
     def inference(self, modes=(VALID, TEST)) -> str:
         """One evaluation pass of each mode with the loaded model,
-        sampling every batch (reference main.py:204-211); logs the final
-        stats and returns the ``FINAL SUMMARY:`` line."""
+        sampling every batch inside its step graphs (reference
+        main.py:204-211); logs the final stats and returns the ``FINAL
+        SUMMARY:`` line."""
         for md in modes:
             self.disable_cache(md)
             stats = self.run_epoch(0, md, status="final")
@@ -1123,8 +1153,8 @@ class Trainer:
                 "run_epoch / inference")
 
     def _full_pass(self, modes, embed: bool) -> List[torch.Tensor]:
-        """Every node of each mode's node set through the evaluation path
-        (a mode's cache where one is built, else sampling), in node-set
+        """Every node of each mode's node set through the eval step (a
+        branch's cache where one is built, else sampling), in node-set
         order, the khop picks from a generator seeded with
         ``SERVE_SEED``: two calls give the same matrices.  Returns, on the
         device, [probabilities [num_nodes, C]] or, with ``embed``, the
@@ -1144,37 +1174,19 @@ class Trainer:
             n_valid = int((w > 0).sum())           # the padding rows come last
             ids = torch.as_tensor(roots[:n_valid, 0].astype(np.int64),
                                   device=self.device)
-            with torch.inference_mode():
-                for sl, probs, embs in self._eval_outputs(md, nb, roots, rows,
-                                                          labels, w, gen):
+            roots_d, rows_d, lab_d, w_d = self._epoch_tensors(roots, rows, labels, w)
+            b = self.batch_size
+            with torch.inference_mode(), self.step_graphs.sampling(gen) as sampler:
+                for i in range(nb):
+                    sl = slice(i * b, (i + 1) * b)
+                    _, probs, embs, _ = self._graph_eval_step(
+                        md, roots_d[sl], rows_d[sl], lab_d[sl], w_d[sl], md == TRAIN,
+                        sampler)
                     res = embs if embed else [probs]
                     hi = min(sl.stop, n_valid)
                     for o, r in zip(out, res):
                         o[ids[sl.start:hi]] = r[:hi - sl.start]
         return out
-
-    def _eval_outputs(self, mode: int, nb: int, roots, rows, labels, w,
-                      generator: torch.Generator):
-        """Yield (row slice, probabilities, per-branch embeddings) of each
-        of ``nb`` evaluation batches of ``mode``: the cached eval step
-        (its graph) where the mode is cached, else the sampled batch's
-        forward (the khop picks from ``generator``)."""
-        mode_train = mode == TRAIN
-        if not self._cached(mode):
-            for sl, batches, feats in self._batches(mode, nb, roots, rows, generator):
-                logits, embs = self.model(batches, feats, mode_train=mode_train)
-                yield sl, predict_fn(self.model_cfg, logits), embs
-            return
-        b, dev = self.batch_size, self.device
-        rows_d = torch.as_tensor(rows[:, 0].astype(np.int64), device=dev)
-        lab_d = torch.as_tensor(labels.astype(np.float32 if labels.ndim > 1
-                                              else np.int64), device=dev)
-        w_d = torch.as_tensor(w, device=dev)
-        for i in range(nb):
-            sl = slice(i * b, (i + 1) * b)
-            _, probs, embs = self._cached_eval_step(mode, rows_d[sl], lab_d[sl],
-                                                    w_d[sl], mode_train)
-            yield sl, probs, embs
 
     def predict_full(self, modes=(TRAIN, VALID, TEST)) -> np.ndarray:
         """Full-graph prediction matrix pred_mat[node id] = probabilities
@@ -1228,22 +1240,17 @@ class Trainer:
         if cap > n:
             ids = np.concatenate([ids, np.full(cap - n, ids[0])])
             rows = np.concatenate([rows, np.full(cap - n, rows[0])])
-        if self._cached(mode):
-            # the bucket's serve step (its graph)
-            key = ("serve", mode, cap)
-            buf = self.step_graphs.inputs(key, rows=torch.from_numpy(rows))
-            probs, embs = self.step_graphs.run(key, self._graph_deps(mode, False),
-                                               lambda: self._static_serve(mode, buf))
-            return probs[:n].cpu().numpy(), embs[:, :n].cpu().numpy()
-        with torch.inference_mode():
-            batches, feats = self._sample_branch_batches(
-                mode, torch.as_tensor(ids[:, None], device=self.device),
-                torch.as_tensor(rows[:, None], device=self.device),
-                torch.Generator(device=self.device).manual_seed(SERVE_SEED))
-            logits, emb_ens = self.model(batches, feats)
-            probs = predict_fn(self.model_cfg, logits)[:n].cpu().numpy()
-            embs = torch.stack(emb_ens)[:, :n].cpu().numpy()
-        return probs, embs
+        # the bucket's serve step (its graph); a sampled branch's picks
+        # from a generator seeded with SERVE_SEED on every request
+        key = ("serve", mode, cap, self._cache_sig(mode))
+        buf = self.step_graphs.inputs(key, roots=torch.from_numpy(ids[:, None]),
+                                      rows=torch.from_numpy(rows[:, None]))
+        gen = torch.Generator(device=self.device).manual_seed(SERVE_SEED)
+        with self.step_graphs.sampling(gen) as sampler:
+            probs, embs = self.step_graphs.run(
+                key, self._graph_deps(mode, False),
+                lambda: self._static_serve(mode, buf, sampler))
+        return probs[:n].cpu().numpy(), embs[:, :n].cpu().numpy()
 
     def predict_nodes(self, ids, mode: int = TEST) -> np.ndarray:
         """Point-query serving: class probabilities [len(ids), C] for node
