@@ -255,7 +255,26 @@ Phases, each fatal on failure (an uncaught exception, non-zero exit):
              weights; then step ms a rank, the collectives' share of a
              timed window (gloo's host staging apart), rank 0's
              device-busy share and each rank's peak memory, one summary
-             line a run and partition (the ranks' own lines in the log);
+             line a run and partition (the ranks' own lines in the log).
+             On an NCCL run (the group whose collectives a CUDA graph
+             holds) each rank also builds an eager twin
+             (``cuda_graphs=False``) beside its graphed trainer: the
+             epoch's per-step losses and predictions, the overflow,
+             every kernel's launches, the collectives' calls and bytes,
+             the parameters and Adam state, then the VALID pass, held
+             bit for bit (``GRAPH_TOLS`` where not, printed), every
+             TRAIN and VALID step but its key's first replayed; then 2
+             rounds of eager, graphed, graphed, eager windows of 8 steps,
+             and one window each under torch.profiler: step ms a rank,
+             device-busy share, host CUDA calls and NCCL kernels' share
+             of the device time a step.  A gloo run stays eager and says
+             so (its ranks' plans).  A rank whose partition runs longer
+             than ``PARALLEL_HANG_S`` dumps every thread's stack into its
+             log and exits; the ranks' logs reach the full log also when
+             a run fails.  With ``--parallel-nccl4`` a teardown check
+             runs first: 4 NCCL ranks capture and replay a key of
+             collectives and must leave the group (graphs destroyed
+             first);
 17. graphs  — the compiled step (``shadow_gnn_torch/train/graphs.py``),
              run after phase 7 for the flagship f32 and at bf16
              precision and after phase 11 for the GAT-5 f32 (each at its
@@ -298,7 +317,9 @@ Phases, each fatal on failure (an uncaught exception, non-zero exit):
              predictions, the epoch's overflow, every kernel's launches),
              parameters, Adam state and requests held bit for bit
              (``GRAPH_TOLS`` where not, printed), every sampled key
-             replayed after its first call; then steps (2 rounds of
+             replayed after its first call (in ``power`` and
+             ``ensemble`` the first-epoch profile too, its stats equal);
+             then steps (2 rounds of
              eager, graphed, graphed, eager windows of 8) and requests
              timed in turns, with the device-busy share and host CUDA
              calls a step; ``SAMPLED_BUDGET_S`` for the four parts;
@@ -322,6 +343,7 @@ size.  The last three lines are the card's name and power limit
 repository around it, the script exits non-zero and prints no result.
 """
 import contextlib
+import faulthandler
 import json
 import os
 import subprocess
@@ -3427,7 +3449,9 @@ def _graph_twin(kind, g, data_dir, cuda_graphs):
 
 def _counter_names(counters):
     from shadow_gnn_torch.ops import packed
-    return [f"{'packed_spmm' if h is packed.packed_spmm.launches_by_norm else 'packed_spmm_t'}"
+    from shadow_gnn_torch.parallel import collectives
+    return [f"collectives.{n}" if h is collectives.stats else
+            f"{'packed_spmm' if h is packed.packed_spmm.launches_by_norm else 'packed_spmm_t'}"
             f"_{n}" if isinstance(h, dict) else f"{h.__name__}.{n}" for h, n in counters]
 
 
@@ -3903,6 +3927,35 @@ def _sampled_passes(tr, kind):
                     zip(_counter_names(counters), after, before) if a != b}
 
 
+def _twin_profile(tag, eager, graphed):
+    """The first-epoch profile of TRAIN (``Trainer._profile_epoch``) on both
+    twins: the graphed one's stats (hop composition, nodes, edges,
+    subgraphs) equal to the eager one's, every batch but its key's first
+    replayed.  Returns the replays."""
+    import numpy as np
+    from shadow_gnn_torch import TRAIN
+    stats = []
+    for tr in (eager, graphed):
+        p = tr.profiler
+        p.clear_metrics()
+        tr._ensure_tables(TRAIN)
+        tr._ensure_caches(TRAIN)
+        tr._profile_epoch(TRAIN)
+        stats.append((np.asarray(p.hop_comp), p.num_nodes, p.num_edges, p.num_subg))
+        p.clear_metrics()
+        p.enabled = False
+    key = ("profile", TRAIN, graphed.batch_size, graphed._cache_sig(TRAIN))
+    nb = -(-len(graphed.entity_set[TRAIN]) // graphed.batch_size)
+    same = all(np.array_equal(a, b) for a, b in zip(*stats))
+    if not same or graphed.step_graphs.replays[key] != nb - 1:
+        raise AssertionError(f"{tag} profile: stats eager {stats[0]}, graphed "
+                             f"{stats[1]}; {key} replayed "
+                             f"{graphed.step_graphs.replays[key]} of {nb}")
+    _detail(f"{tag} first-epoch profile graphed = eager: avg nodes "
+            f"{stats[1][1][0] / stats[1][3][0]:.1f} over {stats[1][3][0]} subgraphs")
+    return nb - 1
+
+
 def phase_sampled(kind, g, src):
     """[sampled graphs] for one path: an eager twin (``cuda_graphs=False``)
     and a graphed trainer from one seed, both on ``src``'s PPR tables:
@@ -3928,6 +3981,8 @@ def phase_sampled(kind, g, src):
     if kind == "gat":
         # GAT-5's label smoothening sums with atomics: one feature table
         graphed.feat_tab.copy_(eager.feat_tab)
+    # the first-epoch profile's graph (sampled TRAIN branches)
+    prof = _twin_profile(tag, eager, graphed) if kind in ("power", "ensemble") else 0
     (p_e, l_e), (p_g, l_g) = (_sampled_passes(tr, kind) for tr in (eager, graphed))
     _SAMPLED["bfs_launches"] += l_g.get("bfs_hops_multi.launches", 0)
     ovf = {w: (oe, og) for (w, _, _, oe), (_, _, _, og) in zip(p_e, p_g)}
@@ -3981,7 +4036,8 @@ def phase_sampled(kind, g, src):
     print(f"{tag} graphed = eager "
           + ("bit for bit" if exact else
              "within " + ", ".join(f"{k} {v:.1e}" for k, v in errs.items()))
-          + f", overflow {sum(o for _, o in ovf.values())}; {timing}")
+          + f", overflow {sum(o for _, o in ovf.values())}"
+          + (f", profile = eager ({prof} replays)" if prof else "") + f"; {timing}")
     _detail(f"{tag} graphs: {sg.summary()}; launches over the passes {l_g}")
     del eager, graphed
     torch.cuda.empty_cache()
@@ -3989,8 +4045,10 @@ def phase_sampled(kind, g, src):
 
 PARALLEL_RUNS = (("nccl", 1, "cuda"), ("gloo", 4, "cuda:0"))
 PARALLEL_WINDOW = 8             # steps of each timed window
+PARALLEL_ROUNDS = 2             # rounds of eager, graphed, graphed, eager windows
 PARALLEL_TIMEOUT_S = 300        # a rank's group fails a collective waiting longer
-PARALLEL_BUDGET_S = 240         # the phase aims at 120 s
+PARALLEL_HANG_S = 150           # a rank's partition that takes longer dumps its stacks
+PARALLEL_BUDGET_S = 360         # the phase aims at 240 s
 # kind -> (partitions of the NCCL run, of the gloo run), the kernels that
 # every rank of a run must launch, the splits' cuts
 PARALLEL_MODELS = {
@@ -4008,7 +4066,7 @@ def _parallel_cfg(kind):
     return cfg
 
 
-def _parallel_trainer(spec, g, device, partition="none"):
+def _parallel_trainer(spec, g, device, partition="none", cuda_graphs=True):
     """A trainer of ``spec`` on ``g`` (its PPR cache in ``spec["dir"]``),
     the splits cut, the profile off.  A rank's trainer takes the
     reference's feature table (``spec["feat"]``): the label smoothening
@@ -4022,7 +4080,7 @@ def _parallel_trainer(spec, g, device, partition="none"):
     from shadow_gnn_torch.train.pipeline import Trainer
     tr = Trainer(spec["name"], spec["dir"], _own_splits(g), parse_config(spec["cfg"]),
                  seed=0, device=device, packed_adj=spec["packed"],
-                 use_device_ppr=False, partition=partition)
+                 use_device_ppr=False, partition=partition, cuda_graphs=cuda_graphs)
     _cut_splits(tr, zip((TRAIN, VALID, TEST), spec["cuts"]))
     tr.profiler.enabled = False
     if partition == "none":
@@ -4044,32 +4102,66 @@ def _sync(dev):
         torch.cuda.synchronize(dev)
 
 
-def _busy_ms(dev, fn):
-    """Run ``fn()``; its device-busy ms (torch.profiler's kernel
-    events), or None where the profiler sees no device time (or runs on
-    the CPU)."""
+def _rank_profile(dev, fn, n):
+    """Run ``fn()`` (``n`` steps) under torch.profiler: (device-busy ms,
+    host CUDA calls, the NCCL kernels' share of the busy time) a step;
+    Nones where the profiler sees no device time (or on the CPU).  The
+    collectives' share comes from here on a graphed Trainer, where
+    ``collectives.timing`` cannot run."""
     if dev.type != "cuda":
         fn()
-        return None
+        return None, None, None
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
     _sync(dev)
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         fn()
         _sync(dev)
-    us = sum(e.time_range.elapsed_us() for e in prof.events()
-             if e.device_type == DeviceType.CUDA and not e.is_user_annotation)
-    return us / 1e3 if us else None
+    kern = [e for e in prof.events()
+            if e.device_type == DeviceType.CUDA and not e.is_user_annotation]
+    api = [e for e in prof.events()
+           if e.device_type == DeviceType.CPU and e.name.startswith("cuda")]
+    us = sum(e.time_range.elapsed_us() for e in kern)
+    nccl = sum(e.time_range.elapsed_us() for e in kern if "nccl" in e.name.lower())
+    return (us / 1e3 / n or None), len(api) / n, (nccl / us if us else None)
+
+
+def _partition_passes(tr, fn):
+    """Run ``fn()`` with every ``_run_partition`` pass of ``tr`` recorded:
+    (its result, the passes as (what, losses, predictions, overflow))."""
+    from shadow_gnn_torch import MODE2STR
+    passes, run = [], tr._run_partition
+
+    def recorded(mode, train, *args):
+        out = run(mode, train, *args)
+        passes.append((MODE2STR[mode].upper(), out[0], out[1], int(out[2])))
+        return out
+
+    tr._run_partition = recorded
+    try:
+        return fn(), passes
+    finally:
+        del tr._run_partition
 
 
 def _parallel_rank(spec):
-    """One rank of a [parallel] run: for each partition of ``spec`` a
-    trainer (the PPR tables from the parent's cache), the start weights,
-    then batch 0's induced blocks (``edge``), the first TRAIN step (its
-    loss, gradients and parameters), the rest of the epoch (step ms, the
-    kernel launches), a window with the collectives timed, a window under
-    torch.profiler (rank 0), the replicas' checksum, one VALID epoch;
-    writes ``<tag>.<partition>.rank<r>.npz`` / ``.json`` and logs to
+    """One rank of a [parallel] run, for each partition of ``spec``: a
+    graphed trainer and, where its graphs are on (an NCCL group), an
+    eager twin (``cuda_graphs=False``), both from the start weights (the
+    PPR tables from the parent's cache).  Batch 0's induced blocks
+    (``edge``); the TRAIN epoch on each, the first step apart (its loss,
+    gradients and parameters from the eager twin: the rank's path of PR
+    12), with step ms, every kernel's launches and the collectives' calls
+    and bytes; the twins held bit for bit (``_twin_check``: per-step
+    losses and predictions, parameters, Adam state; the overflow, the
+    launches and the collectives' counts equal) and every TRAIN step of
+    the graphed one but its key's first replayed.  Then in turns
+    ``PARALLEL_ROUNDS`` rounds of eager, graphed, graphed, eager windows,
+    the eager twin's collectives timed over one more (both run it), and
+    one window each under torch.profiler (device-busy share, host CUDA
+    calls, NCCL's share); the replicas' checksum and one VALID epoch on
+    each twin, held again, every VALID step but the first replayed.
+    Writes ``<tag>.<partition>.rank<r>.npz`` / ``.json`` and logs to
     ``<tag>.rank<r>.log`` in ``spec["dir"]``."""
     import pickle
     import numpy as np
@@ -4077,6 +4169,7 @@ def _parallel_rank(spec):
     from shadow_gnn_torch import TRAIN, VALID
     from shadow_gnn_torch.parallel import collectives as cc
     from shadow_gnn_torch.parallel import multihost as mh
+    from shadow_gnn_torch.train import graphs
     r, dev = mh.rank(), mh.device()
     base = os.path.join(spec["dir"], spec["tag"])
     sys.stdout = open(f"{base}.rank{r}.log", "w", buffering=1)
@@ -4084,84 +4177,168 @@ def _parallel_rank(spec):
     with open(spec["graph"], "rb") as f:
         g = pickle.load(f)
     fns = _kernel_fns(spec["kernels"])
+    counters = graphs.launch_counters()
+    start = torch.load(spec["state"], map_location=dev)
     for part in spec["partitions"]:
+        # a partition that hangs dumps every thread's stack into the log,
+        # and the rank exits (the parent's spawn then fails)
+        faulthandler.dump_traceback_later(PARALLEL_HANG_S, exit=True, file=sys.stdout)
         t_run = time.perf_counter()
+        tag = f"[parallel {spec['tag']} {part} rank {r}]"
         if dev.type == "cuda":
             torch.cuda.reset_peak_memory_stats(dev)
-        tr = _parallel_trainer(spec, g, dev, part)
-        tr.model.load_state_dict(torch.load(spec["state"], map_location=dev))
-        tr._ensure_tables(TRAIN)
-        tr._ensure_caches(TRAIN)
-        nb, roots, rows, labels, w = tr._epoch_arrays(TRAIN)
-        seed = int(tr.rng_np.integers(1 << 31))
-        b, sl = tr.batch_size, mh.process_slice(tr.batch_size)
-        out, arrays = {"partition": part}, {}
+        graphed = _parallel_trainer(spec, g, dev, part)
+        twins = graphed.step_graphs.enabled
+        trs = ([_parallel_trainer(spec, g, dev, part, cuda_graphs=False)]
+               if twins else []) + [graphed]
+        eager = trs[0]
+        arrays = {}
+        for tr in trs:
+            tr.model.load_state_dict(start)
+            tr._ensure_tables(TRAIN)
+            tr._ensure_caches(TRAIN)
+            nb, *ea = tr._epoch_arrays(TRAIN)
+            arrays[id(tr)] = (*ea, int(tr.rng_np.integers(1 << 31)))
+        b, sl = eager.batch_size, mh.process_slice(eager.batch_size)
+        out, npz = {"partition": part, "twins": twins, "plan": graphed._graph_plan()}, {}
+        print(f"{part}: {out['plan']}")
         if part == "edge":
-            step = tr._partition_step(TRAIN, True)
+            roots, rows = arrays[id(eager)][:2]
             with torch.no_grad():
-                batches, _ = step.sample_all(
+                batches, _ = eager._partition_step(TRAIN, True).sample_all(
                     torch.as_tensor(roots[sl].astype(np.int64), device=dev),
                     torch.as_tensor(rows[sl].astype(np.int64), device=dev),
                     torch.Generator(device=dev).manual_seed(0))
             for k in ("nodes", "adj", "hop"):
-                arrays[f"block_{k}"] = getattr(batches[0], k).cpu().numpy()
-        for fn in fns:
-            fn.launches = 0
+                npz[f"block_{k}"] = getattr(batches[0], k).cpu().numpy()
 
-        def run(lo, n):
-            return tr._run_partition(TRAIN, True, n, roots[lo * b:(lo + n) * b],
-                                     rows[lo * b:(lo + n) * b],
-                                     labels[lo * b:(lo + n) * b],
-                                     w[lo * b:(lo + n) * b], seed)
-        losses, _, _ = run(0, 1)
-        out["loss0"] = float(losses[0])
-        if r == 0:
-            for k, p in tr.model.named_parameters():
-                arrays[f"grad/{k}"] = p.grad.cpu().numpy().copy()
-            for k, v in tr.model.state_dict().items():
-                arrays[f"param1/{k}"] = v.cpu().numpy().copy()
-        _sync(dev)
-        t0 = time.perf_counter()
-        run(1, nb - 1)
-        _sync(dev)
-        out["step_ms"] = (time.perf_counter() - t0) * 1e3 / max(nb - 1, 1)
-        out["launches"] = [fn.launches for fn in fns]
+        def run(tr, lo, n, seed=None):
+            roots, rows, labels, w, s = arrays[id(tr)]
+            cut = slice(lo * b, (lo + n) * b)
+            return tr._run_partition(TRAIN, True, n, roots[cut], rows[cut], labels[cut],
+                                     w[cut], s if seed is None else seed)
+
+        epoch = {}
+        for tr in trs:
+            for fn in fns:
+                fn.launches = 0
+            before = graphs.counter_values(counters)
+            first = run(tr, 0, 1)
+            if tr is eager:
+                out["loss0"] = float(first[0][0])
+                if r == 0:
+                    for k, p in tr.model.named_parameters():
+                        npz[f"grad/{k}"] = p.grad.cpu().numpy().copy()
+                    for k, v in tr.model.state_dict().items():
+                        npz[f"param1/{k}"] = v.cpu().numpy().copy()
+            _sync(dev)
+            t0 = time.perf_counter()
+            rest = run(tr, 1, nb - 1)
+            _sync(dev)
+            after = graphs.counter_values(counters)
+            epoch[id(tr)] = {
+                "step_ms": (time.perf_counter() - t0) * 1e3 / max(nb - 1, 1),
+                "launches": [fn.launches for fn in fns],
+                "pass": ("TRAIN", np.concatenate([first[0], rest[0]]),
+                         np.concatenate([first[1], rest[1]])),
+                "ovf": int(first[2] + rest[2]),
+                "counts": {name: a - c for name, a, c in
+                           zip(_counter_names(counters), after, before) if a != c}}
+        e_ep = epoch[id(eager)]
+        out.update(step_ms=e_ep["step_ms"], launches=e_ep["launches"],
+                   collective_calls=e_ep["counts"].get("collectives.calls", 0) / nb,
+                   collective_mb=e_ep["counts"].get("collectives.bytes", 0) / nb / 2**20)
+        per = sl.stop - sl.start
+        if twins:
+            g_ep = epoch[id(graphed)]
+            if (e_ep["ovf"], e_ep["counts"]) != (g_ep["ovf"], g_ep["counts"]):
+                raise AssertionError(f"{tag} overflow and counts eager {e_ep['ovf']} "
+                                     f"{e_ep['counts']}, graphed {g_ep['ovf']} "
+                                     f"{g_ep['counts']}")
+            key = ("ptrain", TRAIN, per, graphed._partition_step(TRAIN, True).sig())
+            if graphed.step_graphs.replays[key] != nb - 1:
+                raise AssertionError(f"{tag} {key} replayed "
+                                     f"{graphed.step_graphs.replays[key]} of {nb} steps")
+            out["exact"], errs = _twin_check(tag, [e_ep["pass"]], [g_ep["pass"]], eager,
+                                             graphed, True, [])
+            out["errs"] = errs
+            out.update(graphed_ms=g_ep["step_ms"], replays=nb - 1, ovf=g_ep["ovf"],
+                       train_steps=nb)
+            print(f"{part}: epoch graphed = eager, {'bit for bit' if out['exact'] else errs}"
+                  f"; counts {g_ep['counts']}")
+
+        # timed in turns; the eager twin's collectives timed (timing
+        # synchronises, which no graph holds) over a window that both run
         window = min(PARALLEL_WINDOW, nb)
+
+        def win(tr, k):
+            run(tr, (k * window) % (nb - window + 1), window, seed=k)
+
+        times = {id(tr): [] for tr in trs}
+        for k in range(PARALLEL_ROUNDS):
+            for tr in ((eager, graphed, graphed, eager) if twins else (eager,)):
+                _sync(dev)
+                t0 = time.perf_counter()
+                win(tr, k)
+                _sync(dev)
+                times[id(tr)].append((time.perf_counter() - t0) * 1e3 / window)
         cc.reset_stats()
         cc.timing = True
         _sync(dev)
         t0 = time.perf_counter()
-        run(0, window)
+        win(eager, PARALLEL_ROUNDS)
         wall = time.perf_counter() - t0
         cc.timing = False
-        out["window_ms"] = wall * 1e3 / window
         out["collective_share"] = cc.stats["seconds"] / wall
         out["stage_share"] = cc.stats["stage_seconds"] / wall
-        out["collective_calls"] = cc.stats["calls"] / window
-        out["collective_mb"] = cc.stats["bytes"] / window / 2**20
-        # every rank runs the window (its collectives); rank 0 profiles it
-        busy = None
+        if twins:
+            win(graphed, PARALLEL_ROUNDS)
+        out["window_ms"] = [_median(times[id(tr)]) for tr in trs]
+        out["windows"] = [[round(x, 3) for x in times[id(tr)]] for tr in trs]
+        print(f"{part}: windows {out['windows']}")
+        out["checksum"] = graphed.param_checksum().cpu().tolist()
         if r == 0:
-            busy = _busy_ms(dev, lambda: run(0, window))
-        else:
-            run(0, window)
-        out["busy_share"] = (busy / window / out["step_ms"]) if busy else None
-        out["checksum"] = tr.param_checksum().cpu().tolist()
-        if r == 0:
-            torch.save(tr.model.state_dict(), f"{base}.{part}.final.pt")
-        stats = tr.run_epoch(0, VALID)
-        out["valid"] = [stats["loss"], stats["accuracy"]]
+            torch.save(graphed.model.state_dict(), f"{base}.{part}.final.pt")
+        valid = [_partition_passes(tr, lambda tr=tr: tr.run_epoch(0, VALID))
+                 for tr in trs]
+        out["valid"] = [valid[-1][0]["loss"], valid[-1][0]["accuracy"]]
+        if twins:
+            (s_e, p_e), (s_g, p_g) = valid
+            nb_v = len(p_g[0][1])
+            key = ("peval", VALID, per, graphed._partition_step(VALID, False).sig())
+            if (graphed.step_graphs.replays[key] != nb_v - 1
+                    or p_e[0][3] != p_g[0][3] or s_e["accuracy"] != s_g["accuracy"]):
+                raise AssertionError(f"{tag} VALID {key} replayed "
+                                     f"{graphed.step_graphs.replays[key]} of {nb_v} "
+                                     f"steps; overflow {p_e[0][3]} / {p_g[0][3]}; "
+                                     f"accuracy {s_e['accuracy']} / {s_g['accuracy']}")
+            exact, errs = _twin_check(f"{tag} VALID", [p[:3] for p in p_e],
+                                      [p[:3] for p in p_g], eager, graphed, True, [])
+            out["exact"] = out["exact"] and exact
+            out["errs"].update(errs)
+            out["replays"] += nb_v - 1
+            out["valid_steps"] = nb_v
+            out["graphs"] = graphed.step_graphs.summary()
+            print(f"{part}: VALID graphed = eager; {out['graphs']}")
+        # last: one window of each twin under torch.profiler
+        prof = [_rank_profile(dev, lambda tr=tr: win(tr, PARALLEL_ROUNDS + 1), window)
+                for tr in trs]
+        out["busy_share"] = [p[0] / ms if p[0] else None
+                             for p, ms in zip(prof, out["window_ms"])]
+        out["host_calls"] = [p[1] for p in prof]
+        out["nccl_share"] = [p[2] for p in prof]
         out["peak_gib"] = (torch.cuda.max_memory_allocated(dev) / 2**30
                            if dev.type == "cuda" else None)
-        out["dispatches"] = tr.partition_train_dispatches
+        out["dispatches"] = graphed.partition_train_dispatches
         out["run_s"] = time.perf_counter() - t_run
         print(f"{part}: {json.dumps(out)}")
-        np.savez(f"{base}.{part}.rank{r}.npz", **arrays)
+        np.savez(f"{base}.{part}.rank{r}.npz", **npz)
         with open(f"{base}.{part}.rank{r}.json", "w") as f:
             json.dump(out, f)
-        del tr
+        del tr, trs, eager, graphed
         if dev.type == "cuda":
             torch.cuda.empty_cache()
+        faulthandler.cancel_dump_traceback_later()
 
 
 def _parallel_reference(spec, g, device, worlds):
@@ -4304,9 +4481,11 @@ def phase_parallel(g, kind, runs=PARALLEL_RUNS, spec_update=None):
     """[parallel] for one model: the single-card reference in this process,
     then each run of ``runs`` spawned through ``parallel/launch.py`` (the
     CLI's entry; the kernels already built): every partition's first
-    TRAIN step, its launches, the replicas, one VALID epoch.  One summary
-    line a run and partition on standard output, the ranks' logs in the
-    full log."""
+    TRAIN step, its launches, the replicas, one VALID epoch, and on an
+    NCCL run the graphed trainer against its eager twin
+    (``_parallel_rank``); an NCCL rank that does not capture fails the
+    phase.  One summary line a run and partition on standard output, the
+    ranks' logs in the full log."""
     import glob
     import pickle
     import shutil
@@ -4334,13 +4513,17 @@ def phase_parallel(g, kind, runs=PARALLEL_RUNS, spec_update=None):
             parts = nccl_parts if backend == "nccl" or world == 1 else gloo_parts
             tag = f"{kind}.{backend}{world}"
             t0 = time.perf_counter()
-            launch.spawn(_parallel_rank, world, device,
-                         (dict(spec, tag=tag, partitions=parts),), backend=backend,
-                         timeout_s=PARALLEL_TIMEOUT_S)
+            try:
+                launch.spawn(_parallel_rank, world, device,
+                             (dict(spec, tag=tag, partitions=parts),), backend=backend,
+                             timeout_s=PARALLEL_TIMEOUT_S)
+            finally:
+                # the ranks' logs, also those of a failed run
+                for path in sorted(glob.glob(os.path.join(tmp, f"{tag}.rank*.log"))):
+                    with open(path) as f:
+                        _detail(f"[parallel] {os.path.basename(path)}:\n"
+                                f"{f.read().rstrip()}")
             spawn_s = time.perf_counter() - t0
-            for path in sorted(glob.glob(os.path.join(tmp, f"{tag}.rank*.log"))):
-                with open(path) as f:
-                    _detail(f"[parallel] {os.path.basename(path)}:\n{f.read().rstrip()}")
             for part in parts:
                 ranks = []
                 for r in range(world):
@@ -4368,22 +4551,47 @@ def phase_parallel(g, kind, runs=PARALLEL_RUNS, spec_update=None):
                 per = [f"{o['step_ms']:.2f}" for o in ranks]
                 mem = [f"{o['peak_gib']:.2f}" if o["peak_gib"] is not None else "n/a"
                        for o in ranks]
-                busy = ranks[0]["busy_share"]
+                o = ranks[0]
+
+                def pair(key, fmt):
+                    return " / ".join("n/m" if v is None else format(v, fmt)
+                                      for v in o[key])
                 _detail(f"[parallel] {kind} {part} {backend}{world}: "
                         f"{free} bent-step weights held to Adam; first-step "
                         f"gradients {g_whole:.1e} of max from the whole batch's; "
-                        f"launches a rank {[o['launches'] for o in ranks]}; "
-                        f"collectives {ranks[0]['collective_calls']:.0f} calls, "
-                        f"{ranks[0]['collective_mb']:.2f} MiB a step")
-                print(f"[parallel] {kind} {part} {backend}{world}: step 1 loss "
-                      f"{rel:.1e} rel, grads {g_err:.1e}, params {p_err:.1e} of max; "
-                      f"ranks bit-equal; {'/'.join(spec['kernels'])} launches "
-                      f"{ranks[0]['launches']} (rank 0); VALID acc {want['accuracy']:.4f} = "
-                      f"1 card; step ms {'/'.join(per)}; collectives "
-                      f"{ranks[0]['collective_share']:.3f} (gloo staging "
-                      f"{ranks[0]['stage_share']:.3f}); busy "
-                      + (f"{busy:.3f}" if busy is not None else "n/a")
-                      + f"; peak GiB {'/'.join(mem)}; spawn {spawn_s:.1f}s")
+                        f"launches a rank {[x['launches'] for x in ranks]}; "
+                        f"collectives {o['collective_calls']:.0f} calls, "
+                        f"{o['collective_mb']:.2f} MiB a step, their share of an "
+                        f"eager window {o['collective_share']:.3f} (gloo staging "
+                        f"{o['stage_share']:.3f}); epoch step ms a rank {'/'.join(per)}; "
+                        f"windows (eager[, graphed]) {o['windows']}; peak GiB "
+                        f"{'/'.join(mem)}{' (both twins)' if o['twins'] else ''}; "
+                        f"plan: {o['plan']}; {o.get('graphs', '')}; spawn {spawn_s:.1f}s")
+                head = (f"[parallel] {kind} {part} {backend}{world}: step 1 loss "
+                        f"{rel:.1e} rel, grads {g_err:.1e}, params {p_err:.1e}; "
+                        f"{'/'.join(spec['kernels'])} {o['launches']} (rank 0); "
+                        f"VALID acc = 1 card; ")
+                if backend == "nccl" and not all(x["twins"] for x in ranks):
+                    raise AssertionError(f"[parallel {tag}] {part}: an NCCL rank "
+                                         f"runs eagerly: {o['plan']}")
+                if o["twins"]:
+                    same = all(x["exact"] for x in ranks)
+                    print(head + "graphed = eager " + (
+                        "bit for bit" if same else "within GRAPH_TOLS "
+                        + str(max((x["errs"] for x in ranks), key=str)))
+                        + f" ({o['train_steps']}+{o['valid_steps']} steps, "
+                        f"{o['replays']} replays); "
+                        f"step ms e/g {pair('window_ms', '.2f')}, busy "
+                        f"{pair('busy_share', '.2f')}, host calls "
+                        f"{pair('host_calls', '.0f')}, nccl {pair('nccl_share', '.3f')}")
+                else:
+                    if "every step runs eagerly" not in o["plan"]:
+                        raise AssertionError(f"[parallel {tag}] {part}: the plan of "
+                                             f"an ungraphed rank: {o['plan']}")
+                    print(head + f"eager ({backend}: every step); step ms "
+                          f"{'/'.join(f'{x:.2f}' for x in (y['window_ms'][0] for y in ranks))}"
+                          f", collectives {o['collective_share']:.3f} (staging "
+                          f"{o['stage_share']:.3f}), busy {pair('busy_share', '.2f')}")
         del tr_ref, ref
         if dev.type == "cuda":
             torch.cuda.empty_cache()
@@ -4392,6 +4600,46 @@ def phase_parallel(g, kind, runs=PARALLEL_RUNS, spec_update=None):
     wall = time.perf_counter() - t_phase
     print(f"[parallel] {kind} phase {wall:.1f}s")
     return wall
+
+
+def _teardown_rank():
+    """One rank of ``phase_parallel_teardown``: a key of the partitioned
+    steps' collectives (all-gather, asynchronous reduce-scatter,
+    all-reduce) warmed up, captured and replayed through ``StepGraphs``.
+    Returns whether it replayed 3 times, equal to the warm-up; the rank
+    then leaves the group (``multihost.shutdown``, ``parallel/launch.py``)."""
+    import torch
+    from shadow_gnn_torch.parallel import collectives as cc
+    from shadow_gnn_torch.parallel import multihost as mh
+    from shadow_gnn_torch.train.graphs import StepGraphs
+    dev = mh.device()
+    sg = StepGraphs(dev, True)
+    x = torch.arange(65536.0, device=dev) + mh.rank()
+    g = torch.ones(1 << 19, device=dev)
+
+    def step():
+        out = cc.all_gather(x * 2)
+        rs = cc.reduce_scatter_sum(out + 1, async_op=True)
+        y = g.sum()
+        return cc.all_reduce_sum(torch.cat([rs.wait(), g]))[:8] + y
+
+    outs = [sg.run(("teardown",), (), step).clone() for _ in range(4)]
+    _sync(dev)
+    return sg.replays[("teardown",)] == 3 and all(torch.equal(outs[0], o) for o in outs)
+
+
+def phase_parallel_teardown(world, device="cuda"):
+    """[parallel teardown]: ``world`` ranks, one a card, capture and replay
+    a key of collectives, then leave the group.  An NCCL communicator
+    waits, on destruction, for every graph that holds its collectives: a
+    rank that did not destroy its graphs first would never return."""
+    from shadow_gnn_torch.parallel import launch
+    t0 = time.perf_counter()
+    if not launch.spawn(_teardown_rank, world, device, timeout_s=PARALLEL_TIMEOUT_S):
+        raise AssertionError("[parallel teardown] the key did not replay equal")
+    print(f"[parallel teardown] world {world}: a captured key of collectives "
+          f"replayed equal and the ranks left the group in "
+          f"{time.perf_counter() - t0:.1f}s")
 
 
 def main():
@@ -4427,6 +4675,7 @@ def _run(here):
     if "--parallel-nccl4" in sys.argv[1:]:
         # the partitioned runs across four cards, one rank a card
         runs = (("nccl", 4, "cuda"),)
+        phase_parallel_teardown(4)
         t = phase_parallel(_flickr_graph(), "flagship", runs)
         t += phase_parallel(_products_graph(), "gat", runs)
         print(f"[chip_smoke] [parallel] at NCCL world 4 passed in {t:.1f}s")

@@ -63,7 +63,8 @@ from shadow_gnn_torch.nn.respool import EnsembleAggregator, ResPool
 from shadow_gnn_torch.ops.normalize import ADJ_FREE, prepare_adj
 from shadow_gnn_torch.ops.packed import packed_spmm
 from shadow_gnn_torch.ops.precision import PRECISIONS, ROUNDED_PRECISIONS, matmul
-from shadow_gnn_torch.sampling.batch import AUG2DIM, SubgraphBatch, batch_aug_onehots
+from shadow_gnn_torch.sampling.batch import (AUG2DIM, SubgraphBatch, batch_aug_onehots,
+                                             one_hot)
 
 
 @dataclasses.dataclass(frozen=True)
@@ -291,8 +292,7 @@ class DeepGNN(nn.Module):
         x = (feat * mask.to(feat.dtype)).to(self.cfg.dtype)
         d_lab = self.cfg.dim_label_smooth
         if d_lab > 0 and mode_train:
-            keep = 1.0 - torch.nn.functional.one_hot(
-                batch.targets, x.shape[1]).sum(1).float()          # [B, N]
+            keep = 1.0 - one_hot(batch.targets, x.shape[1]).sum(1)  # [B, N]
             label_cols = torch.arange(x.shape[-1], device=x.device) >= (
                 x.shape[-1] - d_lab)
             x = torch.where(label_cols, x * keep[..., None], x)

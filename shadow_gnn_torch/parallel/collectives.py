@@ -26,6 +26,15 @@ passes CUDA tensors straight through.  Bool tensors travel as uint8.
 their seconds and those of the gloo staging.  Timing synchronises the
 card before and after each call (otherwise a call's host time is its
 enqueue only), so it is off unless a measurement asks for it.
+
+An NCCL group's calls are captured in the CUDA graphs of the
+partitioned steps (``train/graphs.py``): the collective runs on NCCL's
+stream, joined to the capturing stream before and after, and an
+asynchronous call's ``wait`` is that join, not a host wait.  A replay
+runs no Python, so the graphs take a capture's calls and bytes and
+credit them on each replay (``graphs.launch_counters``).  ``timing``
+cannot be captured (:func:`refuse_timing`), and gloo's staging through
+host memory neither: a gloo group's steps run eagerly.
 """
 from __future__ import annotations
 
@@ -44,6 +53,17 @@ stats = {"calls": 0, "bytes": 0, "seconds": 0.0, "stage_seconds": 0.0}
 
 def reset_stats():
     stats.update(calls=0, bytes=0, seconds=0.0, stage_seconds=0.0)
+
+
+def refuse_timing(what: str):
+    """Raise while ``timing`` is on: its synchronisations cannot be held
+    by the CUDA graph of ``what``."""
+    if timing:
+        raise RuntimeError(
+            f"collectives.timing synchronises the card around each call, which "
+            f"the CUDA graph of {what} cannot hold: time the collectives on an "
+            "eager Trainer (cuda_graphs=False), or read NCCL's share of the "
+            "device time from torch.profiler")
 
 
 def _sync(t: torch.Tensor):

@@ -12,7 +12,11 @@ each rank's SAGE / GCN / GIN aggregations launch the packed kernels
 JAX normalises the loss over the global batch through GSPMD and one
 jitted (or epoch-scanned) program over a ``('dp',)`` mesh; that is the
 loss of ``parallel/partition.py``, which this step reuses.  There is no
-mesh and no program here: each rank runs its columns eagerly.
+mesh here: each rank runs its columns, in a CUDA graph with its
+collectives where the group is NCCL (``train/graphs.py``).  A cached
+branch gathers and any other samples, so the step's key carries the
+Trainer's cache signature: a cached and a sampled form never share a
+graph.
 """
 from __future__ import annotations
 
@@ -20,11 +24,11 @@ from shadow_gnn_torch.parallel.partition import make_step
 
 
 def make_dp_train_step(trainer, mode: int):
-    """``step(roots, rows, labels, w, rng) -> (global loss, predictions
-    of the global batch, overflow)`` over this rank's columns of a
-    batch (``parallel/partition.py:make_step``)."""
+    """The static step over this rank's columns of a batch
+    (``parallel/partition.py:make_step``), its batches from
+    ``Trainer._sample_branch_batches``."""
     trainer._ensure_tables(mode)
     trainer._ensure_caches(mode)
     return make_step(trainer, mode, True,
                      lambda roots, rows, gen: trainer._sample_branch_batches(
-                         mode, roots, rows, gen))
+                         mode, roots, rows, gen), cached=True)

@@ -35,8 +35,12 @@ exchange is started before that step's local aggregation.
 (Correct & Smooth's propagation) build on it.  These run inside a
 process group of ``n_shards`` ranks and raise by name outside one.
 
-JAX's ``shard_map`` programs, the epoch scan and ``put_global`` have no
-counterpart: one process a device, each running its rows eagerly.
+JAX's ``shard_map`` step is :func:`make_edgepart_train_step`'s static
+step, which a Trainer whose group is NCCL captures in a CUDA graph with
+every exchange above (the asynchronous reduce-scatter joined on the
+stream); nothing in it reads a device value on the host.  The epoch
+scan and ``put_global`` have no counterpart: one process a device.
+:func:`ring_spmm` (the smoothening and C&S) runs eagerly.
 """
 from __future__ import annotations
 
@@ -442,7 +446,9 @@ def make_edgepart_train_step(trainer, mode: int, train: bool = True):
     hub-pair queries (when the plan has hub slots) and the feature rows.
     ``train=False``: the evaluation form.  A directed graph is refused
     (the mirror of :func:`induce_edgepart` needs every edge's reverse).
-    Returns (step, the rank's CSR shard)."""
+    The host-side set-up (``shard_csr``, the tables' ``local_rows``, the
+    maximum degree) runs here, once.  Returns (step, the rank's CSR
+    shard)."""
     trainer._ensure_tables(mode)
     if not trainer.undirected:
         raise ValueError("the edge-partitioned path requires an undirected graph "
@@ -505,4 +511,5 @@ def make_edgepart_train_step(trainer, mode: int, train: bool = True):
             feats.append(pending.wait().to(dtype))
         return batches, feats
 
-    return make_step(trainer, mode, train, sample_all), csr_loc
+    deps = (feat_local, *csr_loc, *(t for tab in tabs if tab for t in tab[1:]))
+    return make_step(trainer, mode, train, sample_all, deps), csr_loc

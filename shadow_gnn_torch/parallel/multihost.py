@@ -25,6 +25,7 @@ tensors.  The collectives the partitioned steps need are in
 """
 from __future__ import annotations
 
+import atexit
 import datetime
 import os
 import socket
@@ -127,6 +128,7 @@ def initialize(coordinator_address: Optional[str] = None,
     dist.init_process_group(backend, init_method=f"tcp://{host}:{port}",
                             world_size=int(num_processes), rank=int(process_id), **kw)
     _device = dev
+    atexit.register(shutdown)
     return True
 
 
@@ -148,9 +150,14 @@ def backend() -> Optional[str]:
 
 
 def shutdown():
-    """Leave the process group (a no-op outside one)."""
+    """Leave the process group (a no-op outside one).  The CUDA graphs of
+    the process go first (``train/graphs.py:release_all``): an NCCL
+    communicator waits, on destruction, for every graph that holds its
+    collectives.  :func:`initialize` registers this to run at exit."""
     global _device
     if dist.is_initialized():
+        from shadow_gnn_torch.train.graphs import release_all
+        release_all()
         dist.destroy_process_group()
     _device = None
 

@@ -24,18 +24,27 @@ papers100M-class table (57 GB) exceed one card's memory.
   so the parameters stay bit-equal across ranks.  Not
   ``DistributedDataParallel``, which averages over the world and so
   deviates whenever a tail batch's ``w = 0`` rows land unevenly.
+* :func:`make_step` — the partitioned step as a function of static
+  buffers (``step(buf, generator, sampler)``), the counterpart of JAX's
+  jitted ``shard_map`` step: its only inputs are this rank's roots,
+  table rows, labels, weights and dropedge seed in ``buf``; the dropout
+  masks come from ``generator`` and the samplers' draws from
+  ``sampler``.  A Trainer whose group is NCCL captures it in a CUDA
+  graph with its collectives (``train/graphs.py``); gloo, the CPU and
+  the eager twin call it directly.
 * :func:`make_sharded_train_step` (``--partition feat``) — graph and
   PPR tables replicated, sampling local, the feature table row-sharded
   (a bf16 table shards as bf16); a train and an evaluation form.  Like
   JAX it samples every batch and never reads the packed cache.
 * :func:`make_sharded_gather_fn` — a sharded table and its gather.
 
-JAX's ``shard_map``/``lax.scan`` programs and ``put_global`` have no
-counterpart: each rank runs its batches eagerly on ordinary tensors.
+JAX's ``lax.scan`` epoch programs and ``put_global`` have no
+counterpart: each rank holds its rows as ordinary tensors and runs one
+step a batch.
 """
 from __future__ import annotations
 
-from typing import Callable, List, Optional, Tuple
+from typing import Callable, List, Optional
 
 import numpy as np
 import torch
@@ -123,24 +132,25 @@ def _overflow(batches, device) -> torch.Tensor:
     return cc.all_reduce_sum(total_overflow(batches, device))
 
 
-def spmd_train_update(trainer, batches, feats, labels, w, rng
-                      ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+def spmd_train_update(trainer, batches, feats, labels, w, generator, seed):
     """One SPMD update shared by every partition step: forward and
-    backward on this rank's rows, global loss normalisation, summed
-    gradients, the global-norm clip, Adam.  Returns (global loss, this
-    rank's logits, the summed induction overflow)."""
+    backward on this rank's rows (dropout from ``generator``, dropedge
+    from ``seed``, an int or a 0-d int64 device tensor), global loss
+    normalisation, summed gradients, the global-norm clip, Adam.
+    Returns (global loss, this rank's logits, the summed induction
+    overflow, the gradients)."""
     from shadow_gnn_torch.train.pipeline import CLIP_NORM, clip_grad_global_norm_
     model, cfg = trainer.model, trainer.model_cfg
     trainer.optimizer.zero_grad(set_to_none=True)
-    seed = rng.dropedge_seed() if cfg.dropedge > 0.0 else 0
-    logits, _ = model(batches, feats, rng.dropout, seed, True)
+    logits, _ = model(batches, feats, generator, seed, True)
     part = spmd_weighted_loss(cfg, logits, labels, w)
     part.backward()
     all_reduce_grads(list(model.parameters()))
     clip_grad_global_norm_(model.parameters(), CLIP_NORM)
     trainer.optimizer.step()
     loss = cc.all_reduce_sum(part.detach())
-    return loss, logits.detach(), _overflow(batches, labels.device)
+    return (loss, logits.detach(), _overflow(batches, labels.device),
+            [p.grad for p in model.parameters()])
 
 
 @torch.no_grad()
@@ -152,26 +162,39 @@ def spmd_eval_loss(trainer, batches, feats, labels, w, mode_train: bool):
     return loss, logits, _overflow(batches, labels.device)
 
 
-def make_step(trainer, mode: int, train: bool, sample_all: Callable):
-    """``step(roots, rows, labels, w, rng) -> (loss, predictions of the
-    global batch in rank order, overflow)`` over this rank's columns,
-    from ``sample_all(roots, rows, generator) -> (batches, feats)``,
-    which ``step.sample_all`` keeps."""
+def make_step(trainer, mode: int, train: bool, sample_all: Callable,
+              deps: tuple = (), cached: bool = False):
+    """The partitioned step of ``mode`` over this rank's columns, a
+    function of static buffers: ``step(buf, generator, sampler) -> (global
+    loss, predictions of the global batch in rank order, the summed
+    overflow[, the gradients])``, ``buf`` holding ``roots`` / ``rows``
+    [b, T], ``labels``, ``w`` and, to train, ``seed``.  The batches come
+    from ``sample_all(roots, rows, sampler) -> (batches, feats)``.  The
+    step keeps ``sample_all``, ``deps`` (the tensors of the partition
+    that it reads besides the Trainer's: a table shard, a CSR shard) and
+    ``sig()``, the branches' forms in its key: the Trainer's cache
+    signature where ``cached`` (``sample_all`` gathers a cached branch),
+    else every branch "sampled"."""
     from shadow_gnn_torch import TRAIN
 
-    def step(roots, rows, labels, w, rng):
+    def step(buf, generator, sampler):
         with torch.no_grad():
-            batches, feats = sample_all(roots, rows, rng.sample)
+            batches, feats = sample_all(buf["roots"], buf["rows"], sampler)
         if train:
-            loss, logits, ovf = spmd_train_update(trainer, batches, feats,
-                                                  labels, w, rng)
+            loss, logits, ovf, grads = spmd_train_update(
+                trainer, batches, feats, buf["labels"], buf["w"], generator,
+                buf["seed"])
         else:
-            loss, logits, ovf = spmd_eval_loss(trainer, batches, feats, labels, w,
-                                               mode == TRAIN)
+            loss, logits, ovf = spmd_eval_loss(trainer, batches, feats, buf["labels"],
+                                               buf["w"], mode == TRAIN)
         preds = cc.all_gather_rows(predict_fn(trainer.model_cfg, logits))
-        return loss, preds, ovf
+        # the gradients stay with the graph: a replay writes them
+        return (loss, preds, ovf, grads) if train else (loss, preds, ovf)
 
     step.sample_all = sample_all
+    step.deps = tuple(deps)
+    step.sig = ((lambda: trainer._cache_sig(mode)) if cached else
+                (lambda: ("sampled",) * trainer.num_ensemble))
     return step
 
 
@@ -199,7 +222,8 @@ def make_sharded_train_step(trainer, mode: int, train: bool = True):
             batches.append(batch)
         return batches, feats
 
-    return make_step(trainer, mode, train, sample_all), feat_local
+    return (make_step(trainer, mode, train, sample_all, (feat_local,)),
+            feat_local)
 
 
 def make_sharded_gather_fn(feat_tab: np.ndarray, device="cuda"):

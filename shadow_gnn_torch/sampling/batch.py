@@ -130,6 +130,13 @@ DIM_1HOT_PPR = 1
 DIM_1HOT_DRNL = 26    # unreachable + drnl 1..25
 
 
+def one_hot(idx: torch.Tensor, dim: int) -> torch.Tensor:
+    """[..., N] int in [0, dim) -> [..., N, dim] f32 one-hot, by a
+    comparison: ``torch.nn.functional.one_hot`` reads the indices' minimum
+    on the host on the CPU, and a step reads nothing there."""
+    return (idx[..., None] == torch.arange(dim, device=idx.device)).float()
+
+
 def hop2onehot(hop: torch.Tensor, dim: int = DIM_1HOT_HOP) -> torch.Tensor:
     """[..., N] int -> [..., N, dim] f32 one-hot.
 
@@ -139,7 +146,7 @@ def hop2onehot(hop: torch.Tensor, dim: int = DIM_1HOT_HOP) -> torch.Tensor:
     unreach = (hop < 0) | (hop >= 255)
     cols = torch.where(unreach, torch.zeros_like(hop), hop + 1)
     valid = unreach | (hop <= dim - 2)
-    oh = torch.nn.functional.one_hot(cols.clamp(0, dim - 1), dim).float()
+    oh = one_hot(cols.clamp(0, dim - 1), dim)
     return oh * valid.unsqueeze(-1)
 
 
@@ -168,7 +175,7 @@ def drnl2onehot(drnl: torch.Tensor, dim: int = DIM_1HOT_DRNL) -> torch.Tensor:
     """[..., N] int -> [..., N, dim] f32 one-hot; col 0 takes the
     unreachable (255), negative and out-of-range labels."""
     d = torch.where((drnl >= 255) | (drnl > dim - 1) | (drnl < 0), 0, drnl)
-    return torch.nn.functional.one_hot(d, dim).float()
+    return one_hot(d, dim)
 
 
 AUG2DIM = {"hops": DIM_1HOT_HOP, "pprs": DIM_1HOT_PPR, "drnls": DIM_1HOT_DRNL}

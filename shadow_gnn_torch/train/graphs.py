@@ -2,12 +2,15 @@
 
 The port's counterpart of the JAX package's compiled programs: the
 jitted TRAIN and eval epochs (``shadow_gnn_tpu/train/pipeline.py:
-_make_epoch_fn``) and the serve program of each request bucket
-(``_serve_fn``), which sample and induce inside the program.  JAX's
+_make_epoch_fn``), the serve program of each request bucket
+(``_serve_fn``), which sample and induce inside the program, the
+jitted ``shard_map`` steps of the partitions (``_run_partition_epoch``)
+and the first-epoch profile's chunk (``_profile_chunk_fn``).  JAX's
 epoch scan and chunking are TPU mechanics and are not carried over;
 what is carried over is the compiled step.  A step here is a function
 of static buffers (``Trainer._static_train``, ``_static_eval``,
-``_static_serve``): its only inputs are the tensors of
+``_static_serve``, ``_static_profile``, and the partitioned step of
+``parallel/partition.py:make_step``): its only inputs are the tensors of
 :meth:`StepGraphs.inputs` (roots, table rows, labels, weights, the
 dropedge seed), written before each call, and everything else it reads
 (the graph's CSR, the PPR tables, the subgraph caches, the feature
@@ -30,9 +33,21 @@ uniforms).  A pass loads the epoch generator's state into each and
 gives the state back after (:meth:`StepGraphs.dropout`,
 :meth:`StepGraphs.sampling`; a request loads a generator seeded with
 ``SERVE_SEED``), so the replays draw the eager steps' masks and
-picks.  The kernel wrappers count their launches in Python,
-which a replay does not run: the capture's count is taken back and
-credited on every replay instead (:func:`launch_counters`).
+picks.  The kernel wrappers count their launches in Python, and the
+collectives their calls and bytes, which a replay does not run: the
+capture's counts are taken back and credited on every replay instead
+(:func:`launch_counters`).
+
+A partitioned Trainer whose process group is NCCL captures its steps
+with their collectives (``parallel/collectives.py``).  Every rank warms
+up, captures and replays the same keys in the same order: the keys and
+the order of the steps are the same on every rank, so no rank captures
+while another runs a collective eagerly.  A gloo group stages CUDA
+tensors through host memory, which a graph cannot hold: its steps run
+eagerly.  An NCCL communicator waits, on destruction, for every graph
+that holds its collectives: leaving the group
+(``parallel/multihost.py:shutdown``) destroys every graph first
+(:func:`release_all`).
 
 A graph reads the tensors it was captured with.  Each key's graph keeps
 the objects those belong to (its ``deps``: the model, the feature
@@ -49,18 +64,34 @@ from __future__ import annotations
 import collections
 import contextlib
 import time
+import weakref
 from typing import Any, Callable, Dict, NamedTuple, Optional, Tuple
 
 import torch
 
 
+# every StepGraphs that captured a graph (release_all)
+_LIVE: "weakref.WeakSet" = weakref.WeakSet()
+
+
+def release_all():
+    """Destroy every captured graph of the process.  An NCCL communicator,
+    on destruction, waits for every CUDA graph that holds its collectives
+    (a group of more than one rank then never finishes leaving), so
+    ``parallel/multihost.py:shutdown`` calls this first."""
+    for sg in list(_LIVE):
+        sg.release()
+
+
 def launch_counters():
     """(holder, name) of every kernel launch counter of the port: the
     packed wrappers' (calls, per mode, per norm), the attention
-    wrappers' (per level) and the BFS kernel's.  A holder is the wrapper
-    or its per-norm dict."""
+    wrappers' (per level) and the BFS kernel's; and the collectives'
+    calls and bytes.  A holder is the wrapper or a dict."""
     from shadow_gnn_torch.ops import bfs, gat, packed
-    out = [(packed.packed_spmm, "calls"), (bfs.bfs_hops_multi, "launches")]
+    from shadow_gnn_torch.parallel import collectives
+    out = [(packed.packed_spmm, "calls"), (bfs.bfs_hops_multi, "launches"),
+           (collectives.stats, "calls"), (collectives.stats, "bytes")]
     for fn in (packed.packed_spmm, packed.packed_spmm_t):
         out += [(fn, "launches"), (fn, "launches_bf16")]
         out += [(fn.launches_by_norm, n) for n in packed.NORMS]
@@ -118,8 +149,9 @@ def _same(a: Optional[tuple], b: tuple) -> bool:
 class StepGraphs:
     """The CUDA graphs of one Trainer's steps, one per key, with their
     static input buffers, their shared memory pool and the dropout and
-    sampler generators registered with each.  ``enabled`` False (the CPU, an eager
-    twin, a partitioned Trainer) runs every step function directly.
+    sampler generators registered with each.  ``enabled`` False (the CPU,
+    an eager twin, a gloo-partitioned Trainer) runs every step function
+    directly.
 
     ``replays`` counts the replays by key, ``warmups`` the eager warm-up
     steps; ``capture_s`` sums the seconds of the captures and
@@ -202,6 +234,15 @@ class StepGraphs:
         for key in [k for k in self._warmed if match(k)]:
             del self._warmed[key]
 
+    def release(self):
+        """Destroy every captured graph (``CUDAGraph.reset``, once the
+        device is idle) and forget it with its warm-up."""
+        if self.graphs and self.device.type == "cuda":
+            torch.cuda.synchronize(self.device)
+        for g in self.graphs.values():
+            g.graph.reset()
+        self.drop()
+
     # ------------------------------------------------------------------
     def run(self, key: tuple, deps: tuple, fn: Callable[[], Any]):
         """``fn()``'s outputs for the step ``key`` (static tensors on a
@@ -243,6 +284,7 @@ class StepGraphs:
         counted are taken back and credited on each replay."""
         counters = launch_counters()
         before = counter_values(counters)
+        _LIVE.add(self)
         t0 = time.perf_counter()
         graph, outputs = self._record(fn)
         self.capture_s += time.perf_counter() - t0

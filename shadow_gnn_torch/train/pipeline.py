@@ -32,10 +32,12 @@ Differences from the JAX Trainer:
   whose mode has a built subgraph cache gathers from it, any other
   (khop, nodeIID, ppr_st, a cache over its budget, ``disable_cache``,
   ``inference``, the link task) samples and induces inside the step, as
-  JAX's ``_sample_branch_batches`` does inside its programs.  The CPU,
-  an eager twin (``cuda_graphs=False``) and a partitioned Trainer call
-  the same functions directly.  The partitioned steps and the
-  first-epoch profile run eagerly;
+  JAX's ``_sample_branch_batches`` does inside its programs.  The
+  first-epoch profile (``_static_profile``) and, where the process
+  group is NCCL, the partitioned TRAIN and eval steps with their
+  collectives (``parallel/partition.py:make_step``) replay graphs too.
+  The CPU, an eager twin (``cuda_graphs=False``) and a gloo-partitioned
+  Trainer call the same functions directly;
 * ``partition`` (``dp``, ``feat``, ``edge``; ``parallel/``) runs inside
   a process group, one Trainer a rank (``parallel/multihost.py``): each
   rank builds the same Trainer from the same seed, draws the same epoch
@@ -54,9 +56,10 @@ Differences from the JAX Trainer:
   one permutation, then each epoch a permutation and one seed, so the
   epoch permutations match a JAX run of the same seed with the profile
   on or off in both.  The profile pass samples (its khop picks from a
-  generator seeded with 0) and counts; it runs no model and launches no
-  kernel.  Its edge count reads the packed bits of a packed model's
-  batches, where JAX's packed path counts a placeholder block (0 edges);
+  generator seeded with 0) and counts on the device; it runs no model
+  and launches no aggregation or attention kernel.  Its edge count reads
+  the packed bits of a packed model's batches, where JAX's packed path
+  counts a placeholder block (0 edges);
 * ``use_device_ppr=True`` runs the power iteration of
   ``sampling/ppr.py:ppr_power_device`` on ``device``; None plans, which
   picks the host push, as JAX's planner does;
@@ -107,9 +110,9 @@ from shadow_gnn_torch.nn.model import (ADJ_FREE, DeepGNN, ModelConfig, predict_f
                                        row_losses)
 from shadow_gnn_torch.sampling import cache as cache_mod
 from shadow_gnn_torch.sampling import ppr as ppr_mod
-from shadow_gnn_torch.sampling.batch import (SamplerConfig, SubgraphBatch,
-                                             default_n_pad, no_overflow,
-                                             total_overflow)
+from shadow_gnn_torch.sampling.batch import (DIM_1HOT_HOP, SamplerConfig,
+                                             SubgraphBatch, default_n_pad,
+                                             no_overflow, total_overflow)
 from shadow_gnn_torch.sampling.induction import (PLAN_GATHER_BUDGET, bucket_cap,
                                                  plan_gather_bytes,
                                                  plan_ppr_induction)
@@ -216,6 +219,15 @@ def _check_partition(partition: str, partition_devices: int, batch_size: int):
                          "batch's columns")
 
 
+def graphs_allowed(partition: str) -> bool:
+    """Whether a Trainer of ``partition`` may capture its steps: one
+    that is not partitioned, or a rank of an NCCL group, whose
+    collectives a CUDA graph holds (gloo stages CUDA tensors through host
+    memory)."""
+    from shadow_gnn_torch.parallel import multihost as mh
+    return partition == "none" or mh.backend() == "nccl"
+
+
 def rank_seed(seed: int, rank: int) -> int:
     """The dropout / dropedge seed of ``rank`` in an epoch of seed
     ``seed`` (rank 0 keeps ``seed``)."""
@@ -272,10 +284,10 @@ class Trainer:
         initialised process group whose world size divides the batch
         size (``parallel/multihost.py:initialize``; the CLI's
         ``--partition`` spawns the ranks).  ``cuda_graphs`` (True) lets a
-        CUDA Trainer that is not partitioned replay its steps, cached or
-        sampled, from CUDA graphs; False runs them eagerly, the same
+        CUDA Trainer replay its steps, cached, sampled or partitioned
+        over NCCL, from CUDA graphs; False runs them eagerly, the same
         functions (the eager twin that ``chip_smoke.py`` compares); the
-        CPU ignores it."""
+        CPU and a gloo group ignore it (:func:`graphs_allowed`)."""
         if partition not in ("none", "dp", "feat", "edge"):
             raise ValueError(f"unsupported partition {partition!r}")
         if feat_dtype not in ("float32", "bfloat16"):
@@ -315,8 +327,8 @@ class Trainer:
             _check_partition(partition, partition_devices, self.batch_size)
         self._partition_fns: Dict[tuple, Any] = {}
         # partitioned TRAIN epochs run (JAX counts the device programs
-        # of them, one epoch-scan program an epoch; the port runs each
-        # rank's batches eagerly, so this counts the epochs)
+        # of them, one epoch-scan program an epoch; the port runs one
+        # step a batch, so this counts the epochs)
         self.partition_train_dispatches = 0
         self.is_transductive = raw.is_transductive
         g_full = DeviceGraph.from_csr(raw.indptr_full, raw.indices_full,
@@ -397,7 +409,8 @@ class Trainer:
         )
         # the steps' graphs (train/graphs.py), before a reload can drop
         # them
-        self.step_graphs = StepGraphs(self.device, cuda_graphs and partition == "none")
+        self.step_graphs = StepGraphs(self.device,
+                                      cuda_graphs and graphs_allowed(partition))
         self.model = DeepGNN(self.model_cfg)
         init_params(self.model, torch.Generator().manual_seed(seed))
         self.model.to(self.device).eval()
@@ -418,17 +431,25 @@ class Trainer:
 
     def _graph_plan(self) -> str:
         """Which steps replay CUDA graphs, fixed by the configuration."""
+        if self.partition != "none":
+            from shadow_gnn_torch.parallel import multihost as mh
+            where = f"partition {self.partition} over {mh.backend()}"
+            if self.step_graphs.enabled:
+                return (f"{where}: the TRAIN and eval steps replay CUDA graphs "
+                        "with their collectives captured; the first-epoch "
+                        "profile replays a graph")
+            why = "on the CPU" if self.device.type != "cuda" else (
+                "cuda_graphs=False" if mh.backend() == "nccl" else None)
+            return f"{where}{f' ({why})' if why else ''}: every step runs eagerly"
         if self.step_graphs.enabled:
             steps = ("the TRAIN and eval steps replay CUDA graphs (negatives "
                      "drawn on the host once an epoch)" if self.task == "link" else
                      "the TRAIN and eval steps and the serving buckets replay "
                      "CUDA graphs")
             return (f"{steps}; a cached branch gathers and any other samples "
-                    "and induces inside the graph; the first-epoch profile runs "
-                    "eagerly")
-        why = ("on the CPU" if self.device.type != "cuda" else
-               f"partition {self.partition}" if self.partition != "none"
-               else "cuda_graphs=False")
+                    "and induces inside the graph; the first-epoch profile "
+                    "replays a graph")
+        why = "on the CPU" if self.device.type != "cuda" else "cuda_graphs=False"
         return f"off ({why}): every step runs eagerly"
 
     def load_run(self, run_dir: str, optimizer: bool = False):
@@ -915,8 +936,8 @@ class Trainer:
     def _batches(self, mode: int, nb: int, roots, rows,
                  generator: Optional[torch.Generator]):
         """Yield (row slice, branch batches, feature blocks) of each of
-        ``nb`` batches of ``mode``, eagerly, one batch at a time (the
-        first-epoch profile and the cost count)."""
+        ``nb`` batches of ``mode``, eagerly, one batch at a time (the cost
+        count, ``train/complexity.py``)."""
         b, dev = self.batch_size, self.device
         roots_d = torch.as_tensor(roots.astype(np.int64), device=dev)
         rows_d = torch.as_tensor(rows.astype(np.int64), device=dev)
@@ -991,11 +1012,20 @@ class Trainer:
                        w, seed: int):
         """One partitioned pass over ``nb`` batches of the epoch arrays
         (every rank passes the same): this rank runs its contiguous share
-        of each batch's columns.  Returns the global per-batch losses
-        [nb], the global predictions [nb * B, C] (numpy, rank order) and
-        the summed overflow (a 0-d int64 tensor); a TRAIN pass then
-        checks that the parameters are bit-equal across ranks."""
+        of each batch's columns through the partition's static step
+        (``parallel/partition.py:make_step``), replayed from a CUDA graph
+        on a graphed Trainer, under the pass's lent dropout and sampler
+        generators.  The key ``("ptrain" | "peval", mode, columns a rank,
+        the branches' forms)`` is the same on every rank.  Returns the
+        global per-batch losses [nb], the global predictions [nb * B, C]
+        (numpy, rank order) and the summed overflow (a 0-d int64 tensor);
+        a TRAIN pass then checks that the parameters are bit-equal across
+        ranks."""
+        from shadow_gnn_torch.parallel import collectives as cc
         from shadow_gnn_torch.parallel import multihost as mh
+        sg = self.step_graphs
+        if sg.enabled:
+            cc.refuse_timing("a partitioned step")
         step = self._partition_step(mode, train)
         b, dev = self.batch_size, self.device
         sl = mh.process_slice(b)
@@ -1003,19 +1033,24 @@ class Trainer:
         cols = np.concatenate([np.arange(i * b + sl.start, i * b + sl.stop)
                                for i in range(nb)])
         per = sl.stop - sl.start
-        roots_d = torch.as_tensor(roots[cols].astype(np.int64), device=dev)
-        rows_d = torch.as_tensor(rows[cols].astype(np.int64), device=dev)
-        lab_d = torch.as_tensor(labels[cols].astype(
-            np.float32 if labels.ndim > 1 else np.int64), device=dev)
-        w_d = torch.as_tensor(w[cols], device=dev)
+        roots_d, rows_d, lab_d, w_d = self._epoch_tensors(roots[cols], rows[cols],
+                                                          labels[cols], w[cols])
+        key = ("ptrain" if train else "peval", mode, per, step.sig())
+        deps = self._graph_deps(mode, train) + step.deps
+        draw = train and self.model_cfg.dropedge > 0.0
         self.model.train(train)
-        losses, preds, ovf = [], [], 0
-        for i in range(nb):
-            p = slice(i * per, (i + 1) * per)
-            loss, pred, o = step(roots_d[p], rows_d[p], lab_d[p], w_d[p], rng)
-            losses.append(loss)
-            preds.append(pred)
-            ovf += o
+        losses, preds = [], []
+        ovf = no_overflow(dev)
+        with sg.dropout(rng.dropout) as gen, sg.sampling(rng.sample) as sampler:
+            for i in range(nb):
+                p = slice(i * per, (i + 1) * per)
+                extra = {"seed": rng.dropedge_seed() if draw else 0} if train else {}
+                buf = sg.inputs(key, roots=roots_d[p], rows=rows_d[p], labels=lab_d[p],
+                                w=w_d[p], **extra)
+                out = sg.run(key, deps, lambda: step(buf, gen, sampler))
+                losses.append(out[0].clone())
+                preds.append(out[1].clone())
+                ovf += out[2]
         self.model.eval()
         if train:
             self.partition_train_dispatches += 1
@@ -1090,24 +1125,45 @@ class Trainer:
         self.logger.log_epoch(mode, epoch, stats, status=status, time_s=t1 - t0)
         return stats
 
+    @torch.no_grad()
+    def _static_profile(self, mode: int, buf, sampler):
+        """The first-epoch profile's step: every branch's batch of
+        ``buf``'s roots and rows, its ``batch_stats`` over the rows whose
+        weight is set added into ``buf["hops"]`` [branches, DIM_1HOT_HOP]
+        (f64) and ``buf["counts"]`` [branches, 3] (nodes, edges,
+        subgraphs; int64), the static accumulators of the pass."""
+        batches, _ = self._static_batches(mode, buf, sampler)
+        valid = buf["w"] > 0
+        for i, batch in enumerate(batches):
+            hops, nodes, edges, n = batch_stats(batch, valid)
+            buf["hops"][i] += hops
+            buf["counts"][i] += torch.stack([nodes, edges, n])
+        return ()
+
     def _profile_epoch(self, mode: int):
         """Feed the profiler every batch of one epoch of ``mode``, sampled
         as the epoch would be (its own draw from ``rng_np``, as JAX's
-        pass draws one; the khop picks from a generator seeded with 0),
-        reduced on the device, the padding rows left out.  No model runs."""
-        nb, roots, rows, _labels, w = self._epoch_arrays(mode)
-        valid_all = torch.as_tensor(w > 0, device=self.device)
+        pass draws one; the khop picks from a generator seeded with 0,
+        lent to the step), through :meth:`_static_profile` (replayed from a
+        CUDA graph on a graphed Trainer), the padding rows left out.  The
+        accumulators are read once, after the pass.  No model runs."""
+        nb, roots, rows, labels, w = self._epoch_arrays(mode)
+        roots_d, rows_d, _, w_d = self._epoch_tensors(roots, rows, labels, w)
+        e, b, sg = self.num_ensemble, self.batch_size, self.step_graphs
+        key = ("profile", mode, b, self._cache_sig(mode))
+        zero = {"hops": torch.zeros(e, DIM_1HOT_HOP, dtype=torch.float64),
+                "counts": torch.zeros(e, 3, dtype=torch.int64)}
         gen = torch.Generator(device=self.device).manual_seed(0)
-        acc = [None] * self.num_ensemble
-        with torch.no_grad():
-            for sl, batches, _feats in self._batches(mode, nb, roots, rows, gen):
-                for i, b in enumerate(batches):
-                    st = batch_stats(b, valid_all[sl])
-                    acc[i] = st if acc[i] is None else tuple(
-                        a + x for a, x in zip(acc[i], st))
-        for i, (hops, nodes, edges, n) in enumerate(acc):
-            self.profiler.update_stats(i, hops.cpu().numpy(), nodes.item(),
-                                       edges.item(), n.item())
+        with sg.sampling(gen) as sampler:
+            for i in range(nb):
+                sl = slice(i * b, (i + 1) * b)
+                buf = sg.inputs(key, roots=roots_d[sl], rows=rows_d[sl], w=w_d[sl],
+                                **(zero if i == 0 else {}))
+                sg.run(key, self._graph_deps(mode, False),
+                       lambda: self._static_profile(mode, buf, sampler))
+        hops, counts = buf["hops"].cpu().numpy(), buf["counts"].cpu().numpy()
+        for i in range(e):
+            self.profiler.update_stats(i, hops[i], *counts[i].tolist())
 
     def train(self, log_test_convergence: int = -1):
         """``end`` epochs of TRAIN then VALID (TEST every

@@ -3,10 +3,11 @@ SubgraphProfiler): per sampler branch, the hop composition of the
 subgraphs' nodes and their average nodes, edges and degree.
 
 The port's copy of ``shadow_gnn_tpu/train/profiler.py``.  The Trainer
-feeds it one pass over its first TRAIN epoch (``Trainer._profile_epoch``),
-prints the summary and clears and disables it, as the reference does
-after its first epoch.  Batches are reduced on their device; only the
-totals come to the host.
+feeds it one pass over its first TRAIN epoch (``Trainer._profile_epoch``,
+whose step a CUDA graph replays on a card), prints the summary and
+clears and disables it, as the reference does after its first epoch.
+Batches are reduced on their device (:func:`batch_stats` reads nothing
+on the host); only the totals come to the host.
 """
 from __future__ import annotations
 
@@ -18,7 +19,17 @@ import torch
 from shadow_gnn_torch.sampling.batch import DIM_1HOT_HOP, SubgraphBatch, hop2onehot
 
 # set bits of each byte value: edges of a packed block without unpacking it
-_POPCOUNT = torch.tensor([bin(i).count("1") for i in range(256)], dtype=torch.int64)
+_POPCOUNT = {torch.device("cpu"): torch.tensor([bin(i).count("1") for i in range(256)],
+                                               dtype=torch.int64)}
+
+
+def _popcount(device: torch.device) -> torch.Tensor:
+    """The byte popcount table on ``device``, copied there once (on a
+    step's eager warm-up, never inside a capture)."""
+    if device not in _POPCOUNT:
+        with torch.inference_mode(False):
+            _POPCOUNT[device] = _POPCOUNT[torch.device("cpu")].to(device)
+    return _POPCOUNT[device]
 
 
 def batch_edges(batch: SubgraphBatch) -> torch.Tensor:
@@ -26,7 +37,7 @@ def batch_edges(batch: SubgraphBatch) -> torch.Tensor:
     the batch carries only packed bits, from the bits."""
     if batch.adj is not None:
         return batch.adj.sum((1, 2)).long()
-    return _POPCOUNT.to(batch.adj_bits.device)[batch.adj_bits.long()].sum((1, 2))
+    return _popcount(batch.adj_bits.device)[batch.adj_bits.long()].sum((1, 2))
 
 
 def batch_stats(batch: SubgraphBatch, valid: torch.Tensor):

@@ -118,9 +118,11 @@ def rank_epoch(partition, state_path, out_dir, packed):
         b = mh.process_slice(tr.batch_size)
         step = tr._partition_step(TRAIN, False)
         tr.model.eval()
-        loss, _, _ = step(torch.as_tensor(roots[b]), torch.as_tensor(rows[b]),
-                          torch.as_tensor(labels[b]), torch.as_tensor(w[b]),
-                          EpochRNG.from_seed(0, tr.device))
+        loss, _, _ = step({"roots": torch.as_tensor(roots[b]),
+                           "rows": torch.as_tensor(rows[b]),
+                           "labels": torch.as_tensor(labels[b]),
+                           "w": torch.as_tensor(w[b])}, None,
+                          EpochRNG.from_seed(0, tr.device).sample)
         out["tail_loss"] = np.asarray(float(loss))
     tr._ensure_tables(TRAIN)
     tr._ensure_caches(TRAIN)

@@ -4,10 +4,14 @@
 The statistics (hop composition, nodes, edges, subgraphs per branch) of
 both profilers over the same batches, and of both Trainers' profile
 passes over their first TRAIN epoch (node task cached and packed, link
-task) must be equal.  With both Trainers at their defaults (profile on)
+task) must be equal, and so must the port's pass through its static step,
+replayed from stub graphs, and the eager walk over ``_batches``.  With
+both Trainers at their defaults (profile on)
 a 2-epoch ``train()`` must draw the same epoch permutations and seeds
 from ``rng_np``; the pass launches no kernel and the profiler is off
 after the first epoch."""
+import copy
+
 import jax.numpy as jnp
 import numpy as np
 import pytest
@@ -27,7 +31,7 @@ from shadow_gnn_torch.ops.packed import packed_spmm
 from shadow_gnn_torch.train.config import parse_config as t_parse
 from shadow_gnn_torch.train.metrics import Metrics
 from shadow_gnn_torch.train.pipeline import Trainer
-from shadow_gnn_torch.train.profiler import SubgraphProfiler
+from shadow_gnn_torch.train.profiler import SubgraphProfiler, batch_stats
 
 torch.set_num_threads(2)
 GRAPH = dict(num_nodes=500, avg_deg=8, num_feat=8, num_classes=4, seed=3)
@@ -127,6 +131,51 @@ def test_profile_epoch_matches_jax(case, capsys):
     ttr.profiler.print_summary()
     out = capsys.readouterr().out
     assert "avg nodes" in out and "1-hop=" in out
+
+
+def _eager_walk(tr, mode):
+    """The profile pass as the eager ``_batches`` walk: each batch's
+    ``batch_stats`` read and added on the host (the epoch drawn from
+    ``rng_np`` as the pass draws it)."""
+    nb, roots, rows, _, w = tr._epoch_arrays(mode)
+    valid = torch.as_tensor(w > 0)
+    prof = SubgraphProfiler(tr.num_ensemble)
+    with torch.no_grad():
+        for sl, batches, _ in tr._batches(mode, nb, roots, rows,
+                                          torch.Generator().manual_seed(0)):
+            for i, b in enumerate(batches):
+                hops, nodes, edges, n = batch_stats(b, valid[sl])
+                prof.update_stats(i, hops.numpy(), nodes.item(), edges.item(), n.item())
+    return nb, _stats(prof)
+
+
+@pytest.mark.parametrize("case", ["cached", "packed", "link"])
+def test_graphed_profile_matches_the_eager_walk(case):
+    """The profile's static step (``Trainer._static_profile``) through stub
+    graphs that do what CUDA graphs do, replayed for every batch but the
+    first, against the eager ``_batches`` walk of the same epoch and
+    JAX's pass."""
+    from test_torch_partition_graphs import stub_graphs
+    link = case == "link"
+    jtr, ttr = _trainers(LINK_CFG if link else CFG, LINK_GRAPH if link else GRAPH,
+                         torch_packed=case == "packed", link=link)
+    for tr, mode in ((jtr, J_TRAIN), (ttr, TRAIN)):
+        tr._ensure_tables(mode)
+        tr._ensure_caches(mode)
+    jtr._profile_epoch(J_TRAIN)
+    stub_graphs(ttr)
+    # the walk draws the pass's epoch again (and the link task's negatives)
+    rngs = (ttr.rng_np, ttr._neg_rng)
+    states = [copy.deepcopy(r.bit_generator.state) for r in rngs]
+    ttr._profile_epoch(TRAIN)
+    for r, st in zip(rngs, states):
+        r.bit_generator.state = st
+    nb, walk = _eager_walk(ttr, TRAIN)
+    for got, eager, want in zip(_stats(ttr.profiler), walk, _stats(jtr.profiler)):
+        np.testing.assert_array_equal(got, eager)
+        np.testing.assert_array_equal(got, want)
+    key = ("profile", TRAIN, ttr.batch_size, ttr._cache_sig(TRAIN))
+    assert dict(ttr.step_graphs.replays) == {key: nb - 1} and nb > 2
 
 
 def test_jax_packed_path_counts_no_edges():

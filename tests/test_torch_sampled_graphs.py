@@ -27,7 +27,6 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
-from torch.utils._python_dispatch import TorchDispatchMode
 
 from shadow_gnn_tpu.data.graph import DeviceGraph as JGraph
 from shadow_gnn_tpu.data.synthetic import make_random_graph
@@ -40,10 +39,11 @@ from shadow_gnn_torch.ops import bfs
 from shadow_gnn_torch.sampling import induction as tind
 from shadow_gnn_torch.sampling.batch import SamplerConfig, total_overflow
 from shadow_gnn_torch.sampling.samplers import PPRTables, sample_subgraphs
-from shadow_gnn_torch.train import graphs
 from shadow_gnn_torch.train.config import parse_config
 from shadow_gnn_torch.train.metrics import Metrics
 from shadow_gnn_torch.train.pipeline import SERVE_SEED, EpochRNG, Trainer
+from test_torch_partition_graphs import _NoHostReads, _bfs_levels
+from test_torch_partition_graphs import stub_graphs as _stub_graphs
 
 torch.set_num_threads(2)
 _HYPER = {"end": 1, "lr": 1e-3, "dropout": 0.2, "dropedge": 0.1, "batch_size": 16}
@@ -90,54 +90,6 @@ def _trainer(kind):
                  device="cpu", packed_adj=kind == "flagship")
     tr.profiler.enabled = False
     return tr
-
-
-def _copy_into(dst, src):
-    if isinstance(dst, torch.Tensor):
-        dst.copy_(src)
-    elif isinstance(dst, (list, tuple)):
-        for d, s in zip(dst, src):
-            _copy_into(d, s)
-
-
-class _Replay:
-    """A captured step: each replay runs it and writes its outputs into
-    the captured ones; the launches it counts in Python are taken back
-    (``StepGraphs.run`` credits the capture's)."""
-
-    def __init__(self, fn, outputs):
-        self.fn, self.outputs = fn, outputs
-
-    def replay(self):
-        counters = graphs.launch_counters()
-        before = graphs.counter_values(counters)
-        _copy_into(self.outputs, self.fn())
-        graphs.take_delta(counters, before)
-
-
-def _stub_graphs(tr):
-    """``tr``'s step graphs on, with stubs that behave as CUDA graphs do:
-    the warm-up runs the step; a capture leaves the parameters, Adam's
-    state and both registered generators as it found them."""
-    sg = tr.step_graphs
-    sg.enabled = True
-    sg.generator, sg.sampler = torch.Generator(), torch.Generator()
-
-    def record(fn):
-        state = [p.detach() for p in tr.model.parameters()] + [
-            t for st in tr.optimizer.state.values() for t in st.values()
-            if isinstance(t, torch.Tensor)]
-        saved = [t.clone() for t in state]
-        gens = [g.get_state() for g in (sg.generator, sg.sampler)]
-        outputs = fn()
-        for t, v in zip(state, saved):
-            t.copy_(v)
-        for g, st in zip((sg.generator, sg.sampler), gens):
-            g.set_state(st)
-        return _Replay(fn, outputs), outputs
-
-    sg._warm = lambda fn: fn()
-    sg._record = record
 
 
 def _eager_pass(tr, mode, train, nb, roots, rows, labels, w, rng):
@@ -258,29 +210,6 @@ def test_disable_cache_keeps_the_mode_graphed():
 # ---------------------------------------------------------------------------
 # no host reads inside sampling and induction
 # ---------------------------------------------------------------------------
-
-class _NoHostReads(TorchDispatchMode):
-    """Raises on a read of a tensor's value on the host (``int()``,
-    ``bool()``, ``.item()``)."""
-
-    def __torch_dispatch__(self, func, types, args=(), kwargs=None):
-        if func is torch.ops.aten._local_scalar_dense.default:
-            raise AssertionError("a device value was read on the host")
-        return func(*args, **(kwargs or {}))
-
-
-def _bfs_levels(adj, starts, node_mask):
-    """The BFS in N - 1 levels, with no read of the frontier: what the
-    kernel computes, without its early stop."""
-    n = adj.shape[1]
-    frontier = torch.arange(n)[None, None, :] == starts[..., None]
-    dist = torch.where(frontier, 0, -1)
-    for lvl in range(n - 1):
-        new = (torch.bmm(frontier.float(), adj) > 0) & (dist < 0) & node_mask[:, None]
-        dist = torch.where(new, lvl + 1, dist)
-        frontier = new
-    return dist
-
 
 @pytest.mark.parametrize("method,fields", [
     ("ppr", dict(induction="rows", deg_cap=64, hub_slots=0)),
