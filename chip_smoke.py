@@ -5,8 +5,9 @@ Run from the repository root on a machine with one CUDA GPU:
 
     python3 chip_smoke.py             # every phase below but `profile`
     python3 chip_smoke.py --profile   # adds the torch.profiler phase
-    python3 chip_smoke.py --parallel-nccl4   # only [parallel], at NCCL
-                                             # world 4 (four cards)
+    python3 chip_smoke.py --parallel-nccl4   # only [parallel] and the
+                                             # ring, at NCCL world 4
+                                             # (four cards)
 
 Phases, each fatal on failure (an uncaught exception, non-zero exit):
 
@@ -323,7 +324,40 @@ Phases, each fatal on failure (an uncaught exception, non-zero exit):
              eager, graphed, graphed, eager windows of 8) and requests
              timed in turns, with the device-busy share and host CUDA
              calls a step; ``SAMPLED_BUDGET_S`` for the four parts;
-20. profile (``--profile`` only) — torch.profiler over cached requests
+20. ring    — after the GAT-5's ``[infer]`` and ``[sampled gat]``, on
+             [infer]'s prediction matrix, labels and products graph
+             (every TRAIN label known; ``phase_ring``): (a) the
+             single-card C&S (``postproc/cns.py:Propagation``, one CUDA
+             graph of the 50 steps, cuSPARSE's SpMM captured) against
+             its eager twin, ``norm_sym`` off and on; (b) in one NCCL
+             rank of world 1 (``parallel/launch.py``) the ring C&S
+             (``parallel/edgepart.py:make_outcome_correlation``, the
+             whole loop one graph) against its eager twin and within
+             ``TOL_CS`` of the single card, and the CLI's C&S
+             (``main.main`` with a JSON ``--postproc_configs``, ``method:
+             cs``, ``n_shards: 1``, three matrices on a run dir written
+             here) at the single card's accuracies; (c) there too the
+             smoothening ring (sym-2-concat and ppr on the flickr-scale
+             graph, 89,250 x 500) within 1e-5 of max of the single
+             card's ``smooth_signal_full``, and a ring product graphed
+             against eager; (d) gloo world 4 on cuda:0, the ring C&S
+             eager by design, within ``TOL_CS`` of the single card; (e)
+             ``python -m torch.distributed.run --nproc_per_node 1 -m
+             shadow_gnn_torch.main ... --distributed --partition dp``,
+             one epoch of the flagship at the [parallel] cuts, which must
+             join at the launcher's address over NCCL, replay its steps
+             and finish.  Every graphed key's calls after its first
+             replay; graphed = eager bit for bit where the order of sums
+             is fixed, else within ``TOL_CS`` with the cause named
+             (cuSPARSE; ``index_add_``'s atomics).  Prints ms a step,
+             eager and graphed in turns, host CUDA calls a step, pools,
+             peak memory, the phase's seconds (at most ``RING_BUDGET_S``)
+             and the card.  With ``--parallel-nccl4`` the teardown key
+             holds a ring shift, and the ring C&S and a smoothening
+             product run at NCCL world 4 (``phase_ring_nccl4``), graphed
+             against eager, with the NCCL kernels' overlap with the
+             rest from torch.profiler;
+21. profile (``--profile`` only) — torch.profiler over cached requests
              (flagship 1 and 256 ids, GAT 128 ids, the power-law flagship
              1 and 256, the ensemble 1 and 128) and over 5 TRAIN steps of
              each model, f32 and at bf16 precision (the power-law
@@ -348,6 +382,7 @@ import json
 import os
 import subprocess
 import sys
+import threading
 import time
 
 HBM_BYTES_PER_S = 3.35e12       # H100 SXM data sheet
@@ -2909,7 +2944,8 @@ def phase_infer_gat(tr, graph):
     VALID and TEST on both trainers (equal stats, B2 5 times a batch);
     ``predict_full`` over the three modes against ``predict_nodes``;
     Correct & Smooth on the card over the whole graph, with and without
-    the symmetric scaling, against the CPU."""
+    the symmetric scaling, against the CPU.  Returns the prediction
+    matrix, which ``phase_ring`` smooths again."""
     import tempfile
 
     import numpy as np
@@ -2984,6 +3020,7 @@ def phase_infer_gat(tr, graph):
           f"entries of the mean operator (edges, their reverses and self loops, "
           f"duplicates summed), built on the host in {t_op:.2f}s; {pred.shape[1]} "
           f"classes")
+    summary = []
     for use_norm in (False, True):
         t0 = time.perf_counter()
         acc_orig, acc_cs = cns.correct_smooth(indptr, indices, lab, node_set, [pred],
@@ -3004,7 +3041,10 @@ def phase_infer_gat(tr, graph):
         y_c = cns.propagate(op_cpu, deg_cpu, y0, use_norm=use_norm)
         t_cpu = time.perf_counter() - t0
         err = float((y_d.cpu() - y_c).abs().max())
-        print(f"{tag} C&S norm_sym {use_norm}: correct_smooth on the card "
+        summary.append(f"{'on' if use_norm else 'off'} {step_ms:.4f} ms, err "
+                       f"{err:.1e}, VALID {acc_orig[VALID][0]:.3f}->"
+                       f"{acc_cs[VALID][0]:.3f}")
+        _detail(f"{tag} C&S norm_sym {use_norm}: correct_smooth on the card "
               f"{t_call:.2f}s (operator built in it); propagation "
               f"{step_ms:.4f} ms a step (CUDA events, {cns.N_PROP} steps), peak "
               f"device memory {peak / 2**30:.3f} GiB ({(peak - base) / 2**20:.1f} "
@@ -3016,7 +3056,10 @@ def phase_infer_gat(tr, graph):
         if not err <= TOL_CS:
             raise AssertionError(f"{tag} C&S on the card and the CPU differ by {err}")
         del y_d, y0_d
+    print(f"{tag} C&S {graph.num_nodes}x{pred.shape[1]} a step, norm_sym "
+          f"{'; '.join(summary)} (card - CPU, TOL_CS {TOL_CS})")
     print(f"{tag} GAT-5 part {time.perf_counter() - t_phase:.1f}s")
+    return pred
 
 
 def phase_infer_ensemble(tr):
@@ -4602,10 +4645,580 @@ def phase_parallel(g, kind, runs=PARALLEL_RUNS, spec_update=None):
     return wall
 
 
+# ---------------------------------------------------------------------------
+# [ring]: the ring SpMM and the C&S propagation as CUDA graphs; torchrun
+# ---------------------------------------------------------------------------
+
+RING_BUDGET_S = 90              # the phase aims at 60 s
+RING_ROUNDS = 2                 # rounds of eager, graphed, graphed, eager calls
+RING_CALLS = 3                  # calls of a key held: warm-up, capture + replay, replay
+RING_SMOOTH = ("sym-2-concat", "ppr--concat-0.8")
+RING_SMOOTH_TOL = 1e-5          # of max |single card|: the smoothening ring
+RING_TORCHRUN_S = 300           # the torchrun epoch's time limit
+RING_QUIET_S = 120              # the NCCL rank's wait for the runs beside it
+
+
+def _ring_turns(eager, graphed, n):
+    """Device ms a step of ``eager()`` and ``graphed()`` (``n`` steps a
+    call), CUDA events around each call, in turns: ``RING_ROUNDS`` rounds
+    of eager, graphed, graphed, eager; the medians."""
+    import torch
+    times = ([], [])
+    for _ in range(RING_ROUNDS):
+        for i in (0, 1, 1, 0):
+            ev = [torch.cuda.Event(enable_timing=True) for _ in range(2)]
+            ev[0].record()
+            (eager, graphed)[i]()
+            ev[1].record()
+            torch.cuda.synchronize()
+            times[i].append(ev[0].elapsed_time(ev[1]) / n)
+    return [_median(t) for t in times]
+
+
+def _nccl_overlap(dev, fn):
+    """The share of the NCCL kernels' device time during which another
+    kernel runs, over ``fn()`` under torch.profiler: the ring's transfer
+    on NCCL's stream overlapping ``index_add_`` (None without NCCL
+    kernels)."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    _sync(dev)
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        fn()
+        _sync(dev)
+    kern = [(e.time_range.start, e.time_range.end, "nccl" in e.name.lower())
+            for e in prof.events()
+            if e.device_type == DeviceType.CUDA and not e.is_user_annotation]
+    others = sorted((a, b) for a, b, nccl in kern if not nccl)
+    total = hit = 0
+    for a, b, nccl in kern:
+        if not nccl:
+            continue
+        total += b - a
+        for c, d in others:
+            if c >= b:
+                break
+            hit += max(0, min(b, d) - max(a, c))
+    return hit / total if total else None
+
+
+def _twin(eager_fn, graphed_fn, calls=RING_CALLS):
+    """The largest |graphed - eager| over ``calls`` calls of the graphed
+    function (its warm-up, capture and replays), each against the eager
+    result; 0.0 is bit for bit."""
+    want = eager_fn().clone()
+    return max(float((graphed_fn() - want).abs().max()) for _ in range(calls))
+
+
+def _twin_word(errs, cause):
+    worst = max(errs)
+    return "bit for bit" if worst == 0 else f"within TOL_CS ({worst:.1e}: {cause})"
+
+
+def _ring_single(graph, y0, tag):
+    """(a) the single-card C&S (``postproc/cns.py:Propagation``), graphed
+    against its eager twin at both ``norm_sym`` values: ``RING_CALLS``
+    calls of the graphed one, each held against the eager result, every
+    call after the first replaying; then ms a step in turns, the host
+    CUDA calls, device-busy share a step (torch.profiler), the pool's MiB
+    and the peak memory.  Returns ({use_norm: the eager result}, the
+    summary)."""
+    import torch
+    from shadow_gnn_torch.postproc import cns
+    dev = torch.device("cuda")
+    op, deg = cns.mean_operator(graph.indptr_full, graph.indices_full, dev)
+    y0_d = torch.as_tensor(y0, device=dev)
+    want, ms, calls, errs, pool, peak = {}, [], [], [], 0, 0.0
+    for use_norm in (False, True):
+        eager, graphed = cns.Propagation(op, deg, cuda_graphs=False), cns.Propagation(op, deg)
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        errs.append(_twin(lambda: eager(y0_d, use_norm=use_norm),
+                          lambda: graphed(y0_d, use_norm=use_norm)))
+        peak = max(peak, torch.cuda.max_memory_allocated() / 2**30)
+        replays = sum(graphed.graphs.replays.values())
+        if replays != RING_CALLS - 1 or not errs[-1] <= TOL_CS:
+            raise AssertionError(f"{tag} single-card C&S norm_sym {use_norm}: "
+                                 f"{replays} replays, graphed - eager {errs[-1]}")
+        ms += _ring_turns(lambda: eager(y0_d, use_norm=use_norm),
+                          lambda: graphed(y0_d, use_norm=use_norm), cns.N_PROP)
+        for f in (eager, graphed):
+            busy, host, _ = _rank_profile(dev, lambda f=f: f(y0_d, use_norm=use_norm),
+                                          cns.N_PROP)
+            calls.append((busy, host))
+        pool = max(pool, graphed.graphs.pool_bytes)
+        want[use_norm] = eager(y0_d, use_norm=use_norm).cpu().numpy()
+        _detail(f"{tag} single-card C&S norm_sym {use_norm}: {graphed.graphs.summary()}"
+                f"; graphed - eager {errs[-1]:.3e}; ms a step eager / graphed "
+                f"{ms[-2]:.4f} / {ms[-1]:.4f}; busy ms, host CUDA calls a step "
+                f"{calls[-2]} / {calls[-1]}")
+        graphed.graphs.release()
+    line = (f"{tag} 1 card C&S: graphed = eager {_twin_word(errs, 'cuSPARSE')}, "
+            f"{RING_CALLS - 1} replays/key; "
+            f"ms/step e/g off {ms[0]:.4f}/{ms[1]:.4f}, on {ms[2]:.4f}/{ms[3]:.4f}; "
+            f"host calls/step {calls[0][1]:.0f}/{calls[1][1]:.2f}; pool "
+            f"{pool / 2**20:.0f} MiB, peak {peak:.2f} GiB")
+    return want, line
+
+
+def _wait_files(paths, timeout_s):
+    """Wait until every file of ``paths`` exists (the parent's marks that
+    a run beside this one has ended); returns the seconds waited."""
+    t0 = time.perf_counter()
+    while not all(os.path.exists(p) for p in paths):
+        if time.perf_counter() - t0 > timeout_s:
+            raise TimeoutError(f"waited {timeout_s} s for {paths}")
+        time.sleep(0.2)
+    return time.perf_counter() - t0
+
+
+def _ring_rank(spec):
+    """One rank of a [ring] run.  With ``spec["cli"]`` (an argv): the
+    CLI's C&S at ``n_shards`` = the world, first.  With
+    ``spec["smooth"]``: ``smooth_signal_full`` through the ring against
+    the single card (``RING_SMOOTH``).  Then, once the files
+    ``spec["quiet"]`` exist (the runs beside the untimed parts have
+    ended): the ring C&S
+    (``parallel/edgepart.py:make_outcome_correlation``) on the products
+    graph at both ``norm_sym`` values against the single-card result
+    within ``TOL_CS``; where its graphs are on (an NCCL group) a graphed
+    operator against its eager twin (``RING_CALLS`` calls a key, every
+    call after the first replaying), ms a step in turns, the host CUDA
+    calls, busy share and NCCL share a step and the NCCL kernels'
+    overlap with the others (torch.profiler); with ``spec["smooth"]`` a
+    product of ``make_ring_spmm`` graphed against eager and timed; the
+    pools and the peak memory.  Writes ``<tag>.rank<r>.json`` and logs
+    to ``<tag>.rank<r>.log``."""
+    import numpy as np
+    import torch
+    from shadow_gnn_torch import main as tmain
+    from shadow_gnn_torch.parallel import edgepart as ep
+    from shadow_gnn_torch.parallel import multihost as mh
+    from shadow_gnn_torch.postproc import cns
+    from shadow_gnn_torch.train import preproc
+    r, w, dev = mh.rank(), mh.world_size(), mh.device()
+    base = os.path.join(spec["dir"], spec["tag"])
+    sys.stdout = open(f"{base}.rank{r}.log", "w", buffering=1)
+    faulthandler.dump_traceback_later(PARALLEL_HANG_S, exit=True, file=sys.stdout)
+    out = {"plan": f"rank {r} of {w} ({mh.backend()}) on {dev}"}
+    print(out["plan"])
+    torch.cuda.reset_peak_memory_stats(dev)
+    if spec.get("cli"):
+        made, accs = [], []
+        make, smooth = ep.make_outcome_correlation, cns.correct_smooth
+
+        def recording_make(*a, **k):
+            made.append(make(*a, **k))
+            return made[-1]
+
+        def recording_smooth(*a, **k):
+            accs.append(smooth(*a, **k))
+            return accs[-1]
+        ep.make_outcome_correlation, cns.correct_smooth = recording_make, recording_smooth
+        try:
+            t0 = time.perf_counter()
+            rc = tmain.main(spec["cli"])
+        finally:
+            ep.make_outcome_correlation, cns.correct_smooth = make, smooth
+        out["cli"] = dict(rc=rc, seconds=time.perf_counter() - t0,
+                          acc_cs={int(m): v for m, v in accs[0][1].items()},
+                          replays=sum(made[0].graphs.replays.values()),
+                          graphs=made[0].graphs.summary())
+        print(f"CLI: {out['cli']}")
+        del made, accs
+    if spec["smooth"]:
+        fz = np.load(spec["smooth_graph"])
+        indptr, indices, feat = fz["indptr"], fz["indices"], fz["feat"]
+        out["smooth"] = {}
+        for cfg in RING_SMOOTH:
+            tn, order, red, args = preproc.decode_smoothen_config(cfg)
+            t0 = time.perf_counter()
+            want, k1 = preproc.smooth_signal_full(indptr, indices, feat, tn, order, red,
+                                                  args, dev)
+            t1 = time.perf_counter()
+            got, k2 = preproc.smooth_signal_full(indptr, indices, feat, tn, order, red,
+                                                 args, dev, n_shards=w)
+            err = float(np.abs(got - want).max() / np.abs(want).max())
+            out["smooth"][cfg] = dict(err=err, steps=[k1, k2], single_s=t1 - t0,
+                                      ring_s=time.perf_counter() - t1)
+            print(f"smoothening {cfg}: {out['smooth'][cfg]}")
+        del want, got
+    gz = np.load(spec["cs_graph"])
+    t0 = time.perf_counter()
+    graphed = ep.make_outcome_correlation(gz["indptr"], gz["indices"], w, dev)
+    twins = graphed.graphs.enabled
+    eager = (ep.make_outcome_correlation(gz["indptr"], gz["indices"], w, dev,
+                                         cuda_graphs=False) if twins else graphed)
+    out.update(build_s=time.perf_counter() - t0, twins=twins,
+               graphs_plan=graphed.graphs.summary(), cs={})
+    if spec.get("quiet"):
+        out["waited_s"] = _wait_files(spec["quiet"], RING_QUIET_S)
+    y0 = torch.as_tensor(gz["y0"], device=dev)
+    for use_norm in (False, True):
+        t0 = time.perf_counter()
+        ref = eager(y0, use_norm=use_norm).cpu().numpy()
+        o = {"call_s": time.perf_counter() - t0,
+             "single": float(np.abs(ref - gz[f"want{int(use_norm)}"]).max())}
+        if twins:
+            before = sum(graphed.graphs.replays.values())
+            o["twin"] = _twin(lambda: eager(y0, use_norm=use_norm),
+                              lambda: graphed(y0, use_norm=use_norm))
+            o["replays"] = sum(graphed.graphs.replays.values()) - before
+            o["ms"] = _ring_turns(lambda: eager(y0, use_norm=use_norm),
+                                  lambda: graphed(y0, use_norm=use_norm), cns.N_PROP)
+            o["prof"] = [_rank_profile(dev, lambda f=f: f(y0, use_norm=use_norm),
+                                       cns.N_PROP) for f in (eager, graphed)]
+            if w > 1:
+                o["overlap"] = _nccl_overlap(dev, lambda: graphed(y0, use_norm=use_norm))
+        print(f"C&S norm_sym {use_norm}: {o}")
+        out["cs"][int(use_norm)] = o
+    out["pool_mib"] = graphed.graphs.pool_bytes / 2**20
+    out["graphs"] = graphed.graphs.summary()
+    del graphed, eager, y0
+    if spec["smooth"]:
+        src, dst, val = preproc._norm_edges(indptr, indices, "sym")
+        n = indptr.size - 1
+        prod_g = ep.make_ring_spmm(src.astype(np.int64), dst.astype(np.int64), val, n,
+                                   w, dev)
+        prod_e = ep.make_ring_spmm(src.astype(np.int64), dst.astype(np.int64), val, n,
+                                   w, dev, cuda_graphs=False)
+        x = torch.as_tensor(feat, device=dev)
+        p = {"twin": _twin(lambda: prod_e(x), lambda: prod_g(x)) if twins else None,
+             "replays": sum(prod_g.graphs.replays.values())}
+        if twins:
+            p["ms"] = _ring_turns(lambda: prod_e(x), lambda: prod_g(x), 1)
+            p["pool_mib"] = prod_g.graphs.pool_bytes / 2**20
+        out["product"] = p
+        print(f"product: {p}")
+        del prod_g, prod_e, x
+    out["peak_gib"] = torch.cuda.max_memory_allocated(dev) / 2**30
+    faulthandler.cancel_dump_traceback_later()
+    with open(f"{base}.rank{r}.json", "w") as f:
+        json.dump(out, f)
+
+
+def _ring_spawn(spec, world, device, backend):
+    """``_ring_rank`` on ``world`` ranks (``parallel/launch.py``); the
+    ranks' logs go to the full log, also when the spawn fails.  Returns
+    the ranks' results and the spawn's seconds."""
+    import glob
+    from shadow_gnn_torch.parallel import launch
+    t0 = time.perf_counter()
+    try:
+        launch.spawn(_ring_rank, world, device, (spec,), backend=backend,
+                     timeout_s=PARALLEL_TIMEOUT_S)
+    finally:
+        for path in sorted(glob.glob(os.path.join(spec["dir"],
+                                                  f"{spec['tag']}.rank*.log"))):
+            with open(path) as f:
+                _detail(f"[ring] {os.path.basename(path)}:\n{f.read().rstrip()}")
+    ranks = []
+    for r in range(world):
+        with open(os.path.join(spec["dir"], f"{spec['tag']}.rank{r}.json")) as f:
+            ranks.append(json.load(f))
+    return ranks, time.perf_counter() - t0
+
+
+def _ring_check(tag, ranks, nccl):
+    """Every rank's ring C&S within ``TOL_CS`` of the single card; on an
+    NCCL run graphed = eager within ``TOL_CS``, ``RING_CALLS - 1`` replays
+    a key; a gloo run eager and saying so.  Returns the largest errors
+    (single card, twin)."""
+    single = max(o["cs"][k]["single"] for o in ranks for k in o["cs"])
+    if not single <= TOL_CS:
+        raise AssertionError(f"{tag} the ring C&S and the single card differ by {single}")
+    if not nccl:
+        if any(o["twins"] or "every step runs eagerly" not in o["graphs_plan"]
+               for o in ranks):
+            raise AssertionError(f"{tag} a gloo rank's ring is graphed: "
+                                 f"{ranks[0]['graphs_plan']}")
+        return single, None
+    if not all(o["twins"] for o in ranks):
+        raise AssertionError(f"{tag} an NCCL rank's ring runs eagerly: "
+                             f"{ranks[0]['graphs_plan']}")
+    twin = max(o["cs"][k]["twin"] for o in ranks for k in o["cs"])
+    replays = {o["cs"][k]["replays"] for o in ranks for k in o["cs"]}
+    if not twin <= TOL_CS or replays != {RING_CALLS - 1}:
+        raise AssertionError(f"{tag} the graphed ring C&S: graphed - eager {twin}, "
+                             f"replays {replays}")
+    if "smooth" in ranks[0]:
+        p = [o["product"] for o in ranks]
+        worst = max(o["smooth"][c]["err"] for o in ranks for c in RING_SMOOTH)
+        steps = {tuple(o["smooth"][c]["steps"]) for o in ranks for c in RING_SMOOTH}
+        if (not worst <= RING_SMOOTH_TOL or any(a != b for a, b in steps)
+                or not max(x["twin"] for x in p) <= TOL_CS
+                or {x["replays"] for x in p} != {RING_CALLS - 1}):
+            raise AssertionError(f"{tag} the smoothening ring: {worst} of max from "
+                                 f"the single card, steps {steps}, products {p}")
+    return single, twin
+
+
+def _ring_cli_check(tag, cli, want, lab, node_set, err):
+    """The CLI's C&S accuracies (``RING_CALLS`` matrices) against the
+    single card's on every split: a row may change its argmax only where
+    its two largest entries of the single card's matrix lie within
+    ``2 * err`` (the largest ring - single card difference); the count
+    of such rows bounds the difference.  Returns the largest bound."""
+    import numpy as np
+    if cli["rc"] != 0 or cli["replays"] != RING_CALLS - 1:
+        raise AssertionError(f"{tag} the CLI's C&S: {cli}")
+    top2 = np.sort(want, 1)[:, -2:]
+    near = (top2[:, 1] - top2[:, 0]) <= 2 * err
+    bound = 0.0
+    for m, accs in cli["acc_cs"].items():
+        idx = node_set[int(m)]
+        acc = float((want[idx].argmax(1) == lab[idx]).mean())
+        slack = float(near[idx].mean())
+        bound = max(bound, slack)
+        if len(accs) != RING_CALLS or max(abs(a - acc) for a in accs) > slack:
+            raise AssertionError(f"{tag} the CLI's C&S accuracy {accs} against the "
+                                 f"single card's {acc} (slack {slack})")
+    return bound
+
+
+def _torchrun_start(flickr, tmp):
+    """(e) ``python -m torch.distributed.run --nproc_per_node 1 -m
+    shadow_gnn_torch.main ... --distributed --partition dp`` in the
+    background: the flagship at its [parallel] config (dropout and
+    dropedge 0, 1 epoch; as JSON, which needs no PyYAML) on the
+    flickr-scale graph written in the shaDow format with its splits cut
+    to the [parallel] cuts, device PPR.  Returns (process, port, log,
+    start time)."""
+    from shadow_gnn_torch import TEST, TRAIN, VALID
+    from shadow_gnn_torch.data import save_shadow_format
+    from shadow_gnn_torch.parallel import multihost as mh
+    data = os.path.join(tmp, "flagship_data")
+    cuts = zip((TRAIN, VALID, TEST), (TRAIN_NODES, VALID_NODES, TEST_NODES))
+    save_shadow_format(data, "flickr_synth", indptr=flickr.indptr_full,
+                       indices=flickr.indices_full, feat=flickr.feat_full,
+                       label=flickr.label_full,
+                       node_set={m: flickr.node_set[m][:k] for m, k in cuts})
+    cfg = os.path.join(tmp, "flagship.json")
+    with open(cfg, "w") as f:
+        json.dump(_parallel_cfg("flagship"), f)
+    port = mh.free_port()
+    log = os.path.join(tmp, "torchrun.log")
+    cmd = [sys.executable, "-m", "torch.distributed.run", "--nproc_per_node", "1",
+           "--master_addr", "127.0.0.1", "--master_port", str(port),
+           "-m", "shadow_gnn_torch.main", "--configs", cfg, "--dataset", "flickr_synth",
+           "--data_dir", data, "--log_dir", os.path.join(tmp, "log"), "--seed", "0",
+           "--distributed", "--partition", "dp", "--packed_adj", "--no_log",
+           "--device_ppr", "device"]
+    here = os.path.dirname(os.path.abspath(__file__))
+    env = dict(os.environ, PYTHONPATH=os.pathsep.join(
+        [here] + [p for p in [os.environ.get("PYTHONPATH")] if p]))
+    with open(log, "w") as f:
+        proc = subprocess.Popen(cmd, cwd=here, env=env, stdout=f,
+                                stderr=subprocess.STDOUT)
+    return proc, port, log, time.perf_counter()
+
+
+def _torchrun_finish(run, tag):
+    """Wait for the torchrun epoch: exit code 0, rank 0 of 1 joined over
+    NCCL at the launcher's address, its dp steps graphed, a final
+    summary.  Returns (the epoch's summary, its seconds)."""
+    proc, port, log, t0 = run
+    try:
+        rc = proc.wait(timeout=RING_TORCHRUN_S)
+    finally:
+        if proc.poll() is None:
+            proc.kill()
+            proc.wait()
+        with open(log) as f:
+            text = f.read()
+        _detail(f"{tag} torchrun output:\n{text.rstrip()}")
+    joined = f"rank 0 of 1 (nccl) on cuda:0, joined at 127.0.0.1:{port}"
+    graphed = "partition dp over nccl: the TRAIN and eval steps replay CUDA graphs"
+    final = [ln for ln in text.splitlines() if ln.startswith("FINAL SUMMARY")]
+    if rc != 0 or joined not in text or graphed not in text or not final:
+        raise AssertionError(f"{tag} torchrun: exit {rc}; joined {joined in text}, "
+                             f"graphed {graphed in text}, final summary {bool(final)}")
+    return final[0], time.perf_counter() - t0
+
+
+def phase_ring(products, pred, flickr):
+    """[ring] after [infer]'s GAT-5 C&S, on its prediction matrix, labels
+    and products graph (every TRAIN label known): (a) the single-card
+    C&S graphed against its eager twin (``_ring_single``), and the C&S
+    at ``n_shards`` 1 in this process, which is in no group; (b) in one
+    NCCL rank of world 1 (``parallel/launch.py``): the ring C&S graphed
+    against eager and against the single card, the CLI's C&S
+    (``main.main`` with ``--postproc_configs``, JSON, ``n_shards: 1``, on
+    a run dir and dataset written here, three matrices) against the
+    single card's accuracies; (c) there too, the smoothening ring on the
+    flickr-scale graph (``RING_SMOOTH``) against the single card and a
+    product graphed against eager; (d) gloo world 4 on cuda:0, the ring
+    C&S eager by design, against the single card; (e) torchrun
+    (``_torchrun_start``).  (d) and (e) run beside (b)'s untimed parts
+    (the CLI, the smoothening): the NCCL rank times its calls once both
+    have ended.  Three summary lines."""
+    import shutil
+    import tempfile
+    import numpy as np
+    import torch
+    from shadow_gnn_torch import TRAIN
+    from shadow_gnn_torch.data import save_shadow_format
+    from shadow_gnn_torch.postproc import cns
+    tag, t_phase = "[ring]", time.perf_counter()
+    g = products
+    y0 = cns.seed_matrix(pred, g.label_full, g.node_set[TRAIN])
+    want, line_a = _ring_single(g, y0, tag)
+    print(line_a)
+    # n_shards 1 in this process, which is in no group: the collectives
+    # answer locally
+    local = float(np.abs(cns.general_outcome_correlation(
+        g.indptr_full, g.indices_full, y0, n_shards=1, device="cuda")
+        - want[False]).max())
+    if not local <= TOL_CS:
+        raise AssertionError(f"{tag} n_shards 1 outside a group: {local} from the "
+                             "single card")
+    torch.cuda.empty_cache()
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_ring_")
+    torchrun = None
+    try:
+        spec = dict(dir=tmp, cs_graph=os.path.join(tmp, "cs.npz"),
+                    smooth_graph=os.path.join(tmp, "smooth.npz"), smooth=True)
+        np.savez(spec["cs_graph"], indptr=g.indptr_full, indices=g.indices_full, y0=y0,
+                 want0=want[False], want1=want[True])
+        np.savez(spec["smooth_graph"], indptr=flickr.indptr_full,
+                 indices=flickr.indices_full, feat=flickr.feat_full)
+        data, run = os.path.join(tmp, "data"), os.path.join(tmp, "run")
+        save_shadow_format(data, "products_synth", indptr=g.indptr_full,
+                           indices=g.indices_full, feat=g.feat_full, label=g.label_full,
+                           node_set=g.node_set)
+        os.makedirs(run)
+        np.save(os.path.join(run, "pred_mat_gen.npy"), pred)
+        with open(os.path.join(tmp, "cs.json"), "w") as f:
+            json.dump({"method": "cs", "dir_pred_mat": [run] * RING_CALLS,
+                       "hyperparameter": {"norm_sym": False, "alpha": 0.8,
+                                          "n_shards": 1}}, f)
+        spec["cli"] = ["--postproc_configs", os.path.join(tmp, "cs.json"), "--dataset",
+                       "products_synth", "--data_dir", data, "--log_dir",
+                       os.path.join(tmp, "log"), "--device", "cuda"]
+        t_a = time.perf_counter() - t_phase
+        # gloo world 4 and the torchrun epoch run beside the NCCL rank's
+        # untimed parts; it times its calls once both have ended
+        torchrun = _torchrun_start(flickr, tmp)
+        side = {"gloo4": lambda: _ring_spawn(
+                    dict(spec, tag="gloo4", smooth=False, cli=None), 4, "cuda:0",
+                    "gloo"),
+                "torchrun": lambda: _torchrun_finish(torchrun, tag)}
+        done = {k: os.path.join(tmp, f"{k}.done") for k in side}
+        results = {}
+
+        def beside(name):
+            try:
+                results[name] = side[name]()
+            except BaseException as e:      # re-raised in the phase's thread
+                results[name] = e
+            finally:
+                open(done[name], "w").close()
+        threads = [threading.Thread(target=beside, args=(k,)) for k in side]
+        for t in threads:
+            t.start()
+        try:
+            nccl1, s_nccl = _ring_spawn(dict(spec, tag="nccl1",
+                                             quiet=list(done.values())),
+                                        1, "cuda", "nccl")
+        finally:
+            for t in threads:
+                t.join()
+        for res in results.values():
+            if isinstance(res, BaseException):
+                raise res
+        (gloo4, s_gloo), (final, wait_s) = results["gloo4"], results["torchrun"]
+        single1, twin1 = _ring_check(f"{tag} nccl1", nccl1, True)
+        bound = _ring_cli_check(f"{tag} nccl1", nccl1[0]["cli"], want[False],
+                                g.label_full, g.node_set, single1)
+        single4, _ = _ring_check(f"{tag} gloo4", gloo4, False)
+    finally:
+        if torchrun is not None and torchrun[0].poll() is None:
+            torchrun[0].kill()
+            torchrun[0].wait()
+        shutil.rmtree(tmp, ignore_errors=True)
+    o = nccl1[0]
+    cs = o["cs"]
+    sm = o["smooth"]
+    _detail(f"{tag} nccl1 rank 0: {json.dumps(o)}")
+    _detail(f"{tag} gloo4: " + "; ".join(json.dumps(x["cs"]) for x in gloo4))
+    _detail(f"{tag} torchrun: {final}; parts: single card and files {t_a:.1f}s, "
+            f"NCCL 1 spawn {s_nccl:.1f}s (its wait for the runs beside it "
+            f"{nccl1[0]['waited_s']:.1f}s), beside it gloo 4 spawn {s_gloo:.1f}s and "
+            f"torchrun {wait_s:.1f}s")
+    print(f"{tag} NCCL 1 (no group {local:.0e}): ring C&S - 1 card {single1:.1e}, "
+          f"graphed = eager "
+          f"{_twin_word([twin1], 'atomic index_add_')}, {RING_CALLS - 1} replays/key; "
+          f"ms/step e/g off "
+          f"{cs['0']['ms'][0]:.4f}/{cs['0']['ms'][1]:.4f}, on {cs['1']['ms'][0]:.4f}/"
+          f"{cs['1']['ms'][1]:.4f}; host calls/step {cs['0']['prof'][0][1]:.0f}/"
+          f"{cs['0']['prof'][1][1]:.2f}; pool {o['pool_mib']:.0f} MiB, peak "
+          f"{o['peak_gib']:.2f} GiB; CLI acc = 1 card (slack {bound:.1e}); smooth "
+          + "/".join(f"{sm[c]['err']:.0e}" for c in RING_SMOOTH)
+          + f" of max, product ms e/g {o['product']['ms'][0]:.3f}/"
+          f"{o['product']['ms'][1]:.3f}")
+    wall = time.perf_counter() - t_phase
+    g_ms = [x["cs"][k]["call_s"] * 1e3 / cns.N_PROP for x in gloo4[:1] for k in ("0", "1")]
+    print(f"{tag} gloo 4 eager: - 1 card {single4:.1e}, ms/step off/on "
+          f"{g_ms[0]:.1f}/{g_ms[1]:.1f}; torchrun dp epoch joined the launcher's "
+          f"group, graphed; phase {wall:.1f}s (aim 60, budget {RING_BUDGET_S}); "
+          f"{_card()}")
+    if wall > RING_BUDGET_S:
+        raise AssertionError(f"{tag} took {wall:.1f}s, over its {RING_BUDGET_S} s budget")
+    return wall
+
+
+def phase_ring_nccl4(products, flickr):
+    """[ring] at NCCL world 4 (``--parallel-nccl4``, one rank a card): the
+    ring C&S on the products graph (a prediction matrix from seed 0)
+    and the smoothening ring on the flickr-scale graph, graphed against
+    eager and against the single card (cuda:0, in this process), the
+    ring shifts captured; the NCCL kernels' overlap with ``index_add_``
+    from torch.profiler."""
+    import shutil
+    import tempfile
+    import numpy as np
+    import torch
+    from shadow_gnn_torch import TRAIN
+    from shadow_gnn_torch.postproc import cns
+    tag, t0 = "[ring nccl4]", time.perf_counter()
+    g = products
+    rng = np.random.default_rng(0)
+    pred = rng.random((g.num_nodes, int(g.label_full.max()) + 1)).astype(np.float32)
+    y0 = cns.seed_matrix(pred / pred.sum(1, keepdims=True), g.label_full,
+                         g.node_set[TRAIN])
+    want, line_a = _ring_single(g, y0, tag)
+    _detail(line_a)
+    torch.cuda.empty_cache()
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_ring4_")
+    try:
+        spec = dict(dir=tmp, tag="nccl4", cs_graph=os.path.join(tmp, "cs.npz"),
+                    smooth_graph=os.path.join(tmp, "smooth.npz"), smooth=True, cli=None)
+        np.savez(spec["cs_graph"], indptr=g.indptr_full, indices=g.indices_full, y0=y0,
+                 want0=want[False], want1=want[True])
+        np.savez(spec["smooth_graph"], indptr=flickr.indptr_full,
+                 indices=flickr.indices_full, feat=flickr.feat_full)
+        ranks, _ = _ring_spawn(spec, 4, "cuda", "nccl")
+        single, twin = _ring_check(tag, ranks, True)
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    for o in ranks:
+        _detail(f"{tag} {json.dumps(o)}")
+    cs = ranks[0]["cs"]
+    ms = [o["cs"]["0"]["ms"] for o in ranks]
+    print(f"{tag} ring C&S - 1 card {single:.1e}, graphed = eager "
+          f"{_twin_word([twin], 'atomic index_add_')}, {RING_CALLS - 1} replays/key; "
+          f"ms/step e/g a rank "
+          + ", ".join(f"{e:.3f}/{gr:.3f}" for e, gr in ms)
+          + f"; NCCL share {cs['0']['prof'][1][2]}, overlapped "
+          f"{cs['0']['overlap']}; product ms e/g {ranks[0]['product']['ms']}; "
+          f"{time.perf_counter() - t0:.1f}s; {_card()}")
+
+
 def _teardown_rank():
     """One rank of ``phase_parallel_teardown``: a key of the partitioned
     steps' collectives (all-gather, asynchronous reduce-scatter,
-    all-reduce) warmed up, captured and replayed through ``StepGraphs``.
+    all-reduce) and the ring's shift (``batch_isend_irecv``) warmed up,
+    captured and replayed through ``StepGraphs``.
     Returns whether it replayed 3 times, equal to the warm-up; the rank
     then leaves the group (``multihost.shutdown``, ``parallel/launch.py``)."""
     import torch
@@ -4620,8 +5233,10 @@ def _teardown_rank():
     def step():
         out = cc.all_gather(x * 2)
         rs = cc.reduce_scatter_sum(out + 1, async_op=True)
+        shift = cc.ring_shift(x * 3)
         y = g.sum()
-        return cc.all_reduce_sum(torch.cat([rs.wait(), g]))[:8] + y
+        return (cc.all_reduce_sum(torch.cat([rs.wait(), g]))[:8] + y
+                + shift.wait()[:8])
 
     outs = [sg.run(("teardown",), (), step).clone() for _ in range(4)]
     _sync(dev)
@@ -4630,7 +5245,7 @@ def _teardown_rank():
 
 def phase_parallel_teardown(world, device="cuda"):
     """[parallel teardown]: ``world`` ranks, one a card, capture and replay
-    a key of collectives, then leave the group.  An NCCL communicator
+    a key of collectives and a ring shift, then leave the group.  An NCCL communicator
     waits, on destruction, for every graph that holds its collectives: a
     rank that did not destroy its graphs first would never return."""
     from shadow_gnn_torch.parallel import launch
@@ -4638,7 +5253,7 @@ def phase_parallel_teardown(world, device="cuda"):
     if not launch.spawn(_teardown_rank, world, device, timeout_s=PARALLEL_TIMEOUT_S):
         raise AssertionError("[parallel teardown] the key did not replay equal")
     print(f"[parallel teardown] world {world}: a captured key of collectives "
-          f"replayed equal and the ranks left the group in "
+          f"and a ring shift replayed equal and the ranks left the group in "
           f"{time.perf_counter() - t0:.1f}s")
 
 
@@ -4676,8 +5291,10 @@ def _run(here):
         # the partitioned runs across four cards, one rank a card
         runs = (("nccl", 4, "cuda"),)
         phase_parallel_teardown(4)
-        t = phase_parallel(_flickr_graph(), "flagship", runs)
-        t += phase_parallel(_products_graph(), "gat", runs)
+        flickr, products = _flickr_graph(), _products_graph()
+        phase_ring_nccl4(products, flickr)
+        t = phase_parallel(flickr, "flagship", runs)
+        t += phase_parallel(products, "gat", runs)
         print(f"[chip_smoke] [parallel] at NCCL world 4 passed in {t:.1f}s")
         print(_card())
         return 0
@@ -4737,7 +5354,6 @@ def _run(here):
     phase_rest(flickr)
     # partitioned training: the flagship under dp and feat
     t_parallel = phase_parallel(flickr, "flagship")
-    del flickr
     torch.cuda.empty_cache()
 
     # the products GAT-5: serving, training, uncached serving, B2/B3 times
@@ -4754,10 +5370,14 @@ def _run(here):
                    "[gat]")
     rows += phase_time_gat(tr, gat_launches, max_abs_err)
     phase_clocks_gat(tr)
-    phase_infer_gat(tr, products)
+    pred = phase_infer_gat(tr, products)
     # GAT-5 inference over VALID + TEST, graphed against its eager twin
     phase_sampled("gat", products, tr)
     del tr, reqs
+    torch.cuda.empty_cache()
+    # the ring SpMM and the C&S graphs on [infer]'s matrix; torchrun
+    phase_ring(products, pred, flickr)
+    del flickr, pred
     torch.cuda.empty_cache()
 
     # the products GAT-5 at --matmul_precision bfloat16: B2b/B3b

@@ -56,13 +56,14 @@ refused with an error (``REFUSED_FLAGS``).
 from __future__ import annotations
 
 import argparse
-import json
 import os
 import random
 import string
 import sys
 import time
 import traceback
+
+from shadow_gnn_torch.train.config import ConfigFileError, read_config_file
 
 # flags of the JAX CLI the port refuses, and why
 _TPU_ONLY = "a TPU-only mechanism of the JAX package, not ported by design: "
@@ -74,33 +75,15 @@ REFUSED_FLAGS = {
 }
 # --platform -> torch device type
 PLATFORMS = {"cpu": "cpu", "gpu": "cuda", "cuda": "cuda"}
-
-
-class MetaConfigError(ValueError):
-    """A --meta_config file that neither the JSON nor the YAML reader
-    parses."""
+# a --meta_config file that neither the JSON nor the YAML reader parses
+MetaConfigError = ConfigFileError
 
 
 def read_meta_config(path: str) -> dict:
     """The machine meta-config at ``path``: JSON (which is YAML too, and
     needs no PyYAML), else YAML; raises MetaConfigError when neither
     reader parses it."""
-    with open(path) as f:
-        text = f.read()
-    try:
-        return json.loads(text) or {}
-    except json.JSONDecodeError as e:
-        json_err = e
-    try:
-        import yaml
-    except ImportError:
-        raise MetaConfigError(f"--meta_config {path}: not JSON ({json_err}) and "
-                              "PyYAML is not installed to read YAML") from None
-    try:
-        return yaml.safe_load(text) or {}
-    except yaml.YAMLError as e:
-        raise MetaConfigError(f"--meta_config {path}: neither JSON ({json_err}) "
-                              f"nor YAML ({e})") from None
+    return read_config_file(path, "--meta_config")
 
 
 def apply_meta_config(args, metric_map: dict):
@@ -304,14 +287,20 @@ def parse_args(argv=None):
 
 
 def _join_group(args):
-    """``--distributed``: join the launcher's group (a world of 1 from
-    the environment makes a group of one on a free port) and bind the
-    rank's device; ``--partition_devices`` must be 0 or the world size.
-    Returns the rank."""
+    """``--distributed``: join the launcher's group (torchrun's variables,
+    a world of 1 too; without a launcher, a group of one on a free port)
+    and bind the rank's device; ``--partition_devices`` must be 0 or the
+    world size.  Returns the rank."""
     from shadow_gnn_torch.parallel import multihost as mh
     dev = args.device.split(":")[0]
-    if not mh.initialize(device=dev):
+    launched = all(os.environ.get(v) for v in ("MASTER_ADDR", "RANK", "WORLD_SIZE"))
+    world = int(os.environ["WORLD_SIZE"]) if launched else None
+    if not mh.initialize(num_processes=world, device=dev):
         mh.initialize(f"127.0.0.1:{mh.free_port()}", 1, 0, device=dev)
+    where = (f", joined at {os.environ['MASTER_ADDR']}:"
+             f"{os.environ.get('MASTER_PORT', '29500')}" if launched else "")
+    print(f"--distributed: rank {mh.rank()} of {mh.world_size()} ({mh.backend()}) "
+          f"on {mh.device()}{where}")
     if args.partition_devices not in (0, mh.world_size()):
         raise SystemExit(f"--partition_devices {args.partition_devices} but the "
                          f"process group has {mh.world_size()} ranks")
@@ -358,7 +347,6 @@ def main(argv=None):
     metric_map = dict(DATA_METRIC)
     if args.meta_config:
         Logger = apply_meta_config(args, metric_map) or Logger
-    import yaml
     parsed = parse_config(args.config_path)
     metrics = Metrics(args.dataset, parsed["arch_gnn"]["loss"] == "sigmoid",
                       metric_map.get(args.dataset, "accuracy"),
@@ -372,8 +360,7 @@ def main(argv=None):
                f"{timestamp.replace(' ', '_')}-RAND{tie}")
     # the raw yml goes into the run dir, where --inference_dir and the
     # post-processing read it
-    with open(args.config_path) as f:
-        raw_cfg_dump = yaml.safe_load(f)
+    raw_cfg_dump = read_config_file(args.config_path)
     logger = Logger(metrics, dir_log,
                     term_window_size=int(parsed["params_train"]["term_window_size"]),
                     term_window_aggr=parsed["params_train"]["term_window_aggr"],

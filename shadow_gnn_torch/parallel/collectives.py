@@ -34,7 +34,17 @@ asynchronous call's ``wait`` is that join, not a host wait.  A replay
 runs no Python, so the graphs take a capture's calls and bytes and
 credit them on each replay (``graphs.launch_counters``).  ``timing``
 cannot be captured (:func:`refuse_timing`), and gloo's staging through
-host memory neither: a gloo group's steps run eagerly.
+host memory neither: a gloo group's steps run eagerly.  The ring shift
+is captured as the others are: its send and receive run on NCCL's
+stream, its receive buffer is allocated inside the capture (from the
+graph's pool) and its ``wait`` is a join.  c10d creates the
+communicator of a send / receive pair on its first ``batch_isend_irecv``,
+so a key's eager warm-up must run the shifts before its capture.
+
+Outside a process group (a world of 1, the JAX package's one-device
+mesh) each collective answers locally, as JAX's does on one device: the
+gather stacks the one tensor, the sums return it, the ring shift sends
+it to itself.  Nothing is counted then, since nothing travels.
 """
 from __future__ import annotations
 
@@ -64,6 +74,11 @@ def refuse_timing(what: str):
             f"the CUDA graph of {what} cannot hold: time the collectives on an "
             "eager Trainer (cuda_graphs=False), or read NCCL's share of the "
             "device time from torch.profiler")
+
+
+def _local() -> bool:
+    """Whether this process is in no group: a world of 1 answered here."""
+    return not dist.is_initialized()
 
 
 def _sync(t: torch.Tensor):
@@ -120,6 +135,8 @@ def _from_wire(t: torch.Tensor, like: torch.Tensor, dt: torch.dtype) -> torch.Te
 def all_gather(t: torch.Tensor) -> torch.Tensor:
     """[world, *t.shape]: every rank's ``t`` in rank order (JAX
     ``lax.all_gather(t, axis)``)."""
+    if _local():
+        return t.unsqueeze(0).clone()
     w = mh.world_size()
     with _Call(t):
         x, dt = _to_wire(t)
@@ -158,6 +175,9 @@ def reduce_scatter_sum(x: torch.Tensor, async_op: bool = False):
     if x.shape[0] != w:
         raise ValueError(f"reduce_scatter_sum needs a leading dim of the world "
                          f"size {w}, got {tuple(x.shape)}")
+    if _local():
+        pending = _Pending(None, x[0].clone(), x, x.dtype)
+        return pending if async_op else pending.wait()
     with _Call(x):
         xw, dt = _to_wire(x)
         if xw.dtype == torch.uint8 and dt == torch.bool:
@@ -174,6 +194,8 @@ def reduce_scatter_sum(x: torch.Tensor, async_op: bool = False):
 def all_reduce_sum(t: torch.Tensor) -> torch.Tensor:
     """The sum of ``t`` over ranks, on every rank (JAX ``lax.psum``);
     returns a new tensor, ``t`` is left as it was."""
+    if _local():
+        return t.clone()
     with _Call(t):
         x, dt = _to_wire(t)
         x = x.clone() if x.data_ptr() == t.data_ptr() else x
@@ -195,6 +217,8 @@ def ring_shift(t: torch.Tensor) -> "_Ring":
     (mod world) into a new buffer (JAX ``lax.ppermute`` with
     ``perm = [(j, j - 1)]``); ``wait()`` on the result gives the
     received tensor."""
+    if _local():
+        return _Ring([], t, t.clone(), t, t.dtype)
     w, r = mh.world_size(), mh.rank()
     stats["calls"] += 1
     stats["bytes"] += t.numel() * t.element_size()
@@ -206,6 +230,9 @@ def ring_shift(t: torch.Tensor) -> "_Ring":
 
 
 class _Ring:
+    """A ring shift in flight: :meth:`wait` joins it (on NCCL a stream
+    join, which a CUDA graph holds) and gives the received tensor."""
+
     def __init__(self, works, sent, buf, like, dt):
         self.works, self.sent, self.buf, self.like, self.dt = works, sent, buf, like, dt
 

@@ -40,7 +40,21 @@ step, which a Trainer whose group is NCCL captures in a CUDA graph with
 every exchange above (the asynchronous reduce-scatter joined on the
 stream); nothing in it reads a device value on the host.  The epoch
 scan and ``put_global`` have no counterpart: one process a device.
-:func:`ring_spmm` (the smoothening and C&S) runs eagerly.
+
+The ring's jitted programs are CUDA graphs too (``train/graphs.py:
+StepGraphs``, one set an operator, registered for ``release_all``): a
+product of :func:`make_ring_spmm` (the ring and the row gather) under
+the key ``("ring", F)``, and the whole ``n_prop`` loop of
+:func:`make_outcome_correlation` (JAX's ``shard_map`` scan) under
+``("cs", n_prop, F, alpha, use_norm, clamp)``.  Their inputs are static
+buffers written before each call; each key's first call is its eager
+warm-up (it also makes c10d's send / receive communicators), the second
+is captured, every later one replays.  Under capture a chunk's transfer
+stays on NCCL's stream while ``index_add_`` runs on the capturing one: a
+fork in the graph, JAX's ``ppermute`` overlap.  A gloo group and the CPU
+run the same functions eagerly.  With ``n_shards=1`` outside a group the
+collectives answer locally (``parallel/collectives.py``) and the ring is
+one local product.
 """
 from __future__ import annotations
 
@@ -59,6 +73,7 @@ from shadow_gnn_torch.sampling.induction import _locate, _scatter_block, annotat
 from shadow_gnn_torch.sampling.samplers import (PPRTables, _dedup_with_scores,
                                                 sample_nodes_iid, sample_nodes_ppr,
                                                 sample_nodes_ppr_st)
+from shadow_gnn_torch.train.graphs import StepGraphs
 
 
 def require_group(n_shards: int, what: str):
@@ -349,9 +364,13 @@ def ring_spmm(x_local: torch.Tensor, srcb: torch.Tensor, dstb: torch.Tensor,
 
 
 class _RingOperator:
-    """This rank's buckets of A on ``device``, for :func:`ring_spmm`."""
+    """This rank's buckets of A on ``device``, for :func:`ring_spmm`, and
+    the CUDA graphs of the functions run over them (:meth:`run`): on a
+    card outside a group or in an NCCL group, unless ``cuda_graphs`` is
+    False (the eager twin); a gloo group stages through host memory and
+    runs eagerly."""
 
-    def __init__(self, src, dst, val, num_rows: int, device):
+    def __init__(self, src, dst, val, num_rows: int, device, cuda_graphs: bool = True):
         srcb, dstb, valb, self.nl = bucket_edges(src, dst, val, num_rows,
                                                  mh.world_size())
         r = mh.rank()
@@ -359,6 +378,9 @@ class _RingOperator:
         self.srcb = torch.as_tensor(srcb[r].astype(np.int64), device=device)
         self.dstb = torch.as_tensor(dstb[r].astype(np.int64), device=device)
         self.valb = torch.as_tensor(valb[r], device=device)
+        self.graphs = StepGraphs(self.device, cuda_graphs and mh.backend() != "gloo")
+        if self.graphs.enabled:
+            cc.refuse_timing("the ring SpMM")
 
     def local(self, x_full) -> torch.Tensor:
         """This rank's rows of a host or device [num_rows, F] array."""
@@ -378,34 +400,57 @@ class _RingOperator:
         """Every rank's rows, in order, cut to ``num_rows``."""
         return cc.all_gather_rows(y_local)[:self.num_rows]
 
+    def run(self, key: tuple, fn, **inputs: torch.Tensor):
+        """``fn(buf)`` over the static buffers ``buf`` of ``key``, into
+        which ``inputs`` (this rank's rows) are written first, through
+        the operator's graphs: its outputs are static on a graphed
+        operator, to be read before the key's next call."""
+        buf = self.graphs.inputs(key, **inputs)
+        return self.graphs.run(key, (), lambda: fn(buf))
+
 
 def _ring_device(device):
-    return device if device is not None else (mh.device() or "cpu")
+    """The ring's device: the caller's, else the rank's, else the card."""
+    return device if device is not None else (mh.device() or "cuda")
 
 
 def make_ring_spmm(src: np.ndarray, dst: np.ndarray, val: np.ndarray,
-                   num_rows: int, n_devices: int, device=None):
+                   num_rows: int, n_devices: int, device=None,
+                   cuda_graphs: bool = True):
     """``fn(x) -> y``, the distributed Y[src] += val * X[dst] over the
-    ``n_devices`` ranks of the process group (``ops/spmm.py:spmm_edges``
-    semantics): x [num_rows, F] on the host or a device, the same on
-    every rank; y [num_rows, F] on every rank, on ``device`` (default
-    the rank's)."""
+    ``n_devices`` ranks of the process group, or with ``n_devices`` 1
+    over this process (``ops/spmm.py:spmm_edges`` semantics): x
+    [num_rows, F] on the host or a device, the same on every rank; y
+    [num_rows, F], a new tensor, on every rank, on ``device`` (default
+    the rank's, else the card).  Each product after a width's first is
+    a replay of its graph (:class:`_RingOperator`; ``fn.graphs``);
+    ``cuda_graphs`` False runs every one eagerly."""
     require_group(n_devices, "the ring SpMM")
-    op = _RingOperator(src, dst, val, num_rows, _ring_device(device))
-    return lambda x: op.gather(op(op.local(x)))
+    op = _RingOperator(src, dst, val, num_rows, _ring_device(device), cuda_graphs)
+
+    def product(x):
+        x_local = op.local(x)
+        return op.run(("ring", x_local.shape[1]), lambda buf: op.gather(op(buf["x"])),
+                      x=x_local).clone()
+    product.graphs = op.graphs
+    return product
 
 
-def distributed_outcome_correlation(indptr, indices, y0: np.ndarray,
-                                    n_prop: int = 50, alpha: float = 0.8,
-                                    use_norm: bool = False,
-                                    clamp=(0.0, 1.0), n_devices: int = 8,
-                                    device=None) -> np.ndarray:
-    """Correct & Smooth's propagation (``postproc/cns.py``'s
-    semantics: the DGL mean over in-edges with reverse and self edges)
-    with the propagation matrix edge-partitioned and Y row-sharded over
-    the ``n_devices`` ranks: ``n_prop`` ring SpMMs with only elementwise
-    work between them; the rows are gathered at the end.  Every rank
-    passes the same ``y0`` and gets the whole result."""
+def make_outcome_correlation(indptr, indices, n_devices: int, device=None,
+                             cuda_graphs: bool = True):
+    """``fn(y0, n_prop=50, alpha=0.8, use_norm=False, clamp=(0, 1))``:
+    Correct & Smooth's propagation (``postproc/cns.py``'s semantics: the
+    DGL mean over in-edges with reverse and self edges) with the
+    propagation matrix edge-partitioned and Y row-sharded over the
+    ``n_devices`` ranks, [num_rows, F] on the ring's device (static on
+    a graphed operator: read it before the key's next call; ``y0`` a
+    host or device array).  Each call runs ``n_prop`` ring
+    SpMMs with only elementwise work between them and gathers the rows
+    at the end: JAX's ``shard_map`` scan, one CUDA graph a key after its
+    first call (the scaling, ``alpha``, the clamp and the gather in it;
+    ``y0`` and the degrees in static buffers).  Every rank passes the
+    same ``y0`` and gets the whole result.  Built once, it serves every
+    prediction matrix of a C&S run; its ``graphs`` are the operator's."""
     from shadow_gnn_torch.postproc.cns import _cs_edges
 
     require_group(n_devices, "the distributed Correct & Smooth")
@@ -417,21 +462,46 @@ def distributed_outcome_correlation(indptr, indices, y0: np.ndarray,
     w = (1.0 / in_deg[dst]).astype(np.float32)
     # rows = dst (the aggregation target), gather src
     op = _RingOperator(dst.astype(np.int64), src.astype(np.int64), w, n,
-                       _ring_device(device))
+                       _ring_device(device), cuda_graphs)
     deg = op.local(np.pad(in_deg, (0, op.nl * mh.world_size() - n),
                           constant_values=1.0)[:, None])
-    y0_l = op.local(np.asarray(y0, np.float32))
-    y = y0_l
-    for _ in range(n_prop):
-        if use_norm:
-            y = y * torch.rsqrt(deg)
-        y = op(y)
-        if use_norm:
-            y = y * torch.sqrt(deg)
-        y = alpha * y + (1 - alpha) * y0_l
-        if clamp is not None:
-            y = torch.clamp(y, clamp[0], clamp[1])
-    return op.gather(y).cpu().numpy()
+
+    def smooth(y0: np.ndarray, n_prop: int = 50, alpha: float = 0.8,
+               use_norm: bool = False, clamp=(0.0, 1.0)) -> torch.Tensor:
+        clamp = None if clamp is None else tuple(clamp)
+
+        def scan(buf):
+            y0_l = buf["y0"]
+            y = y0_l
+            for _ in range(n_prop):
+                if use_norm:
+                    y = y * torch.rsqrt(deg)
+                y = op(y)
+                if use_norm:
+                    y = y * torch.sqrt(deg)
+                y = alpha * y + (1 - alpha) * y0_l
+                if clamp is not None:
+                    y = torch.clamp(y, clamp[0], clamp[1])
+            return op.gather(y)
+
+        y0_l = op.local(y0)
+        key = ("cs", n_prop, y0_l.shape[1], alpha, use_norm, clamp)
+        return op.run(key, scan, y0=y0_l)
+    smooth.graphs = op.graphs
+    return smooth
+
+
+def distributed_outcome_correlation(indptr, indices, y0: np.ndarray,
+                                    n_prop: int = 50, alpha: float = 0.8,
+                                    use_norm: bool = False,
+                                    clamp=(0.0, 1.0), n_devices: int = 8,
+                                    device=None) -> np.ndarray:
+    """One call of :func:`make_outcome_correlation`'s function: the
+    edge-partitioned C&S propagation of ``y0`` over the ``n_devices``
+    ranks; every rank passes the same ``y0`` and gets the whole
+    result."""
+    return make_outcome_correlation(indptr, indices, n_devices, device)(
+        y0, n_prop, alpha, use_norm, clamp).cpu().numpy()
 
 
 # ---------------------------------------------------------------------------

@@ -12,11 +12,17 @@ The mean over in-edges is built once, on the host, as a CSR matrix
 applied with ``torch.sparse.mm``: the scratch of a step is a few ``y``
 tables, not one row per edge.  On CUDA the product is cuSPARSE's; the
 JAX package computes it with XLA's ``segment_sum``, not with a TPU
-kernel.  With ``n_shards`` > 0 the propagation is edge-partitioned over
-a process group of that many ranks (``parallel/edgepart.py:
-distributed_outcome_correlation``, the ring SpMM): the library functions
-raise by name outside such a group, and :func:`run_correct_smooth`
-spawns the ranks itself when it is called outside one.
+kernel.  JAX jits the 50 steps as one ``lax.scan``; here they are one
+CUDA graph on a card (:class:`Propagation`, ``train/graphs.py``), whose
+input ``y0`` is a static buffer: a key's first call is its eager
+warm-up (cuSPARSE sizes and allocates its workspace there), the second
+is captured, later ones replay.  With ``n_shards`` > 0 the propagation
+is edge-partitioned over a process group of that many ranks
+(``parallel/edgepart.py:make_outcome_correlation``, the ring SpMM),
+graphed the same way on an NCCL group: the library functions raise by
+name outside such a group, except at ``n_shards`` 1, which runs in this
+process, and :func:`run_correct_smooth` spawns the ranks itself when it
+is called outside one.
 """
 from __future__ import annotations
 
@@ -28,6 +34,7 @@ import scipy.sparse as sp
 import torch
 
 from shadow_gnn_torch import TEST, TRAIN, VALID
+from shadow_gnn_torch.train.graphs import StepGraphs
 
 N_PROP = 50
 
@@ -86,6 +93,32 @@ def propagate(op: torch.Tensor, in_deg: torch.Tensor, y0: torch.Tensor,
     return y
 
 
+class Propagation:
+    """:func:`propagate` over one mean operator, its ``n_prop`` steps one
+    CUDA graph a key ``("cs", n_prop, F, alpha, use_norm, clamp)`` on a
+    card (``cuda_graphs`` False: eager).  A call's result is static on
+    the graphed form: read it before the key's next call."""
+
+    def __init__(self, op: torch.Tensor, in_deg: torch.Tensor, cuda_graphs: bool = True):
+        self.op, self.in_deg = op, in_deg
+        self.graphs = StepGraphs(in_deg.device, cuda_graphs)
+
+    def __call__(self, y0: torch.Tensor, n_prop: int = N_PROP, alpha: float = 0.8,
+                 use_norm: bool = False,
+                 clamp: Optional[Tuple[float, float]] = (0.0, 1.0)) -> torch.Tensor:
+        clamp = None if clamp is None else tuple(clamp)
+        key = ("cs", n_prop, y0.shape[1], alpha, use_norm, clamp)
+        buf = self.graphs.inputs(key, y0=y0.float())
+        return self.graphs.run(key, (), lambda: propagate(
+            self.op, self.in_deg, buf["y0"], n_prop, alpha, use_norm, clamp))
+
+
+def _rank_device(device):
+    """A ring's device: the rank's inside a group, else ``device``."""
+    from shadow_gnn_torch.parallel import multihost as mh
+    return mh.device() or device
+
+
 def general_outcome_correlation(indptr, indices, y0: np.ndarray,
                                 n_prop: int = N_PROP, alpha: float = 0.8,
                                 use_norm: bool = False,
@@ -93,15 +126,17 @@ def general_outcome_correlation(indptr, indices, y0: np.ndarray,
                                 n_shards: int = 0, device="cuda") -> np.ndarray:
     """y <- alpha * A_mean y + (1 - alpha) y0, ``n_prop`` times, on
     ``device``; returns y as f32 numpy.  ``n_shards`` > 0: on a rank of
-    a process group of ``n_shards`` (each rank on its own device), the
-    edge-partitioned propagation; every rank gets the whole y."""
+    a process group of ``n_shards`` (each rank on its own device), or in
+    this process at 1, the edge-partitioned propagation; every rank gets
+    the whole y."""
     if n_shards:
         from shadow_gnn_torch.parallel.edgepart import distributed_outcome_correlation
         return distributed_outcome_correlation(indptr, indices, y0, n_prop, alpha,
-                                               use_norm, clamp, n_devices=n_shards)
+                                               use_norm, clamp, n_devices=n_shards,
+                                               device=_rank_device(device))
     op, deg = mean_operator(indptr, indices, device)
-    y0_t = torch.as_tensor(np.asarray(y0, np.float32), device=deg.device)
-    return propagate(op, deg, y0_t, n_prop, alpha, use_norm, clamp).cpu().numpy()
+    y0_t = torch.as_tensor(np.asarray(y0, np.float32))
+    return Propagation(op, deg)(y0_t, n_prop, alpha, use_norm, clamp).cpu().numpy()
 
 
 def seed_matrix(pred: np.ndarray, label: np.ndarray, train_idx: np.ndarray):
@@ -118,7 +153,9 @@ def correct_smooth(indptr, indices, label_full: np.ndarray,
     """The smooth step on each prediction matrix of ``pred_list``;
     returns (acc_orig, acc_cs): per mode, the accuracy list over the
     matrices before and after the step.  ``n_shards`` > 0: on a rank of
-    a process group of ``n_shards``, the edge-partitioned propagation."""
+    a process group of ``n_shards`` (or in this process at 1), the
+    edge-partitioned propagation.  Every matrix replays the
+    propagation's graph once the first has warmed it up."""
     lab = label_full.astype(np.int64)
     acc_orig = {TRAIN: [], VALID: [], TEST: []}
     acc_cs = {TRAIN: [], VALID: [], TEST: []}
@@ -128,17 +165,16 @@ def correct_smooth(indptr, indices, label_full: np.ndarray,
         return float((y[idx].argmax(1) == lab[idx]).mean())
 
     if n_shards:
-        from shadow_gnn_torch.parallel.edgepart import distributed_outcome_correlation
+        from shadow_gnn_torch.parallel.edgepart import make_outcome_correlation
+        ring = make_outcome_correlation(indptr, indices, n_shards, _rank_device(device))
 
         def smooth(y):
-            return distributed_outcome_correlation(indptr, indices, y, N_PROP, alpha,
-                                                   use_norm, n_devices=n_shards)
+            return ring(y, N_PROP, alpha, use_norm).cpu().numpy()
     else:
-        op, deg = mean_operator(indptr, indices, device)
+        prop = Propagation(*mean_operator(indptr, indices, device))
 
         def smooth(y):
-            return propagate(op, deg, torch.as_tensor(y, device=deg.device), N_PROP,
-                             alpha, use_norm).cpu().numpy()
+            return prop(torch.as_tensor(y), N_PROP, alpha, use_norm).cpu().numpy()
     for pred in pred_list:
         y = seed_matrix(pred, lab, node_set[TRAIN])
         for m in (TRAIN, VALID, TEST):

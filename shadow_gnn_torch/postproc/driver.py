@@ -22,9 +22,9 @@ from shadow_gnn_torch import TEST, TRAIN, VALID
 
 
 def load_postproc_config(path: str) -> dict:
-    import yaml
-    with open(path) as f:
-        return yaml.safe_load(f)
+    """The post-processing config at ``path`` (JSON or YAML)."""
+    from shadow_gnn_torch.train.config import read_config_file
+    return read_config_file(path)
 
 
 def run_postproc(args, cfg=None) -> int:

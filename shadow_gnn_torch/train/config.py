@@ -8,6 +8,7 @@ width), with the same defaults and validation as the JAX package's
 from __future__ import annotations
 
 import copy
+import json
 from typing import Any, Dict, List
 
 DEFAULT_DATA = {
@@ -59,6 +60,33 @@ DATA_METRIC = {
 }
 
 
+class ConfigFileError(ValueError):
+    """A config file that neither the JSON nor the YAML reader parses."""
+
+
+def read_config_file(path: str, what: str = "config") -> Dict[str, Any]:
+    """The dict of the config file at ``path`` (``what`` names it in an
+    error): JSON (which is YAML too, and needs no PyYAML, which a machine
+    may lack), else YAML; raises ConfigFileError when neither reader
+    parses it."""
+    with open(path) as f:
+        text = f.read()
+    try:
+        return json.loads(text) or {}
+    except json.JSONDecodeError as e:
+        json_err = e
+    try:
+        import yaml
+    except ImportError:
+        raise ConfigFileError(f"{what} {path}: not JSON ({json_err}) and PyYAML "
+                              "is not installed to read YAML") from None
+    try:
+        return yaml.safe_load(text) or {}
+    except yaml.YAMLError as e:
+        raise ConfigFileError(f"{what} {path}: neither JSON ({json_err}) nor YAML "
+                              f"({e})") from None
+
+
 def _check(ok: bool, what: str):
     if not ok:
         raise ValueError(f"invalid config: {what}")
@@ -71,9 +99,7 @@ def parse_config(path_or_dict) -> Dict[str, Any]:
     if isinstance(path_or_dict, dict):
         raw = copy.deepcopy(path_or_dict)
     else:
-        import yaml
-        with open(path_or_dict) as f:
-            raw = yaml.safe_load(f)
+        raw = read_config_file(path_or_dict)
 
     config_data = dict(DEFAULT_DATA)
     config_data.update(raw.get("data", {}))

@@ -126,13 +126,16 @@ def _propagate(x: torch.Tensor, product, type_norm: str, order: int,
 
 def smooth_signal_full(indptr, indices, signal: np.ndarray, type_norm: str,
                        order: int, reduction: str, args: Dict,
-                       device="cpu", n_shards: int = 0) -> Tuple[np.ndarray, int]:
-    """Full-graph smoothening (preproc.py:143-165) on ``device``, each
-    propagated signal kept on the host.  ``n_shards`` > 0 runs every
-    product as the ring SpMM over a process group of that many ranks
-    (``parallel/edgepart.py:make_ring_spmm``; raises outside one), each
-    rank on its own device.  Returns (smoothed signal, propagation steps
-    taken)."""
+                       device="cuda", n_shards: int = 0) -> Tuple[np.ndarray, int]:
+    """Full-graph smoothening (preproc.py:143-165) on ``device`` (the
+    card unless the caller asks for the CPU), each propagated signal
+    kept on the host.  ``n_shards`` > 0 runs every product as the ring
+    SpMM over a process group of that many ranks, or in this process at
+    1 (``parallel/edgepart.py:make_ring_spmm``, a replay of its graph
+    after the first product; raises outside a group of more), each rank
+    on its own device.  The ppr iteration reads its change on the host
+    after each product, as JAX's does.  Returns (smoothed signal,
+    propagation steps taken)."""
     n = indptr.size - 1
     norm = args["norm_adj"] if type_norm == "ppr" else type_norm
     edges = _norm_edges(indptr, indices, norm,

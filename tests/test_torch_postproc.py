@@ -104,6 +104,20 @@ def test_correct_smooth_accuracies_match_jax(use_norm):
                             use_norm, 0.8, n_shards=4, device="cpu")
 
 
+@pytest.mark.parametrize("use_norm", [False, True])
+def test_correct_smooth_n_shards_1_outside_a_group(use_norm):
+    """``n_shards=1`` in a process of no group runs the edge-partitioned
+    propagation in this process (it raised before): JAX's accuracies,
+    the same as ``n_shards=0``."""
+    indptr, indices, g = _graph_with_self_loops()
+    preds = [_preds(g, 0), _preds(g, 1)]
+    want = jcns.correct_smooth(indptr, indices, g.label_full, g.node_set, preds,
+                               use_norm, 0.8, n_shards=1)
+    got = tcns.correct_smooth(indptr, indices, g.label_full, g.node_set, preds,
+                              use_norm, 0.8, n_shards=1, device="cpu")
+    assert got == want
+
+
 SAGE_CFG = {
     "data": {"to_undirected": True, "transductive": True},
     "architecture": {"dim": 16, "aggr": "sage", "loss": "softmax",

@@ -85,7 +85,7 @@ def test_smooth_signal_full_matches_jax(cfg, monkeypatch):
     want = jpre.smooth_signal_full(g.indptr_full, g.indices_full, sig, tn, order,
                                    red, args)
     got, steps = tpre.smooth_signal_full(g.indptr_full, g.indices_full, sig, tn,
-                                         order, red, args)
+                                         order, red, args, device="cpu")
     assert steps == len(calls) and (tn != "ppr" or 1 < steps < args["itr_max"])
     assert got.shape == want.shape
     np.testing.assert_allclose(got, np.asarray(want), rtol=1e-5, atol=1e-6)
