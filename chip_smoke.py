@@ -167,8 +167,8 @@ Phases, each fatal on failure (an uncaught exception, non-zero exit):
              hub-induced TRAIN blocks of the cache against the ``search``
              strategy on the same node tables (bit for bit), uncached
              serving against cached, then 10 cold (uncached) TRAIN steps
-             with ``induce`` timed against the whole step (CUDA events),
-             printed as ``[induce] cold step: induce X ms of Y ms``;
+             timed (CUDA events; their split by stage is
+             ``[sampled power]``'s);
 13. ensemble — ``configs/arxiv_ensemble_ppr_khop.yml`` at full width
              (GAT, 2 heads, dim 256, 3 layers; a PPR-100 branch, n_pad
              104, and a khop depth-2 budget-10 branch, n_pad 112, softmax
@@ -178,8 +178,8 @@ Phases, each fatal on failure (an uncaught exception, non-zero exit):
              serving (6 B2 launches a request; the khop picks seeded per
              request), the first-step check, ``train()`` with B2 and B3
              launched from both branches (counted by block width), the
-             khop overflow, and 10 timed TRAIN steps with the khop
-             branch's sampling and induction share;
+             khop overflow, and 10 timed TRAIN steps (their split by
+             stage is ``[sampled ensemble]``'s);
 14. infer   — reload, inference and post-processing, each part run on
              the trainer of its model right after that model's training
              phase: the flagship (f32, its three caches built):
@@ -229,10 +229,11 @@ Phases, each fatal on failure (an uncaught exception, non-zero exit):
              ``torch.bmm``; its DRNL BFS is the BFS kernel), finite
              losses, every parameter moved, hits@50 in [0, 1], the final
              stats reproduced by ``inference``, its edges per second;
-             then 10 timed TRAIN steps (sampling included) with the share
-             of sampling, induction and DRNL, and their device-busy share
-             (torch.profiler; its top operations under ``--profile``),
-             and the BFS kernel timed at the link's shape (S = 2);
+             then 10 timed TRAIN steps (sampling included; their split
+             by stage is ``[sampled link]``'s) and their device-busy
+             share (torch.profiler; its top operations under
+             ``--profile``), and the BFS kernel timed at the link's
+             shape (S = 2);
 16. parallel — partitioned training (``shadow_gnn_torch/parallel``),
              run twice: after ``rest`` the flagship (its cuts, dropout 0,
              dropedge 0, 1 epoch) and after the GAT-5 phases the GAT-5
@@ -299,14 +300,23 @@ Phases, each fatal on failure (an uncaught exception, non-zero exit):
              checks run eagerly, ``StepGraphs.paused``);
 18. bfs     — after phase 2, the BFS kernel (``csrc/bfs_hops.cu``) against
              its plain version (the host loop) bit for bit on a chain (N
-             - 1 levels), two components, a block with padding rows and
-             a random block at N 24/208/408/907, S = 1 and 2, and its
-             refusal of N above ``MAX_N``; in ``power``, the cached TRAIN
+             - 1 levels), two components, a block with padding rows, a
+             random block, a block whose frontier rows cancel (-1 and -3
+             entries: a sum of 0 or less where an entry is > 0) and a
+             dense block at N of ``BFS_SIZES`` (N % 4 != 0 among them), S
+             = 1 and 2, on random blocks whose B * S passes the SM count
+             (``BFS_WIDE``), on a chain of ``MAX_N`` nodes, and its
+             refusal of N above ``MAX_N``; the two sides of
+             ``launch_dims``' cluster rule timed on hub blocks at N of
+             ``BFS_RULE_SIZES`` (208: one CTA a source, 408 and 907: a
+             cluster, each beside the other); in ``power``, the cached TRAIN
              subgraphs (hops through the kernel) byte-equal to a cache
              built through the plain BFS, and the kernel timed on one
              cold TRAIN batch (B=64, N=208, S=1): the ``bfs_hops`` row of
              the ``kernels`` line, its launches those of the graphed
-             twins below;
+             twins below; in ``link`` on one DRNL batch (B=16, N=408, S
+             = 2); both times beside the other side of the rule's to
+             the log;
 19. sampled graphs — the compiled sampled step, run at the end of
              ``power`` (the cold steps: TRAIN uncached), ``gat`` (the
              GAT-5's ``inference`` of VALID and TEST), ``ensemble`` (its
@@ -323,7 +333,12 @@ Phases, each fatal on failure (an uncaught exception, non-zero exit):
              then steps (2 rounds of
              eager, graphed, graphed, eager windows of 8) and requests
              timed in turns, with the device-busy share and host CUDA
-             calls a step; ``SAMPLED_BUDGET_S`` for the four parts;
+             calls a step; for the TRAIN steps (power, ensemble, link)
+             the device time by stage (``_stage_split``: sample,
+             membership, annotate, BFS, forward, backward, optimizer; a
+             profiled eager window, kernels by launching range) and the
+             graphed window's device time by kernel;
+             ``SAMPLED_BUDGET_S`` for the four parts;
 20. ring    — after the GAT-5's ``[infer]`` and ``[sampled gat]``, on
              [infer]'s prediction matrix, labels and products graph
              (every TRAIN label known; ``phase_ring``): (a) the
@@ -2662,54 +2677,31 @@ def _step_fn(tr, seed=5):
 
 def _timed_steps(tr, n_steps):
     """``n_steps`` steps of :func:`_step_fn`, after one warm-up step, each
-    timed with CUDA events: the whole step, and within it every
-    ``sample_subgraphs`` call (by sampler), every ``induce`` and every
-    ``drnl_labels`` (link task).  Returns the medians {"step", "sample
-    <method>", "induce <method>", "drnl"} in ms and the summed induction
-    overflow, read once after the steps."""
+    timed with CUDA events.  Returns their median in ms and the summed
+    induction overflow, read once after the steps (the split by stage is
+    ``_stage_split``'s, in ``[sampled ...]``)."""
     import torch
-    from shadow_gnn_torch.sampling import induction, samplers
-    from shadow_gnn_torch.train import pipeline
-    rec, overflow = [], [0]
+    from shadow_gnn_torch.sampling import samplers
+    overflow = [0]
 
-    def timed(fn, kind, cfg_at):
-        def wrapper(*args, **kw):
-            ev = (torch.cuda.Event(enable_timing=True),
-                  torch.cuda.Event(enable_timing=True))
-            ev[0].record()
-            out = fn(*args, **kw)
-            ev[1].record()
-            rec.append((kind if cfg_at is None else f"{kind} {args[cfg_at].method}",
-                         ev))
-            if kind == "induce":
-                overflow[0] = overflow[0] + out.overflow     # on the device
-            return out
-        return wrapper
+    def counted(*args, **kw):
+        out = induce(*args, **kw)
+        overflow[0] = overflow[0] + out.overflow            # on the device
+        return out
 
-    step, steps = _step_fn(tr), []
+    induce, step, evs = samplers.induce, _step_fn(tr), []
     tr.model.train()
-    with _Swap((pipeline, "sample_subgraphs", timed(pipeline.sample_subgraphs,
-                                                    "sample", 0)),
-               (samplers, "induce", timed(samplers.induce, "induce", 4)),
-               (induction, "drnl_labels", timed(induction.drnl_labels, "drnl", None))):
+    with _Swap((samplers, "induce", counted)):
         for i in range(n_steps + 1):
-            first = len(rec)
             ev = (torch.cuda.Event(enable_timing=True),
                   torch.cuda.Event(enable_timing=True))
             ev[0].record()
             step(i)
             ev[1].record()
-            steps.append((ev, first, len(rec)))
+            evs.append(ev)
     torch.cuda.synchronize()
     tr.model.eval()
-    per = {}
-    for ev, first, last in steps[1:]:
-        one = {"step": ev[0].elapsed_time(ev[1])}
-        for key, e in rec[first:last]:
-            one[key] = one.get(key, 0.0) + e[0].elapsed_time(e[1])
-        for key, ms in one.items():
-            per.setdefault(key, []).append(ms)
-    return {k: _median(v) for k, v in per.items()}, int(overflow[0])
+    return _median([a.elapsed_time(b) for a, b in evs[1:]]), int(overflow[0])
 
 
 def _profile_steps(tr, label, wall_ms, top=True):
@@ -2728,7 +2720,7 @@ def phase_power_law(graph, profile=False):
     the plain versions and against uncached serving, the hub-induced
     blocks against the search strategy, 1 epoch of ``train()`` through
     B1a/B1b, the TRAIN cache through the BFS kernel against the plain
-    BFS's, and cold (uncached) TRAIN steps with ``induce`` timed, then
+    BFS's, and cold (uncached) TRAIN steps timed, then
     ``phase_sampled("power")``.  Returns (the launches, the BFS kernel's
     row)."""
     import torch
@@ -2750,16 +2742,13 @@ def phase_power_law(graph, profile=False):
     phase_uncached(tr, reqs, SERVE_SIZES, packed_spmm, 0, tag)
     tr.disable_cache(TRAIN)
     cold, overflow = _timed_steps(tr, COLD_STEPS)
-    print(f"[induce] cold step: induce {cold['induce ppr']:.3f} ms of "
-          f"{cold['step']:.3f} ms (median of {COLD_STEPS} uncached TRAIN steps, "
-          f"B={tr.batch_size}, CUDA events; sample + induce "
-          f"{cold['sample ppr']:.3f} ms, overflow {overflow}; the cached "
-          f"step's median {step_ms:.3f} ms)")
+    print(f"[power] cold step {cold:.3f} ms (median of {COLD_STEPS} uncached TRAIN "
+          f"steps, B={tr.batch_size}, CUDA events; by stage: [sampled power]), "
+          f"overflow {overflow}; cached step {step_ms:.3f} ms")
     if overflow:
         raise AssertionError(f"the exact plan overflowed by {overflow}")
     if profile:
-        _profile_steps(tr, "power cold TRAIN step (sampling included)",
-                       cold["step"])
+        _profile_steps(tr, "power cold TRAIN step (sampling included)", cold)
     # the cold step graphed against its eager twin
     phase_sampled("power", graph, tr)
     del tr, reqs
@@ -2809,8 +2798,8 @@ def phase_ensemble(graph, profile=False):
     """The two-branch PPR + khop GAT ensemble: plans, serving (kernels
     against plain versions; the khop picks seeded per request), the first
     TRAIN step's check, ``train()`` with B2 and B3 launched from both
-    branches, and timed steps with the khop branch's sampling and
-    induction share.  Returns (B2, B3 launches over ``train()``, by
+    branches, and timed steps (``phase_sampled("ensemble")`` splits them
+    by stage).  Returns (B2, B3 launches over ``train()``, by
     block width)."""
     import torch
     from shadow_gnn_torch.ops.gat import gat_attention, gat_attention_bwd
@@ -2843,15 +2832,12 @@ def phase_ensemble(graph, profile=False):
             serve_n.get(("B2", n), 0) > 0 for n in ENSEMBLE_WIDTHS):
         raise AssertionError("B2 / B3 did not launch from both branches")
     timed, overflow = _timed_steps(tr, COLD_STEPS)
-    khop = timed["sample khop"]
-    print(f"{tag} step median {timed['step']:.3f} ms over {COLD_STEPS} TRAIN steps "
-          f"(sampling included; train()'s model-step median {step_ms:.3f} ms): "
-          f"khop sample + induce {khop:.3f} ms ({100 * khop / timed['step']:.1f}%), "
-          f"of which induce {timed['induce khop']:.3f} ms; khop overflow {overflow}")
+    print(f"{tag} step median {timed:.3f} ms over {COLD_STEPS} TRAIN steps "
+          f"(sampling included; train()'s model-step median {step_ms:.3f} ms; by "
+          f"stage: [sampled ensemble]); khop overflow {overflow}")
     if profile:
         phase_profile(tr, reqs, p50, (1, 128), "ensemble")
-        _profile_steps(tr, "ensemble TRAIN step (sampling included)",
-                       timed["step"])
+        _profile_steps(tr, "ensemble TRAIN step (sampling included)", timed)
     phase_infer_ensemble(tr)
     phase_sampled("ensemble", graph, tr)
     del tr, reqs
@@ -3438,16 +3424,12 @@ def phase_link(graph, profile=False):
         raise AssertionError("inference does not reproduce the final stats")
 
     timed, overflow = _timed_steps(tr, COLD_STEPS)
-    share = timed["sample ppr_st"]
-    print(f"{tag} step median {timed['step']:.3f} ms over {COLD_STEPS} TRAIN steps "
-          f"(sampling included, CUDA events): sample + induce + drnl "
-          f"{share:.3f} ms ({100 * share / timed['step']:.1f}%), of which induce "
-          f"{timed['induce ppr_st']:.3f} ms, drnl {timed['drnl']:.3f} ms; overflow "
-          f"{overflow}; {tr.batch_size / timed['step'] * 1e3:.0f} edges/s ({card})")
+    print(f"{tag} step median {timed:.3f} ms over {COLD_STEPS} TRAIN steps "
+          f"(sampling included, CUDA events; by stage: [sampled link]); overflow "
+          f"{overflow}; {tr.batch_size / timed * 1e3:.0f} edges/s ({card})")
     if overflow:
         raise AssertionError(f"the exact plan overflowed by {overflow}")
-    _profile_steps(tr, "link TRAIN step (sampling included)", timed["step"],
-                   top=profile)
+    _profile_steps(tr, "link TRAIN step (sampling included)", timed, top=profile)
     _time_optimizer(tr, tag)
     # the BFS kernel at the link shape (DRNL: S = 2), then the step graphed
     roots = tr._epoch_arrays(TRAIN)[1]
@@ -3455,7 +3437,9 @@ def phase_link(graph, profile=False):
     with torch.no_grad():
         batch = tr._sample_branch_batches(TRAIN, roots_d, roots_d,
                                           torch.Generator(device="cuda"))[0][0]
-    _bfs_time(batch, 2, tag)
+    ms, _, bound_ms, _ = _bfs_time(batch, 2, tag)
+    print(f"{tag} bfs_hops (DRNL, B={batch.adj.shape[0]}, S=2) {ms:.4f} ms, bound "
+          f"{bound_ms:.5f}")
     phase_sampled("link", graph, tr)
 
     del tr
@@ -3757,20 +3741,25 @@ SAMPLED_BUDGET_S = 150          # the phase aims at 90 s
 SAMPLED_WINDOW = 8              # steps of a timed window
 SAMPLED_ROUNDS = 2              # rounds of eager, graphed, graphed, eager windows
 SAMPLED_REQS = 6                # timed requests of each size and twin, in turns
-BFS_SIZES = (24, 208, 408, 907)
+BFS_SIZES = (24, 37, 208, 210, 408, 907)     # 37, 210, 907: N % 4 != 0
+BFS_WIDE = (100, 64)            # B, N of the case whose B * S passes the SM count
+BFS_RULE_SIZES = (208, 408, 907)  # N of the timed sides of the cluster rule
 # what the [sampled graphs] parts add up: their seconds, and the BFS
 # kernel's launches over the graphed twins' passes (its main paths)
 _SAMPLED = {"seconds": 0.0, "bfs_launches": 0}
 
 
 def _bfs_cases(n, gen):
-    """[4, n, n] f32 blocks on the card, a self edge on every valid node:
+    """[6, n, n] f32 blocks on the card, a self edge on every valid node:
     a chain (n - 1 levels from node 0), two components, a block whose last
-    quarter is padding (masked, its rows empty), a random sparse block;
-    the mask; starts [4, 2] (the padded block's second on padding, the
-    random block's second beyond N)."""
+    quarter is padding (masked, its rows empty), a random sparse block, a
+    block whose frontier rows cancel (node 0's row reaches 1 and 2; at
+    the next level row 1 holds +1 and row 2 -1 on the columns 3 .. n/2,
+    and -3 beside row 2's +1 on column n - 1: a sum of 0 or less where an
+    entry is > 0), a dense block; the mask; starts [6, 2] (the padded
+    block's second on padding, the random block's second beyond N)."""
     import torch
-    adj = torch.zeros(4, n, n, device="cuda")
+    adj = torch.zeros(6, n, n, device="cuda")
     i = torch.arange(n - 1, device="cuda")
     adj[0, i, i + 1] = 1.0
     adj[0, i + 1, i] = 1.0
@@ -3780,40 +3769,130 @@ def _bfs_cases(n, gen):
                       < 3.0 / n).float()
     adj[2] = (torch.rand(n, n, generator=gen, device="cuda") < 3.0 / n).float()
     adj[3] = (torch.rand(n, n, generator=gen, device="cuda") < 2.0 / n).float()
-    mask = torch.ones(4, n, dtype=torch.bool, device="cuda")
+    adj[4] = (torch.rand(n, n, generator=gen, device="cuda") < 2.0 / n).float()
+    if n >= 8:
+        adj[4, 0] = 0.0
+        adj[4, 0, 1:3] = 1.0
+        adj[4, 1, 3:] = 1.0
+        adj[4, 2, 3:h + 1] = -1.0
+        adj[4, 1, n - 1], adj[4, 2, n - 1] = -3.0, 1.0
+    adj[5] = (torch.rand(n, n, generator=gen, device="cuda") < 0.5).float()
+    mask = torch.ones(6, n, dtype=torch.bool, device="cuda")
     mask[2, n - n // 4:] = False
     adj[2, n - n // 4:] = 0.0
     eye = torch.eye(n, device="cuda").bool()
     adj = torch.where(eye[None] & mask[:, :, None], 1.0, adj)
-    starts = torch.tensor([[0, n - 1], [1, h + 1], [2, n - 1], [3, n]], device="cuda")
+    starts = torch.tensor([[0, n - 1], [1, h + 1], [2, n - 1], [3, n], [0, n // 3],
+                           [n // 2, 1]], device="cuda")
     return adj, starts, mask
+
+
+def _sms():
+    """The card's streaming multiprocessors."""
+    import torch
+    return torch.cuda.get_device_properties(0).multi_processor_count
+
+
+def _bfs_sides(adj, starts, mask, want, what):
+    """The BFS kernel at ``launch_dims``' cluster size and at the other
+    side of its rule (one CTA where it takes a cluster, else the largest
+    cluster that fits the SMs), each equal to ``want`` bit for bit:
+    {cluster: ms}, ``launch_dims``' first; the launches not counted."""
+    import torch
+    from shadow_gnn_torch.ops import bfs
+    b, n = adj.shape[:2]
+    s = starts.shape[1]
+    chosen = bfs.launch_dims(b, n, s, _sms()).cluster
+    other = 1 if chosen > 1 else next(
+        (c for c in bfs.CLUSTERS if b * s * c <= _sms()), 1)
+    count = bfs.bfs_hops_multi.launches
+    times = {}
+    for c in dict.fromkeys((chosen, other)):
+        def forced(b_, n_, s_, sms, c=c):
+            return bfs.cluster_dims(b_, n_, s_, c)
+        with _Swap((bfs, "launch_dims", forced)):
+            if not torch.equal(bfs.bfs_hops_multi(adj, starts, mask), want):
+                raise AssertionError(f"{what} the BFS kernel at cluster {c} differs "
+                                     "from the plain version")
+            times[c] = _time_ms(lambda: bfs.bfs_hops_multi(adj, starts, mask))
+    bfs.bfs_hops_multi.launches = count
+    return times
+
+
+def _bfs_check(adj, starts, mask, what):
+    """The BFS kernel against its plain version on one case, bit for bit
+    (its detail to the log).  Returns the largest |kernel - plain|."""
+    import torch
+    from shadow_gnn_torch.ops import bfs
+    got = bfs.bfs_hops_multi(adj, starts, mask)
+    want = bfs.bfs_hops_plain(adj, starts, mask)
+    torch.cuda.synchronize()
+    if not torch.equal(got, want):
+        raise AssertionError(f"[bfs] {what}: the kernel differs from the plain version "
+                             f"in {int((got != want).sum())} entries")
+    b, n = adj.shape[:2]
+    _detail(f"[bfs] {what}: kernel = plain bit for bit (cluster "
+            f"{bfs.launch_dims(b, n, starts.shape[1], _sms()).cluster}, levels "
+            f"{[int(x) for x in want.amax((1, 2))][:8]}, {int((want >= 0).sum())} "
+            "nodes reached)")
+    return int((got - want).abs().max())
 
 
 def phase_bfs():
     """The BFS kernel (``csrc/bfs_hops.cu``) against its plain version,
-    bit for bit: chain, disconnected, padded and random blocks at N of
-    ``BFS_SIZES``, S = 1 and 2; an N above its limit is refused by name.
-    Returns the largest |kernel - plain|."""
+    bit for bit: chain, disconnected, padded, random, cancelling and dense
+    blocks at N of ``BFS_SIZES`` (N % 4 != 0 among them), S = 1 and 2;
+    random blocks whose B * S passes the SM count (``BFS_WIDE``); a chain
+    of ``MAX_N`` nodes; an N above it is refused by name.  Returns the
+    largest |kernel - plain|."""
     import torch
     from shadow_gnn_torch.ops import bfs
+    t0 = time.perf_counter()
     gen = torch.Generator(device="cuda").manual_seed(4)
     cases, err = 0, 0
     for n in BFS_SIZES:
         adj, starts, mask = _bfs_cases(n, gen)
         for s in (1, 2):
-            st = starts[:, :s].contiguous()
-            got = bfs.bfs_hops_multi(adj, st, mask)
-            want = bfs.bfs_hops_plain(adj, st, mask)
-            torch.cuda.synchronize()
-            err = max(err, int((got - want).abs().max()))
-            if not torch.equal(got, want):
-                raise AssertionError(f"[bfs] N={n} S={s}: the kernel differs from the "
-                                     f"plain version in {int((got != want).sum())} "
-                                     "entries")
+            err = max(err, _bfs_check(adj, starts[:, :s].contiguous(), mask,
+                                      f"N={n} S={s}"))
             cases += 1
-            _detail(f"[bfs] N={n} S={s}: kernel = plain bit for bit (levels "
-                    f"{[int(x) for x in want.amax((1, 2))]}, "
-                    f"{int((want >= 0).sum())} nodes reached)")
+    b, n = BFS_WIDE
+    adj = (torch.rand(b, n, n, generator=gen, device="cuda") < 3.0 / n).float()
+    mask = torch.ones(b, n, dtype=torch.bool, device="cuda")
+    adj = torch.where(torch.eye(n, device="cuda").bool()[None], 1.0, adj)
+    starts = torch.randint(0, n, (b, 2), generator=gen, device="cuda")
+    err = max(err, _bfs_check(adj, starts, mask, f"B={b} N={n} S=2"))
+    del adj
+    # the limit: a chain of MAX_N nodes, MAX_N - 1 levels from node 0
+    n = bfs.MAX_N
+    adj = torch.zeros(1, n, n, device="cuda")
+    i = torch.arange(n - 1, device="cuda")
+    adj[0, i, i + 1] = adj[0, i + 1, i] = 1.0
+    adj[0, i, i] = 1.0
+    chain = (adj, torch.zeros(1, 1, dtype=torch.int64, device="cuda"),
+             torch.ones(1, n, dtype=torch.bool, device="cuda"))
+    err = max(err, _bfs_check(*chain, f"chain N={n}"))
+    if not torch.equal(bfs.bfs_hops_multi(*chain)[0, 0],
+                       torch.arange(n, device="cuda")):
+        raise AssertionError(f"[bfs] the chain of {n} nodes has other levels")
+    del adj, chain
+    torch.cuda.empty_cache()
+    # the two sides of launch_dims' cluster rule (CLUSTER_MIN_N): blocks
+    # like the cold step's PPR subgraphs (a hub on every node, random
+    # edges), B = 8, S = 1, N below and above the rule
+    sides, won = [], {True: [], False: []}
+    for n in BFS_RULE_SIZES:
+        adj = (torch.rand(8, n, n, generator=gen, device="cuda") < 4.0 / n).float()
+        adj[:, 0] = adj[:, :, 0] = 1.0
+        adj = torch.where(torch.eye(n, device="cuda").bool()[None], 1.0, adj)
+        starts = torch.zeros(8, 1, dtype=torch.int64, device="cuda")
+        mask = torch.ones(8, n, dtype=torch.bool, device="cuda")
+        t = _bfs_sides(adj, starts, mask, bfs.bfs_hops_plain(adj, starts, mask),
+                       f"[bfs] N={n}")
+        sides.append(f"N={n} " + " vs ".join(f"C{c} {ms:.4f}" for c, ms in t.items()))
+        won[min(t, key=t.get) == next(iter(t))].append(n)
+    _detail(f"[bfs] launch_dims' cluster vs the other side (hub blocks, B=8, S=1, "
+            f"ms): {'; '.join(sides)}")
     big = bfs.MAX_N + 1
     try:
         bfs.check_shapes(torch.empty(1, big, big, device="meta"),
@@ -3824,8 +3903,10 @@ def phase_bfs():
     else:
         raise AssertionError(f"[bfs] N={big} was not refused")
     _detail(f"[bfs] refused: {refused}")
-    print(f"[bfs] kernel = plain bit for bit over {cases} cases (N {BFS_SIZES}, S 1 "
-          f"and 2); N={big} refused")
+    print(f"[bfs] kernel = plain bit for bit: {cases} cases (N {BFS_SIZES}, S 1/2), "
+          f"B*S {2 * BFS_WIDE[0]}, a chain of N={bfs.MAX_N}; N={big} refused; cluster "
+          f"rule faster at N {won[True]}, slower {won[False]}; "
+          f"{time.perf_counter() - t0:.1f}s")
     return err
 
 
@@ -3848,7 +3929,8 @@ def _bfs_time(batch, s, tag):
     """The BFS kernel and its plain version on ``batch``'s blocks from its
     first ``s`` targets: (kernel ms, plain ms, bound ms, bytes); the
     bound counts the rows of the nodes the sources reach (each read once),
-    the mask, the starts and the output."""
+    the mask, the starts and the output.  The kernel at the other side of
+    ``launch_dims``' cluster rule goes to the log beside its own."""
     import torch
     from shadow_gnn_torch.ops import bfs
     adj = batch.adj.contiguous()
@@ -3861,11 +3943,12 @@ def _bfs_time(batch, s, tag):
     rows = int((dist >= 0).any(1).sum())
     byts = rows * n * 4 + b * n + b * s * 8 + b * s * n * 8
     bound_ms = byts / HBM_BYTES_PER_S * 1e3
-    count = bfs.bfs_hops_multi.launches
-    ms = _time_ms(lambda: bfs.bfs_hops_multi(adj, starts, mask))
-    bfs.bfs_hops_multi.launches = count
+    sides = _bfs_sides(adj, starts, mask, dist, tag)
+    cluster, ms = next(iter(sides.items()))
     plain_ms = _time_eager_ms(lambda: bfs.bfs_hops_plain(adj, starts, mask))
-    _detail(f"{tag} bfs_hops B={b} N={n} S={s}: kernel {ms:.4f} ms, plain "
+    _detail(f"{tag} bfs_hops B={b} N={n} S={s}: kernel {ms:.4f} ms (cluster "
+            f"{cluster}; by cluster " + ", ".join(
+                f"{c}: {t:.4f}" for c, t in sides.items()) + f"), plain "
             f"{plain_ms:.4f} ms (a host read a level, {int(dist.max())} levels), "
             f"bound {bound_ms:.5f} ms (bytes: {rows} reached rows of {n * 4} B, "
             f"{byts / 1e6:.3f} MB)")
@@ -3999,6 +4082,102 @@ def _twin_profile(tag, eager, graphed):
     return nb - 1
 
 
+STAGES = ("sample", "membership", "annotate", "bfs", "forward", "backward",
+          "optimizer", "other")
+
+
+def _stage_split(tag, eager, graphed, window, n):
+    """The device time of a sampled TRAIN step by stage (D2.2): one window
+    of ``n`` eager-twin steps under torch.profiler, with ranges over the
+    sampling (``_static_batches``: PPR gather, khop, ``ppr_st``, the
+    feature gather) and within it the membership block, ``annotate`` and
+    the BFS, the forward (model and loss), clip + Adam, and the whole
+    step; each kernel's duration goes to the innermost range open on the
+    host when the runtime call that launched it ran (matched by CUPTI's
+    correlation id; a kernel launched in the step outside the others is
+    the backward's, one with no such call "other").  Then one window of the graphed twin, its
+    device time by kernel name.  The detail goes to the log; returns the
+    summary text (ms a step)."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile, record_function
+    from shadow_gnn_torch.sampling import induction
+    from shadow_gnn_torch.train import pipeline
+
+    def ranged(obj, name, label):
+        fn = getattr(obj, name)
+
+        def wrapped(*args, **kw):
+            with record_function(label):
+                return fn(*args, **kw)
+        return obj, name, wrapped
+
+    swaps = [ranged(induction, f, "membership") for f in (
+        "membership_matrix", "membership_matrix_rows", "membership_matrix_hub",
+        "membership_matrix_cand")]
+    swaps += [ranged(induction, "annotate", "annotate"),
+              ranged(induction, "bfs_hops_multi", "bfs"),
+              ranged(eager, "_static_batches", "sample"),
+              ranged(eager.model, "forward", "forward"),
+              ranged(pipeline, "weighted_loss_fn", "forward"),
+              ranged(pipeline, "clip_grad_global_norm_", "optimizer"),
+              ranged(eager.optimizer, "step", "optimizer"),
+              ranged(eager, "_static_train", "step")]
+    labels = set(STAGES) | {"step"}
+    acts = [ProfilerActivity.CPU, ProfilerActivity.CUDA]
+    torch.cuda.synchronize()
+    with profile(activities=acts) as prof:
+        with _Swap(*swaps):
+            window(eager, SAMPLED_ROUNDS + 1)
+        torch.cuda.synchronize()
+    for obj, name, _ in swaps:              # the twin's own methods again
+        if obj is not induction and obj is not pipeline:
+            delattr(obj, name)
+    events = prof.events()
+    spans = sorted((e.time_range.start, e.time_range.end, e.name) for e in events
+                   if e.device_type == DeviceType.CPU and e.name in labels)
+    # a device event and the CUDA API call that launched it
+    # (cudaLaunchKernel; cuLaunchKernel from cuBLAS) share an id, CUPTI's
+    # correlation; the call's host time places it in a range
+    launched = {e.id: e.time_range.start for e in events
+                if e.device_type == DeviceType.CPU and e.name.startswith("cu")}
+    kern = [e for e in events
+            if e.device_type == DeviceType.CUDA and not e.is_user_annotation]
+    by_stage = dict.fromkeys(STAGES, 0.0)
+    for e in kern:
+        t, inner = launched.get(e.id), None
+        for lo, hi, name in spans if t is not None else ():
+            if lo <= t <= hi and (inner is None or lo >= inner[0]):
+                inner = (lo, hi, name)
+        stage = "other" if inner is None else inner[2]
+        by_stage["backward" if stage == "step" else stage] += (
+            e.time_range.elapsed_us() / 1e3 / n)
+    busy = sum(e.time_range.elapsed_us() for e in kern) / 1e3 / n
+    if busy == 0.0:
+        return "by stage not measured (the profiler saw no device time)"
+    with profile(activities=acts) as prof:
+        window(graphed, SAMPLED_ROUNDS + 1)
+        torch.cuda.synchronize()
+    by_name = {}
+    for e in prof.events():
+        if e.device_type == DeviceType.CUDA and not e.is_user_annotation:
+            by_name[e.name] = by_name.get(e.name, 0.0) + e.time_range.elapsed_us() / 1e3 / n
+    g_busy = sum(by_name.values())
+    g_bfs = sum(v for k, v in by_name.items() if "bfs_kernel" in k)
+    _detail(f"{tag} eager twin, device ms a step by stage ({n} steps, kernels by "
+            f"launching range; all kernels {busy:.4f}; ranges "
+            f"{sorted(set(name for _, _, name in spans))}): " + ", ".join(
+                f"{k} {v:.4f}" for k, v in by_stage.items()))
+    _detail(f"{tag} graphed twin, device ms a step {g_busy:.4f}, by kernel: " + "; ".join(
+        f"{v:.4f} {k[:60]}" for k, v in sorted(by_name.items(), key=lambda kv: -kv[1])[:12]))
+    induce = by_stage["membership"] + by_stage["annotate"] + by_stage["bfs"]
+    return (f"device ms a step by stage (eager twin): sample {by_stage['sample']:.3f}, "
+            f"induce {induce:.3f} (bfs {by_stage['bfs']:.3f}), fwd "
+            f"{by_stage['forward']:.3f}, bwd {by_stage['backward']:.3f}, opt "
+            f"{by_stage['optimizer']:.3f} of {busy:.3f} ({100 * induce / busy:.0f}% "
+            f"induce); graphed {g_busy:.3f}, bfs_kernel {g_bfs:.4f}")
+
+
 def phase_sampled(kind, g, src):
     """[sampled graphs] for one path: an eager twin (``cuda_graphs=False``)
     and a graphed trainer from one seed, both on ``src``'s PPR tables:
@@ -4010,8 +4189,9 @@ def phase_sampled(kind, g, src):
     first call must replay.  Then in turns: the step (eager, graphed,
     graphed, eager windows of ``SAMPLED_WINDOW`` steps, host clock to a
     synchronise; eval steps for "gat"), its device-busy share and host
-    CUDA calls (torch.profiler), and the ensemble's request p50.  Adds
-    its seconds and the graphed twin's BFS launches to ``_SAMPLED``."""
+    CUDA calls (torch.profiler), and the ensemble's request p50; a TRAIN
+    step's device time by stage (``_stage_split``).  Adds its seconds
+    and the graphed twin's BFS launches to ``_SAMPLED``."""
     import numpy as np
     import torch
     from shadow_gnn_torch import TEST, TRAIN, VALID
@@ -4069,6 +4249,7 @@ def phase_sampled(kind, g, src):
 
     timing = _twin_timing(tag, "eval step" if kind == "gat" else "TRAIN step", eager,
                           graphed, window, SAMPLED_ROUNDS, win, reqs)
+    stages = None if kind == "gat" else _stage_split(tag, eager, graphed, window, win)
     part = time.perf_counter() - t0
     _SAMPLED["seconds"] += part
     _detail(f"{tag} passes {' + '.join(f'{w} {len(l)}' for w, l, _, _ in p_g)} "
@@ -4081,6 +4262,8 @@ def phase_sampled(kind, g, src):
              "within " + ", ".join(f"{k} {v:.1e}" for k, v in errs.items()))
           + f", overflow {sum(o for _, o in ovf.values())}"
           + (f", profile = eager ({prof} replays)" if prof else "") + f"; {timing}")
+    if stages:
+        print(f"{tag} {stages}")
     _detail(f"{tag} graphs: {sg.summary()}; launches over the passes {l_g}")
     del eager, graphed
     torch.cuda.empty_cache()

@@ -31,6 +31,7 @@ import torch
 from shadow_gnn_tpu.data.graph import DeviceGraph as JGraph
 from shadow_gnn_tpu.data.synthetic import make_random_graph
 from shadow_gnn_tpu.sampling import induction as jind
+from shadow_gnn_tpu.sampling.batch import SamplerConfig as JCfg
 from shadow_gnn_torch import TEST, TRAIN, VALID
 from shadow_gnn_torch.data import make_synthetic_dataset as t_make
 from shadow_gnn_torch.data.graph import DeviceGraph as TGraph
@@ -310,12 +311,13 @@ def test_epoch_reads_the_overflow_once(capsys):
 # ---------------------------------------------------------------------------
 
 def _bfs_blocks(n=40):
-    """[4, n, n] blocks: a chain (n - 1 levels from node 0), two
+    """[5, n, n] blocks: a chain (n - 1 levels from node 0), two
     disconnected components, a block whose last 10 rows are padding
-    (connected in the block but masked), a random sparse block; self
-    edges on every valid node."""
+    (connected in the block but masked), a random sparse block, and a
+    block whose frontier rows cancel (``_cancelling_block``); self edges
+    on every valid node."""
     rng = np.random.default_rng(3)
-    adj = np.zeros((4, n, n), np.float32)
+    adj = np.zeros((5, n, n), np.float32)
     i = np.arange(n - 1)
     adj[0, i, i + 1] = adj[0, i + 1, i] = 1
     half = n // 2
@@ -323,13 +325,44 @@ def _bfs_blocks(n=40):
     adj[1, half:, half:] = rng.random((n - half, n - half)) < 0.2
     adj[2] = rng.random((n, n)) < 0.1
     adj[3] = rng.random((n, n)) < 0.05
-    mask = np.ones((4, n), bool)
+    adj[4] = _cancelling_block(n)
+    mask = np.ones((5, n), bool)
     mask[2, n - 10:] = False
     adj[2, n - 10:] = 0
-    for b in range(4):
+    for b in range(5):
         adj[b][np.diag(mask[b])] = 1
-    starts = np.array([[0, n - 1], [1, half + 2], [3, n - 5], [7, n]], np.int64)
+    starts = np.array([[0, n - 1], [1, half + 2], [3, n - 5], [7, n], [0, 1]], np.int64)
     return adj, starts, mask
+
+
+def _cancelling_block(n):
+    """A block where a sum over the frontier rows and "any entry > 0"
+    disagree.  From node 0: level 1 is {1, 2}; there row 1 holds +1 and row
+    2 -1 on the columns 3 .. n/2 (sum 0), and row 1 -3 beside row 2's +1 on
+    column n - 1 (sum -2), so level 2 is n/2 + 1 .. n - 2 only; row n - 2
+    reaches 3 and n - 1 (level 3), row 3 the columns 4 .. n/2 (level 4)."""
+    half = n // 2
+    adj = np.zeros((n, n), np.float32)
+    adj[0, 1:3] = 1
+    adj[1, 3:] = 1
+    adj[1, n - 1] = -3
+    adj[2, 3:half + 1] = -1
+    adj[2, n - 1] = 1
+    adj[n - 2, [3, n - 1]] = 1
+    adj[3, 4:half + 1] = 1
+    return adj
+
+
+def _cancelling_levels(n):
+    """The BFS levels of ``_cancelling_block`` from node 0."""
+    half = n // 2
+    want = np.full(n, -1)
+    want[0] = 0
+    want[1:3] = 1
+    want[half + 1:n - 1] = 2
+    want[[3, n - 1]] = 3
+    want[4:half + 1] = 4
+    return want
 
 
 def test_bfs_matches_jax():
@@ -355,7 +388,63 @@ def test_bfs_matches_jax():
     # a start on padding: 0 there, nothing reached beyond it
     assert multi[2, 1, n - 5] == 0 and (multi[2, 1] == -1).sum() == n - 1
     assert (multi[3, 1] == -1).all()                       # a start beyond N
+    # the sum over the frontier rows, not "any entry > 0"
+    np.testing.assert_array_equal(multi[4, 0].numpy(), _cancelling_levels(n))
     assert multi.dtype == torch.int64
+
+
+@pytest.mark.parametrize("n", [37, 38, 39])
+def test_bfs_matches_jax_n_not_a_multiple_of_4(n):
+    """The blocks of ``test_bfs_matches_jax`` at N % 4 != 0 (the kernel's
+    rows then lose their 16-byte alignment): the plain BFS, the CPU
+    ``bfs_hops_multi`` and DRNL equal JAX's exactly."""
+    adj, starts, mask = _bfs_blocks(n)
+    ja, jm, js = jnp.asarray(adj), jnp.asarray(mask), jnp.asarray(starts)
+    ta, tm, ts = torch.as_tensor(adj), torch.as_tensor(mask), torch.as_tensor(starts)
+    want = np.asarray(jind.bfs_hops_multi(ja, js, jm))
+    np.testing.assert_array_equal(bfs.bfs_hops_plain(ta, ts, tm).numpy(), want)
+    np.testing.assert_array_equal(tind.bfs_hops_multi(ta, ts, tm).numpy(), want)
+    np.testing.assert_array_equal(tind.drnl_labels(ta, ts, tm).numpy(),
+                                  np.asarray(jind.drnl_labels(ja, js, jm)))
+    assert want[0, 0].max() == n - 1
+    np.testing.assert_array_equal(want[4, 0], _cancelling_levels(n))
+
+
+@pytest.mark.parametrize("self_edge", [False, True])
+def test_bfs_link_block_with_a_repeated_target(self_edge):
+    """A link batch induced by both packages where a pair repeats its node
+    (``t_any`` 2 there: the block holds -3 at that node's self loop unless
+    self edges are added): the blocks, the DRNL labels and the BFS from
+    both targets equal JAX's exactly."""
+    rng = np.random.default_rng(5)
+    nn = 24
+    dense = rng.random((nn, nn)) < 0.15
+    dense = dense | dense.T
+    np.fill_diagonal(dense, False)
+    dense[[5, 9], [5, 9]] = True                           # self loops
+    indptr = np.r_[0, np.cumsum(dense.sum(1))].astype(np.int64)
+    indices = np.nonzero(dense)[1].astype(np.int64)
+    nodes = np.full((3, 16), nn, np.int64)
+    for b, picks in enumerate(([0, 2, 5, 7, 9, 11, 13, 17, 20],
+                               [1, 5, 6, 9, 12, 14, 15, 18, 19, 22, 23],
+                               [3, 4, 8, 9, 10, 16, 21])):
+        nodes[b, :len(picks)] = picks
+    roots = np.array([[5, 5], [5, 9], [9, 9]], np.int64)
+    ppr = np.zeros(nodes.shape, np.float32)
+    kw = dict(method="ppr_st", n_pad=16, num_targets=2, add_self_edge=self_edge,
+              aug_feats=("drnls",))
+    want = jind.induce(JGraph.from_csr(indptr, indices), jnp.asarray(nodes),
+                       jnp.asarray(ppr), jnp.asarray(roots), JCfg(**kw))
+    got = tind.induce(TGraph.from_csr(indptr, indices), torch.as_tensor(nodes),
+                      torch.as_tensor(ppr), torch.as_tensor(roots), SamplerConfig(**kw))
+    np.testing.assert_array_equal(got.adj.numpy(), np.asarray(want.adj))
+    np.testing.assert_array_equal(got.drnl.numpy(), np.asarray(want.drnl))
+    assert (got.adj.min() == -3) != self_edge              # the repeated self loop
+    targets = got.targets[:, :2]
+    np.testing.assert_array_equal(
+        bfs.bfs_hops_plain(got.adj, targets, got.node_mask).numpy(),
+        np.asarray(jind.bfs_hops_multi(want.adj, want.targets[:, :2],
+                                       want.node_mask)))
 
 
 def test_bfs_kernel_refusals():
@@ -376,3 +465,38 @@ def test_bfs_kernel_refusals():
                            torch.empty(2, 1, dtype=torch.int64, **meta),
                            torch.empty(2, 8, dtype=torch.bool, **meta))
     assert bfs.bfs_hops_multi.launches == 0
+    # the limit itself is taken, and its launch fits one block's shared memory
+    bfs.check_shapes(torch.empty(1, bfs.MAX_N, bfs.MAX_N, **meta),
+                     torch.empty(1, 2, dtype=torch.int64, **meta),
+                     torch.empty(1, bfs.MAX_N, dtype=torch.bool, **meta))
+    for b in (1, 1000):
+        assert bfs.launch_dims(b, bfs.MAX_N, 1, 132).smem <= bfs.MAX_SMEM
+
+
+@pytest.mark.parametrize("b, n, s, sms, cluster", [
+    (64, 208, 1, 132, 1),       # the cold step's hops: one CTA beats a cluster
+    (16, 408, 2, 132, 4),       # the link task's DRNL: 128 CTAs
+    (4, 907, 2, 132, 8),
+    (1, bfs.MAX_N, 1, 132, 8),
+    (4, 255, 1, 132, 1),        # below CLUSTER_MIN_N
+    (4, 256, 1, 132, 8),
+    (33, 408, 2, 132, 2),       # 132 CTAs
+    (66, 408, 2, 132, 1),       # B * S above the SM count
+    (16, 408, 2, 114, 2),       # a card of fewer SMs
+    (200, bfs.MAX_N, 1, 132, 1),
+])
+def test_bfs_launch_dims(b, n, s, sms, cluster):
+    """One cluster per (subgraph, source) from N = CLUSTER_MIN_N up, of
+    the largest size of 8, 4, 2 whose B * S clusters take one CTA an SM,
+    else one CTA; a CTA owns every size-th 4-column group."""
+    d = bfs.launch_dims(b, n, s, sms)
+    assert d.cluster == cluster and d.grid == b * s * cluster
+    assert d.threads == bfs.THREADS
+    if cluster > 1:
+        assert b * s * cluster <= sms and n >= bfs.CLUSTER_MIN_N
+    if cluster < max(bfs.CLUSTERS):                         # the largest that fits
+        assert b * s * 2 * cluster > sms or n < bfs.CLUSTER_MIN_N
+    groups = -(-n // 4)
+    assert d.width == 4 * -(-groups // cluster) and d.width * cluster >= n
+    assert d == bfs.cluster_dims(b, n, s, cluster)
+    assert d.smem == bfs.smem_bytes(d.width) <= bfs.MAX_SMEM
