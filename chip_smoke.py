@@ -4088,54 +4088,29 @@ STAGES = ("sample", "membership", "annotate", "bfs", "forward", "backward",
 
 def _stage_split(tag, eager, graphed, window, n):
     """The device time of a sampled TRAIN step by stage (D2.2): one window
-    of ``n`` eager-twin steps under torch.profiler, with ranges over the
-    sampling (``_static_batches``: PPR gather, khop, ``ppr_st``, the
-    feature gather) and within it the membership block, ``annotate`` and
-    the BFS, the forward (model and loss), clip + Adam, and the whole
-    step; each kernel's duration goes to the innermost range open on the
-    host when the runtime call that launched it ran (matched by CUPTI's
-    correlation id; a kernel launched in the step outside the others is
-    the backward's, one with no such call "other").  Then one window of the graphed twin, its
-    device time by kernel name.  The detail goes to the log; returns the
-    summary text (ms a step)."""
+    of ``n`` eager-twin steps under torch.profiler, read by the program's
+    spans (``shadow_gnn_torch/spans.py``): ``sgnn.stage.sample``
+    (``_static_batches``: PPR gather, khop, ``ppr_st``, the feature
+    gather) and within it ``membership``, ``annotate`` and ``bfs``,
+    ``forward`` (model and loss), ``backward``, ``optimizer`` (clip +
+    Adam), inside ``sgnn.step``; each kernel's duration goes to the
+    innermost span open on the host when the runtime call that launched
+    it ran (matched by CUPTI's correlation id; a kernel launched outside
+    the stages, or with no such call, is "other").  Then one window of
+    the graphed twin, its device time by kernel name.  The detail goes to
+    the log; returns the summary text (ms a step)."""
     import torch
     from torch.autograd import DeviceType
-    from torch.profiler import ProfilerActivity, profile, record_function
-    from shadow_gnn_torch.sampling import induction
-    from shadow_gnn_torch.train import pipeline
-
-    def ranged(obj, name, label):
-        fn = getattr(obj, name)
-
-        def wrapped(*args, **kw):
-            with record_function(label):
-                return fn(*args, **kw)
-        return obj, name, wrapped
-
-    swaps = [ranged(induction, f, "membership") for f in (
-        "membership_matrix", "membership_matrix_rows", "membership_matrix_hub",
-        "membership_matrix_cand")]
-    swaps += [ranged(induction, "annotate", "annotate"),
-              ranged(induction, "bfs_hops_multi", "bfs"),
-              ranged(eager, "_static_batches", "sample"),
-              ranged(eager.model, "forward", "forward"),
-              ranged(pipeline, "weighted_loss_fn", "forward"),
-              ranged(pipeline, "clip_grad_global_norm_", "optimizer"),
-              ranged(eager.optimizer, "step", "optimizer"),
-              ranged(eager, "_static_train", "step")]
-    labels = set(STAGES) | {"step"}
+    from torch.profiler import ProfilerActivity, profile
+    labels = {f"sgnn.stage.{s}" for s in STAGES} | {"sgnn.step"}
     acts = [ProfilerActivity.CPU, ProfilerActivity.CUDA]
     torch.cuda.synchronize()
     with profile(activities=acts) as prof:
-        with _Swap(*swaps):
-            window(eager, SAMPLED_ROUNDS + 1)
+        window(eager, SAMPLED_ROUNDS + 1)
         torch.cuda.synchronize()
-    for obj, name, _ in swaps:              # the twin's own methods again
-        if obj is not induction and obj is not pipeline:
-            delattr(obj, name)
     events = prof.events()
-    spans = sorted((e.time_range.start, e.time_range.end, e.name) for e in events
-                   if e.device_type == DeviceType.CPU and e.name in labels)
+    spans = sorted((e.time_range.start, e.time_range.end, e.name.rsplit(".", 1)[-1])
+                   for e in events if e.device_type == DeviceType.CPU and e.name in labels)
     # a device event and the CUDA API call that launched it
     # (cudaLaunchKernel; cuLaunchKernel from cuBLAS) share an id, CUPTI's
     # correlation; the call's host time places it in a range
@@ -4149,9 +4124,8 @@ def _stage_split(tag, eager, graphed, window, n):
         for lo, hi, name in spans if t is not None else ():
             if lo <= t <= hi and (inner is None or lo >= inner[0]):
                 inner = (lo, hi, name)
-        stage = "other" if inner is None else inner[2]
-        by_stage["backward" if stage == "step" else stage] += (
-            e.time_range.elapsed_us() / 1e3 / n)
+        stage = "other" if inner is None or inner[2] == "step" else inner[2]
+        by_stage[stage] += e.time_range.elapsed_us() / 1e3 / n
     busy = sum(e.time_range.elapsed_us() for e in kern) / 1e3 / n
     if busy == 0.0:
         return "by stage not measured (the profiler saw no device time)"
@@ -4331,9 +4305,7 @@ def _sync(dev):
 def _rank_profile(dev, fn, n):
     """Run ``fn()`` (``n`` steps) under torch.profiler: (device-busy ms,
     host CUDA calls, the NCCL kernels' share of the busy time) a step;
-    Nones where the profiler sees no device time (or on the CPU).  The
-    collectives' share comes from here on a graphed Trainer, where
-    ``collectives.timing`` cannot run."""
+    Nones where the profiler sees no device time (or on the CPU)."""
     if dev.type != "cuda":
         fn()
         return None, None, None
@@ -4350,6 +4322,28 @@ def _rank_profile(dev, fn, n):
     us = sum(e.time_range.elapsed_us() for e in kern)
     nccl = sum(e.time_range.elapsed_us() for e in kern if "nccl" in e.name.lower())
     return (us / 1e3 / n or None), len(api) / n, (nccl / us if us else None)
+
+
+def _collective_shares(dev, fn):
+    """Run ``fn()`` under torch.profiler (host events): the host seconds
+    of its ``sgnn.collective.<op>`` and ``.wait`` spans and of
+    ``sgnn.collective.stage`` (gloo's staging through host memory), each
+    over the wall time.  A gloo call returns when it is done, so its span
+    holds its time; an NCCL call's span holds its enqueue (its kernels'
+    share is ``_rank_profile``'s)."""
+    from torch.profiler import ProfilerActivity, profile
+    _sync(dev)
+    with profile(activities=[ProfilerActivity.CPU]) as prof:
+        t0 = time.perf_counter()
+        fn()
+        _sync(dev)
+        wall = time.perf_counter() - t0
+    secs = {"call": 0.0, "stage": 0.0}
+    for e in prof.profiler.kineto_results.events():
+        if e.name().startswith("sgnn.collective."):
+            secs["stage" if e.name() == "sgnn.collective.stage" else "call"] += (
+                e.duration_ns() * 1e-9)
+    return secs["call"] / wall, secs["stage"] / wall
 
 
 def _partition_passes(tr, fn):
@@ -4383,7 +4377,8 @@ def _parallel_rank(spec):
     launches and the collectives' counts equal) and every TRAIN step of
     the graphed one but its key's first replayed.  Then in turns
     ``PARALLEL_ROUNDS`` rounds of eager, graphed, graphed, eager windows,
-    the eager twin's collectives timed over one more (both run it), and
+    the eager twin's collectives' share read from their spans over one
+    more (both run it), and
     one window each under torch.profiler (device-busy share, host CUDA
     calls, NCCL's share); the replicas' checksum and one VALID epoch on
     each twin, held again, every VALID step but the first replayed.
@@ -4393,7 +4388,6 @@ def _parallel_rank(spec):
     import numpy as np
     import torch
     from shadow_gnn_torch import TRAIN, VALID
-    from shadow_gnn_torch.parallel import collectives as cc
     from shadow_gnn_torch.parallel import multihost as mh
     from shadow_gnn_torch.train import graphs
     r, dev = mh.rank(), mh.device()
@@ -4493,8 +4487,8 @@ def _parallel_rank(spec):
             print(f"{part}: epoch graphed = eager, {'bit for bit' if out['exact'] else errs}"
                   f"; counts {g_ep['counts']}")
 
-        # timed in turns; the eager twin's collectives timed (timing
-        # synchronises, which no graph holds) over a window that both run
+        # timed in turns; the eager twin's collectives read from their
+        # spans over a profiled window that both run
         window = min(PARALLEL_WINDOW, nb)
 
         def win(tr, k):
@@ -4508,15 +4502,8 @@ def _parallel_rank(spec):
                 win(tr, k)
                 _sync(dev)
                 times[id(tr)].append((time.perf_counter() - t0) * 1e3 / window)
-        cc.reset_stats()
-        cc.timing = True
-        _sync(dev)
-        t0 = time.perf_counter()
-        win(eager, PARALLEL_ROUNDS)
-        wall = time.perf_counter() - t0
-        cc.timing = False
-        out["collective_share"] = cc.stats["seconds"] / wall
-        out["stage_share"] = cc.stats["stage_seconds"] / wall
+        out["collective_share"], out["stage_share"] = _collective_shares(
+            dev, lambda: win(eager, PARALLEL_ROUNDS))
         if twins:
             win(graphed, PARALLEL_ROUNDS)
         out["window_ms"] = [_median(times[id(tr)]) for tr in trs]

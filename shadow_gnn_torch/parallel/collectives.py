@@ -22,33 +22,34 @@ copies it to host memory, runs the collective there and copies the
 result back: that is gloo's own rule, not a fallback, and an NCCL group
 passes CUDA tensors straight through.  Bool tensors travel as uint8.
 
-``stats`` counts the calls, their bytes and, while ``timing`` is on,
-their seconds and those of the gloo staging.  Timing synchronises the
-card before and after each call (otherwise a call's host time is its
-enqueue only), so it is off unless a measurement asks for it.
+``stats`` counts the calls and their bytes.  Each counted call is one
+span, ``sgnn.collective.<all_gather|reduce_scatter|all_reduce|ring_shift>``,
+and an asynchronous call's join another, ``sgnn.collective.wait``, with
+gloo's staging through host memory inside them as
+``sgnn.collective.stage`` (``spans.py``): their host time is in any
+torch.profiler trace of the call, and NCCL's device time in its kernels.
 
 An NCCL group's calls are captured in the CUDA graphs of the
 partitioned steps (``train/graphs.py``): the collective runs on NCCL's
 stream, joined to the capturing stream before and after, and an
 asynchronous call's ``wait`` is that join, not a host wait.  A replay
 runs no Python, so the graphs take a capture's calls and bytes and
-credit them on each replay (``graphs.launch_counters``).  ``timing``
-cannot be captured (:func:`refuse_timing`), and gloo's staging through
-host memory neither: a gloo group's steps run eagerly.  The ring shift
-is captured as the others are: its send and receive run on NCCL's
-stream, its receive buffer is allocated inside the capture (from the
-graph's pool) and its ``wait`` is a join.  c10d creates the
-communicator of a send / receive pair on its first ``batch_isend_irecv``,
-so a key's eager warm-up must run the shifts before its capture.
+credit them on each replay (``graphs.launch_counters``).  Gloo's
+staging through host memory cannot be captured: a gloo group's steps
+run eagerly.  The ring shift is captured as the others are: its send
+and receive run on NCCL's stream, its receive buffer is allocated
+inside the capture (from the graph's pool) and its ``wait`` is a join.
+c10d creates the communicator of a send / receive pair on its first
+``batch_isend_irecv``, so a key's eager warm-up must run the shifts
+before its capture.
 
 Outside a process group (a world of 1, the JAX package's one-device
 mesh) each collective answers locally, as JAX's does on one device: the
 gather stacks the one tensor, the sums return it, the ring shift sends
-it to itself.  Nothing is counted then, since nothing travels.
+it to itself.  Nothing is counted or spanned then, since nothing travels.
 """
 from __future__ import annotations
 
-import time
 import warnings
 from typing import List
 
@@ -56,24 +57,13 @@ import torch
 import torch.distributed as dist
 
 from shadow_gnn_torch.parallel import multihost as mh
+from shadow_gnn_torch.spans import span
 
-timing = False
-stats = {"calls": 0, "bytes": 0, "seconds": 0.0, "stage_seconds": 0.0}
+stats = {"calls": 0, "bytes": 0}
 
 
 def reset_stats():
-    stats.update(calls=0, bytes=0, seconds=0.0, stage_seconds=0.0)
-
-
-def refuse_timing(what: str):
-    """Raise while ``timing`` is on: its synchronisations cannot be held
-    by the CUDA graph of ``what``."""
-    if timing:
-        raise RuntimeError(
-            f"collectives.timing synchronises the card around each call, which "
-            f"the CUDA graph of {what} cannot hold: time the collectives on an "
-            "eager Trainer (cuda_graphs=False), or read NCCL's share of the "
-            "device time from torch.profiler")
+    stats.update(calls=0, bytes=0)
 
 
 def _local() -> bool:
@@ -81,32 +71,13 @@ def _local() -> bool:
     return not dist.is_initialized()
 
 
-def _sync(t: torch.Tensor):
-    if timing and t.is_cuda:
-        torch.cuda.synchronize(t.device)
-
-
 def _staged(t: torch.Tensor) -> bool:
     return t.is_cuda and mh.backend() == "gloo"
 
 
-class _Call:
-    """Time one collective (when ``timing``) and count it."""
-
-    def __init__(self, t: torch.Tensor):
-        self.t = t
-
-    def __enter__(self):
-        stats["calls"] += 1
-        stats["bytes"] += self.t.numel() * self.t.element_size()
-        _sync(self.t)
-        self.t0 = time.perf_counter()
-        return self
-
-    def __exit__(self, *exc):
-        _sync(self.t)
-        if timing:
-            stats["seconds"] += time.perf_counter() - self.t0
+def _count(t: torch.Tensor):
+    stats["calls"] += 1
+    stats["bytes"] += t.numel() * t.element_size()
 
 
 def _to_wire(t: torch.Tensor):
@@ -115,20 +86,15 @@ def _to_wire(t: torch.Tensor):
     if dt == torch.bool:
         t = t.to(torch.uint8)
     if _staged(t):
-        t0 = time.perf_counter()
-        t = t.cpu()
-        if timing:
-            stats["stage_seconds"] += time.perf_counter() - t0
+        with span("sgnn.collective.stage"):
+            t = t.cpu()
     return t.contiguous(), dt
 
 
 def _from_wire(t: torch.Tensor, like: torch.Tensor, dt: torch.dtype) -> torch.Tensor:
     if t.device != like.device:
-        t0 = time.perf_counter()
-        t = t.to(like.device)
-        if timing:
-            _sync(t)
-            stats["stage_seconds"] += time.perf_counter() - t0
+        with span("sgnn.collective.stage"):
+            t = t.to(like.device)
     return t.to(dt) if t.dtype != dt else t
 
 
@@ -138,7 +104,8 @@ def all_gather(t: torch.Tensor) -> torch.Tensor:
     if _local():
         return t.unsqueeze(0).clone()
     w = mh.world_size()
-    with _Call(t):
+    _count(t)
+    with span("sgnn.collective.all_gather"):
         x, dt = _to_wire(t)
         out = torch.empty(w * x.numel(), dtype=x.dtype, device=x.device)
         with warnings.catch_warnings():
@@ -161,9 +128,11 @@ class _Pending:
         self.work, self.out, self.like, self.dt = work, out, like, dt
 
     def wait(self) -> torch.Tensor:
-        if self.work is not None:
+        if self.work is None:
+            return _from_wire(self.out, self.like, self.dt)
+        with span("sgnn.collective.wait"):
             self.work.wait()
-        return _from_wire(self.out, self.like, self.dt)
+            return _from_wire(self.out, self.like, self.dt)
 
 
 def reduce_scatter_sum(x: torch.Tensor, async_op: bool = False):
@@ -178,7 +147,8 @@ def reduce_scatter_sum(x: torch.Tensor, async_op: bool = False):
     if _local():
         pending = _Pending(None, x[0].clone(), x, x.dtype)
         return pending if async_op else pending.wait()
-    with _Call(x):
+    _count(x)
+    with span("sgnn.collective.reduce_scatter"):
         xw, dt = _to_wire(x)
         if xw.dtype == torch.uint8 and dt == torch.bool:
             xw = xw.to(torch.int32)
@@ -196,7 +166,8 @@ def all_reduce_sum(t: torch.Tensor) -> torch.Tensor:
     returns a new tensor, ``t`` is left as it was."""
     if _local():
         return t.clone()
-    with _Call(t):
+    _count(t)
+    with span("sgnn.collective.all_reduce"):
         x, dt = _to_wire(t)
         x = x.clone() if x.data_ptr() == t.data_ptr() else x
         dist.all_reduce(x, op=dist.ReduceOp.SUM)
@@ -220,13 +191,13 @@ def ring_shift(t: torch.Tensor) -> "_Ring":
     if _local():
         return _Ring([], t, t.clone(), t, t.dtype)
     w, r = mh.world_size(), mh.rank()
-    stats["calls"] += 1
-    stats["bytes"] += t.numel() * t.element_size()
-    x, dt = _to_wire(t)
-    buf = torch.empty_like(x)
-    ops = [dist.P2POp(dist.isend, x, (r - 1) % w),
-           dist.P2POp(dist.irecv, buf, (r + 1) % w)]
-    return _Ring(dist.batch_isend_irecv(ops), x, buf, t, dt)
+    _count(t)
+    with span("sgnn.collective.ring_shift"):
+        x, dt = _to_wire(t)
+        buf = torch.empty_like(x)
+        ops = [dist.P2POp(dist.isend, x, (r - 1) % w),
+               dist.P2POp(dist.irecv, buf, (r + 1) % w)]
+        return _Ring(dist.batch_isend_irecv(ops), x, buf, t, dt)
 
 
 class _Ring:
@@ -237,13 +208,12 @@ class _Ring:
         self.works, self.sent, self.buf, self.like, self.dt = works, sent, buf, like, dt
 
     def wait(self) -> torch.Tensor:
-        t0 = time.perf_counter()
-        for wk in self.works:
-            wk.wait()
-        _sync(self.buf)
-        if timing:
-            stats["seconds"] += time.perf_counter() - t0
-        return _from_wire(self.buf, self.like, self.dt)
+        if not self.works:
+            return _from_wire(self.buf, self.like, self.dt)
+        with span("sgnn.collective.wait"):
+            for wk in self.works:
+                wk.wait()
+            return _from_wire(self.buf, self.like, self.dt)
 
 
 def barrier():

@@ -379,8 +379,6 @@ class _RingOperator:
         self.dstb = torch.as_tensor(dstb[r].astype(np.int64), device=device)
         self.valb = torch.as_tensor(valb[r], device=device)
         self.graphs = StepGraphs(self.device, cuda_graphs and mh.backend() != "gloo")
-        if self.graphs.enabled:
-            cc.refuse_timing("the ring SpMM")
 
     def local(self, x_full) -> torch.Tensor:
         """This rank's rows of a host or device [num_rows, F] array."""

@@ -53,6 +53,7 @@ from shadow_gnn_torch.nn.model import predict_fn
 from shadow_gnn_torch.parallel import collectives as cc
 from shadow_gnn_torch.parallel import multihost as mh
 from shadow_gnn_torch.sampling.batch import total_overflow
+from shadow_gnn_torch.spans import span
 
 
 def pad_rows_to_shards(tab: np.ndarray, n_shards: int) -> np.ndarray:
@@ -142,12 +143,15 @@ def spmd_train_update(trainer, batches, feats, labels, w, generator, seed):
     from shadow_gnn_torch.train.pipeline import CLIP_NORM, clip_grad_global_norm_
     model, cfg = trainer.model, trainer.model_cfg
     trainer.optimizer.zero_grad(set_to_none=True)
-    logits, _ = model(batches, feats, generator, seed, True)
-    part = spmd_weighted_loss(cfg, logits, labels, w)
-    part.backward()
-    all_reduce_grads(list(model.parameters()))
-    clip_grad_global_norm_(model.parameters(), CLIP_NORM)
-    trainer.optimizer.step()
+    with span("sgnn.stage.forward"):
+        logits, _ = model(batches, feats, generator, seed, True)
+        part = spmd_weighted_loss(cfg, logits, labels, w)
+    with span("sgnn.stage.backward"):
+        part.backward()
+        all_reduce_grads(list(model.parameters()))
+    with span("sgnn.stage.optimizer"):
+        clip_grad_global_norm_(model.parameters(), CLIP_NORM)
+        trainer.optimizer.step()
     loss = cc.all_reduce_sum(part.detach())
     return (loss, logits.detach(), _overflow(batches, labels.device),
             [p.grad for p in model.parameters()])
@@ -157,8 +161,10 @@ def spmd_train_update(trainer, batches, feats, labels, w, generator, seed):
 def spmd_eval_loss(trainer, batches, feats, labels, w, mode_train: bool):
     """Evaluation counterpart of :func:`spmd_train_update`: the global
     loss, this rank's logits and the summed overflow."""
-    logits, _ = trainer.model(batches, feats, mode_train=mode_train)
-    loss = cc.all_reduce_sum(spmd_weighted_loss(trainer.model_cfg, logits, labels, w))
+    with span("sgnn.stage.forward"):
+        logits, _ = trainer.model(batches, feats, mode_train=mode_train)
+        loss = cc.all_reduce_sum(spmd_weighted_loss(trainer.model_cfg, logits, labels,
+                                                    w))
     return loss, logits, _overflow(batches, labels.device)
 
 
@@ -178,7 +184,7 @@ def make_step(trainer, mode: int, train: bool, sample_all: Callable,
     from shadow_gnn_torch import TRAIN
 
     def step(buf, generator, sampler):
-        with torch.no_grad():
+        with torch.no_grad(), span("sgnn.stage.sample"):
             batches, feats = sample_all(buf["roots"], buf["rows"], sampler)
         if train:
             loss, logits, ovf, grads = spmd_train_update(

@@ -44,6 +44,7 @@ from shadow_gnn_torch.data.graph import DeviceGraph
 # [B, S] starts -> [B, S, N] distances: the kernel on CUDA tensors
 from shadow_gnn_torch.ops.bfs import bfs_hops_multi
 from shadow_gnn_torch.sampling.batch import SamplerConfig, SubgraphBatch, no_overflow
+from shadow_gnn_torch.spans import span
 
 # device-memory budget for one chunk of an induction's scratch (the
 # [B, N, deg_cap] gather of rows, the [B, cand_cap] candidates, the
@@ -352,16 +353,17 @@ def induce(graph: DeviceGraph, nodes: torch.Tensor, ppr_vals: torch.Tensor,
     ppr_vals  [B, N] aligned PPR annotations
     roots     [B, T] global target ids (members of ``nodes``)
     """
-    if cfg.induction == "rows" and cfg.deg_cap > 0:
-        adj, overflow = membership_matrix_rows(graph, nodes, cfg.deg_cap,
-                                               cfg.hub_slots)
-    elif cfg.induction == "hub" and cfg.cand_cap > 0:
-        adj, overflow = membership_matrix_hub(graph, nodes, cfg.cand_cap,
-                                              cfg.deg_cap, cfg.hub_slots)
-    elif cfg.induction == "cand" and cfg.cand_cap > 0:
-        adj, overflow = membership_matrix_cand(graph, nodes, cfg.cand_cap)
-    else:
-        adj, overflow = membership_matrix(graph, nodes), no_overflow(nodes.device)
+    with span("sgnn.stage.membership"):
+        if cfg.induction == "rows" and cfg.deg_cap > 0:
+            adj, overflow = membership_matrix_rows(graph, nodes, cfg.deg_cap,
+                                                   cfg.hub_slots)
+        elif cfg.induction == "hub" and cfg.cand_cap > 0:
+            adj, overflow = membership_matrix_hub(graph, nodes, cfg.cand_cap,
+                                                  cfg.deg_cap, cfg.hub_slots)
+        elif cfg.induction == "cand" and cfg.cand_cap > 0:
+            adj, overflow = membership_matrix_cand(graph, nodes, cfg.cand_cap)
+        else:
+            adj, overflow = membership_matrix(graph, nodes), no_overflow(nodes.device)
     return annotate(adj, overflow, nodes, ppr_vals, roots, cfg, graph.num_nodes)
 
 
@@ -373,39 +375,42 @@ def annotate(adj: torch.Tensor, overflow: torch.Tensor, nodes: torch.Tensor,
     edges removed (link task), the self edges and the hop or DRNL
     annotation.  Shared with the edge-partitioned induction
     (``parallel/edgepart.py``)."""
-    node_mask = nodes < num_nodes
-    size = node_mask.sum(-1)
-    # local target indices: left search in the sorted node table
-    targets = torch.searchsorted(nodes, roots)
-    # remove target<->target edges (kept for T == 1); the indicator is
-    # the sum of the targets' one-hots, as JAX's (2 where a negative
-    # edge repeats its node)
-    if cfg.num_targets > 1 and not cfg.include_target_conn:
-        t_any = torch.zeros_like(node_mask, dtype=adj.dtype).scatter_add_(
-            1, targets, torch.ones(targets.shape, dtype=adj.dtype,
-                                   device=adj.device))
-        adj = adj * (1.0 - t_any[:, :, None] * t_any[:, None, :])
-    if cfg.add_self_edge:
-        eye = torch.eye(nodes.shape[1], device=adj.device)
-        adj = torch.maximum(adj, eye[None] * node_mask[:, None, :] * node_mask[:, :, None])
-    hop = torch.full_like(nodes, -1)
-    drnl = torch.zeros_like(nodes)
-    if "hops" in cfg.aug_feats:
-        if cfg.num_targets != 1:
-            raise ValueError("hops augment needs a single target")
-        hop = bfs_hops(adj, targets[:, 0], node_mask)
-    if "drnls" in cfg.aug_feats:
-        if cfg.num_targets != 2:
-            raise ValueError("drnls augment needs two targets")
-        drnl = drnl_labels(adj, targets, node_mask)
-    return SubgraphBatch(
-        nodes=nodes,
-        node_mask=node_mask,
-        adj=adj,
-        targets=targets,
-        size=size,
-        hop=hop,
-        ppr=ppr_vals,
-        drnl=drnl,
-        overflow=overflow,
-    )
+    with span("sgnn.stage.annotate"):
+        node_mask = nodes < num_nodes
+        size = node_mask.sum(-1)
+        # local target indices: left search in the sorted node table
+        targets = torch.searchsorted(nodes, roots)
+        # remove target<->target edges (kept for T == 1); the indicator is
+        # the sum of the targets' one-hots, as JAX's (2 where a negative
+        # edge repeats its node)
+        if cfg.num_targets > 1 and not cfg.include_target_conn:
+            t_any = torch.zeros_like(node_mask, dtype=adj.dtype).scatter_add_(
+                1, targets, torch.ones(targets.shape, dtype=adj.dtype,
+                                       device=adj.device))
+            adj = adj * (1.0 - t_any[:, :, None] * t_any[:, None, :])
+        if cfg.add_self_edge:
+            eye = torch.eye(nodes.shape[1], device=adj.device)
+            adj = torch.maximum(adj, eye[None] * node_mask[:, None, :] * node_mask[:, :, None])
+        hop = torch.full_like(nodes, -1)
+        drnl = torch.zeros_like(nodes)
+        if "hops" in cfg.aug_feats:
+            if cfg.num_targets != 1:
+                raise ValueError("hops augment needs a single target")
+            with span("sgnn.stage.bfs"):
+                hop = bfs_hops(adj, targets[:, 0], node_mask)
+        if "drnls" in cfg.aug_feats:
+            if cfg.num_targets != 2:
+                raise ValueError("drnls augment needs two targets")
+            with span("sgnn.stage.bfs"):
+                drnl = drnl_labels(adj, targets, node_mask)
+        return SubgraphBatch(
+            nodes=nodes,
+            node_mask=node_mask,
+            adj=adj,
+            targets=targets,
+            size=size,
+            hop=hop,
+            ppr=ppr_vals,
+            drnl=drnl,
+            overflow=overflow,
+        )

@@ -69,6 +69,8 @@ from typing import Any, Callable, Dict, NamedTuple, Optional, Tuple
 
 import torch
 
+from shadow_gnn_torch.spans import span
+
 
 # every StepGraphs that captured a graph (release_all)
 _LIVE: "weakref.WeakSet" = weakref.WeakSet()
@@ -154,8 +156,10 @@ class StepGraphs:
     directly.
 
     ``replays`` counts the replays by key, ``warmups`` the eager warm-up
-    steps; ``capture_s`` sums the seconds of the captures and
-    ``pool_bytes`` the device memory they reserved (the pool)."""
+    steps and ``captures`` the captures (a key captured again after one
+    of its deps was replaced counts twice); ``capture_s`` sums the
+    seconds of the captures and ``pool_bytes`` the device memory they
+    reserved (the pool)."""
 
     def __init__(self, device: torch.device, enabled: bool):
         self.device = device
@@ -170,6 +174,7 @@ class StepGraphs:
         self.sampler = (torch.Generator(device=device) if self.enabled else None)
         self.replays: collections.Counter = collections.Counter()
         self.warmups: collections.Counter = collections.Counter()
+        self.captures: collections.Counter = collections.Counter()
         self.capture_s = 0.0
         self.pool_bytes = 0
 
@@ -260,10 +265,14 @@ class StepGraphs:
             if not _same(self._warmed.get(key), deps):
                 self._warmed[key] = deps
                 self.warmups[key] += 1
-                return self._warm(fn)
-            g = self.graphs[key] = self._capture(deps, fn)
-        g.graph.replay()
-        credit(g.delta)
+                with span("sgnn.graphs.warmup"):
+                    return self._warm(fn)
+            with span("sgnn.graphs.capture"):
+                g = self.graphs[key] = self._capture(deps, fn)
+            self.captures[key] += 1
+        with span("sgnn.graphs.replay"):
+            g.graph.replay()
+            credit(g.delta)
         self.replays[key] += 1
         return g.outputs
 
@@ -310,12 +319,16 @@ class StepGraphs:
         return graph, outputs
 
     def summary(self) -> str:
-        """One line: the graphs, their replays and warm-ups, the capture
-        seconds and the pool's MiB."""
+        """One line: the graphs, their replays, warm-ups and captures, the
+        capture seconds and the pool's MiB."""
         if not self.enabled:
             return "CUDA graphs off: every step runs eagerly"
         kinds = collections.Counter(k[0] for k in self.graphs)
+        captures = f"{sum(self.captures.values())} captures"
+        again = sum(n - 1 for n in self.captures.values())
+        if again:
+            captures += f" ({again} of a key captured before)"
         return (f"{len(self.graphs)} graphs ({dict(kinds)}), "
                 f"{sum(self.replays.values())} replays, "
-                f"{sum(self.warmups.values())} warm-up steps, capture "
+                f"{sum(self.warmups.values())} warm-up steps, {captures}, capture "
                 f"{self.capture_s:.2f}s, pool {self.pool_bytes / 2**20:.0f} MiB")

@@ -65,8 +65,9 @@ Differences from the JAX Trainer:
   picks the host push, as JAX's planner does;
 * ``trace_dir`` (``--trace_dir``): TRAIN epoch 1 runs under
   ``torch.profiler`` (CPU and, on a card, CUDA activities) and its
-  Chrome trace is written into that directory, where JAX writes a
-  ``jax.profiler`` trace of the same epoch;
+  Chrome trace, with the port's ``sgnn.*`` spans (``spans.py``), is
+  written into that directory, where JAX writes a ``jax.profiler``
+  trace of the same epoch;
 * serving builds the mode's subgraph cache on the first request (the
   JAX Trainer builds it in its first epoch of that mode);
 * a ``khop`` branch draws its picks from the epoch's sampling
@@ -117,6 +118,7 @@ from shadow_gnn_torch.sampling.induction import (PLAN_GATHER_BUDGET, bucket_cap,
                                                  plan_gather_bytes,
                                                  plan_ppr_induction)
 from shadow_gnn_torch.sampling.samplers import PPRTables, sample_subgraphs
+from shadow_gnn_torch.spans import span
 from shadow_gnn_torch.train.config import DATA_METRIC, decouple_ensemble
 from shadow_gnn_torch.train.graphs import StepGraphs
 from shadow_gnn_torch.train.logger import Logger, find_checkpoint
@@ -857,7 +859,7 @@ class Trainer:
     # gathers from its cache, or samples and induces with the picks and
     # uniforms of ``sampler``
     def _static_batches(self, mode: int, buf, sampler):
-        with torch.no_grad():
+        with torch.no_grad(), span("sgnn.stage.sample"):
             return self._sample_branch_batches(mode, buf["roots"], buf["rows"],
                                                sampler)
 
@@ -868,11 +870,14 @@ class Trainer:
         overflow)."""
         batches, feats = self._static_batches(mode, buf, sampler)
         self.optimizer.zero_grad(set_to_none=True)
-        logits, _ = self.model(batches, feats, generator, buf["seed"], True)
-        loss = weighted_loss_fn(self.model_cfg, logits, buf["labels"], buf["w"])
-        loss.backward()
-        clip_grad_global_norm_(self.model.parameters(), CLIP_NORM)
-        self.optimizer.step()
+        with span("sgnn.stage.forward"):
+            logits, _ = self.model(batches, feats, generator, buf["seed"], True)
+            loss = weighted_loss_fn(self.model_cfg, logits, buf["labels"], buf["w"])
+        with span("sgnn.stage.backward"):
+            loss.backward()
+        with span("sgnn.stage.optimizer"):
+            clip_grad_global_norm_(self.model.parameters(), CLIP_NORM)
+            self.optimizer.step()
         # the gradients stay with the graph: a replay writes them
         return (loss.detach(), predict_fn(self.model_cfg, logits.detach()),
                 [p.grad for p in self.model.parameters()],
@@ -883,9 +888,10 @@ class Trainer:
         """The evaluation step: (loss, probabilities, per-branch
         embeddings, the induction overflow)."""
         batches, feats = self._static_batches(mode, buf, sampler)
-        logits, embs = self.model(batches, feats, mode_train=mode_train)
-        return (weighted_loss_fn(self.model_cfg, logits, buf["labels"], buf["w"]),
-                predict_fn(self.model_cfg, logits), embs,
+        with span("sgnn.stage.forward"):
+            logits, embs = self.model(batches, feats, mode_train=mode_train)
+            loss = weighted_loss_fn(self.model_cfg, logits, buf["labels"], buf["w"])
+        return (loss, predict_fn(self.model_cfg, logits), embs,
                 total_overflow(batches, self.device))
 
     @torch.no_grad()
@@ -893,7 +899,8 @@ class Trainer:
         """A request bucket: (probabilities [cap, C], embeddings
         [branches, cap, dim])."""
         batches, feats = self._static_batches(mode, buf, sampler)
-        logits, embs = self.model(batches, feats)
+        with span("sgnn.stage.forward"):
+            logits, embs = self.model(batches, feats)
         return predict_fn(self.model_cfg, logits), torch.stack(embs)
 
     def _graph_deps(self, mode: int, train: bool) -> tuple:
@@ -964,28 +971,34 @@ class Trainer:
         Returns per-batch losses [nb], predictions [nb * B, C] (numpy)
         and the induction overflow, summed on the device (a 0-d int64
         tensor)."""
-        roots_d, rows_d, lab_d, w_d = self._epoch_tensors(roots, rows, labels, w)
-        self.model.train(train)
-        losses, preds = [], []
-        ovf = no_overflow(self.device)
         b, sg = self.batch_size, self.step_graphs
-        with sg.dropout(rng.dropout) as gen, sg.sampling(rng.sample) as sampler:
-            for i in range(nb):
-                sl = slice(i * b, (i + 1) * b)
-                if train:
-                    loss, pred, o = self._graph_train_step(
-                        mode, roots_d[sl], rows_d[sl], lab_d[sl], w_d[sl], rng, gen,
-                        sampler)
-                else:
-                    loss, pred, _, o = self._graph_eval_step(
-                        mode, roots_d[sl], rows_d[sl], lab_d[sl], w_d[sl],
-                        mode == TRAIN, sampler)
-                losses.append(loss)
-                preds.append(pred)
-                ovf += o
+        losses, preds = [], []
+        with contextlib.ExitStack() as lent:
+            with span("sgnn.epoch.prepare"):
+                roots_d, rows_d, lab_d, w_d = self._epoch_tensors(roots, rows, labels, w)
+                self.model.train(train)
+                ovf = no_overflow(self.device)
+                gen = lent.enter_context(sg.dropout(rng.dropout))
+                sampler = lent.enter_context(sg.sampling(rng.sample))
+            with span("sgnn.epoch.steps"):
+                for i in range(nb):
+                    sl = slice(i * b, (i + 1) * b)
+                    with span("sgnn.step", step=i):
+                        if train:
+                            loss, pred, o = self._graph_train_step(
+                                mode, roots_d[sl], rows_d[sl], lab_d[sl], w_d[sl], rng,
+                                gen, sampler)
+                        else:
+                            loss, pred, _, o = self._graph_eval_step(
+                                mode, roots_d[sl], rows_d[sl], lab_d[sl], w_d[sl],
+                                mode == TRAIN, sampler)
+                        losses.append(loss)
+                        preds.append(pred)
+                        ovf += o
         self.model.eval()
-        return (torch.stack(losses).cpu().numpy(), torch.cat(preds).cpu().numpy(),
-                ovf)
+        with span("sgnn.epoch.readback"):
+            return (torch.stack(losses).cpu().numpy(), torch.cat(preds).cpu().numpy(),
+                    ovf)
 
     # ------------------------------------------------------------------
     # Partitioned epochs (parallel/)
@@ -1021,42 +1034,46 @@ class Trainer:
         (numpy, rank order) and the summed overflow (a 0-d int64 tensor);
         a TRAIN pass then checks that the parameters are bit-equal across
         ranks."""
-        from shadow_gnn_torch.parallel import collectives as cc
         from shadow_gnn_torch.parallel import multihost as mh
         sg = self.step_graphs
-        if sg.enabled:
-            cc.refuse_timing("a partitioned step")
-        step = self._partition_step(mode, train)
         b, dev = self.batch_size, self.device
-        sl = mh.process_slice(b)
-        rng = EpochRNG.from_seed(rank_seed(seed, mh.rank()), dev)
-        cols = np.concatenate([np.arange(i * b + sl.start, i * b + sl.stop)
-                               for i in range(nb)])
-        per = sl.stop - sl.start
-        roots_d, rows_d, lab_d, w_d = self._epoch_tensors(roots[cols], rows[cols],
-                                                          labels[cols], w[cols])
-        key = ("ptrain" if train else "peval", mode, per, step.sig())
-        deps = self._graph_deps(mode, train) + step.deps
-        draw = train and self.model_cfg.dropedge > 0.0
-        self.model.train(train)
         losses, preds = [], []
-        ovf = no_overflow(dev)
-        with sg.dropout(rng.dropout) as gen, sg.sampling(rng.sample) as sampler:
-            for i in range(nb):
-                p = slice(i * per, (i + 1) * per)
-                extra = {"seed": rng.dropedge_seed() if draw else 0} if train else {}
-                buf = sg.inputs(key, roots=roots_d[p], rows=rows_d[p], labels=lab_d[p],
-                                w=w_d[p], **extra)
-                out = sg.run(key, deps, lambda: step(buf, gen, sampler))
-                losses.append(out[0].clone())
-                preds.append(out[1].clone())
-                ovf += out[2]
+        with contextlib.ExitStack() as lent:
+            with span("sgnn.epoch.prepare"):
+                step = self._partition_step(mode, train)
+                sl = mh.process_slice(b)
+                rng = EpochRNG.from_seed(rank_seed(seed, mh.rank()), dev)
+                cols = np.concatenate([np.arange(i * b + sl.start, i * b + sl.stop)
+                                       for i in range(nb)])
+                per = sl.stop - sl.start
+                roots_d, rows_d, lab_d, w_d = self._epoch_tensors(
+                    roots[cols], rows[cols], labels[cols], w[cols])
+                key = ("ptrain" if train else "peval", mode, per, step.sig())
+                deps = self._graph_deps(mode, train) + step.deps
+                draw = train and self.model_cfg.dropedge > 0.0
+                self.model.train(train)
+                ovf = no_overflow(dev)
+                gen = lent.enter_context(sg.dropout(rng.dropout))
+                sampler = lent.enter_context(sg.sampling(rng.sample))
+            with span("sgnn.epoch.steps"):
+                for i in range(nb):
+                    p = slice(i * per, (i + 1) * per)
+                    with span("sgnn.step", step=i):
+                        extra = ({"seed": rng.dropedge_seed() if draw else 0}
+                                 if train else {})
+                        buf = sg.inputs(key, roots=roots_d[p], rows=rows_d[p],
+                                        labels=lab_d[p], w=w_d[p], **extra)
+                        out = sg.run(key, deps, lambda: step(buf, gen, sampler))
+                        losses.append(out[0].clone())
+                        preds.append(out[1].clone())
+                        ovf += out[2]
         self.model.eval()
-        if train:
-            self.partition_train_dispatches += 1
-            self.check_replicas()
-        return (torch.stack(losses).cpu().numpy(), torch.cat(preds).cpu().numpy(),
-                ovf)
+        with span("sgnn.epoch.readback"):
+            if train:
+                self.partition_train_dispatches += 1
+                self.check_replicas()
+            return (torch.stack(losses).cpu().numpy(), torch.cat(preds).cpu().numpy(),
+                    ovf)
 
     def param_checksum(self) -> torch.Tensor:
         """int64 [2]: the sum and an index-weighted sum of the bits of
@@ -1080,21 +1097,24 @@ class Trainer:
 
     def run_epoch(self, epoch: int, mode: int, status: str = "running"):
         """One TRAIN (with updates) or evaluation pass over the mode's
-        node set; logs and returns its stats."""
-        self._ensure_tables(mode)
-        self._ensure_caches(mode)
-        if epoch == 0 and status == "running" and self.profiler.enabled:
-            # the subgraph statistics of the first epoch, then no more
-            self._profile_epoch(mode)
-            print(f"[profiler] {MODE2STR[mode]} subgraph stats:")
-            self.profiler.print_summary()
-            self.profiler.clear_metrics()
-            self.profiler.enabled = False
+        node set; logs and returns its stats.  TRAIN epoch 1 runs under
+        ``--trace_dir``'s profiler, when one is set."""
         train = mode == TRAIN and status == "running"
-        nb, roots, rows, labels_np, w_np = self._epoch_arrays(mode)
-        seed = int(self.rng_np.integers(1 << 31))
         traced = train and epoch == 1
-        with _epoch_trace(self.trace_dir if traced else None, self.device):
+        with _epoch_trace(self.trace_dir if traced else None, self.device), \
+                span("sgnn.epoch", epoch=epoch, mode=mode):
+            with span("sgnn.epoch.prepare"):
+                self._ensure_tables(mode)
+                self._ensure_caches(mode)
+                if epoch == 0 and status == "running" and self.profiler.enabled:
+                    # the subgraph statistics of the first epoch, then no more
+                    self._profile_epoch(mode)
+                    print(f"[profiler] {MODE2STR[mode]} subgraph stats:")
+                    self.profiler.print_summary()
+                    self.profiler.clear_metrics()
+                    self.profiler.enabled = False
+                nb, roots, rows, labels_np, w_np = self._epoch_arrays(mode)
+                seed = int(self.rng_np.integers(1 << 31))
             t0 = time.time()
             if self.partition != "none":
                 losses, preds, ovf = self._run_partition(mode, train, nb, roots, rows,
@@ -1104,12 +1124,20 @@ class Trainer:
                     mode, train, nb, roots, rows, labels_np, w_np,
                     EpochRNG.from_seed(seed, self.device))
             t1 = time.time()
-        ovf = int(ovf)                  # the epoch's one read of it
-        if ovf > 0:
-            print(f"[WARN] induction candidate overflow: {ovf} edges "
-                  f"dropped this epoch (raise cand_cap)")
-        # metrics on the host over valid rows; TRAIN metrics optionally
-        # use only every Nth batch (reference PERIOD_LOG subsampling)
+            with span("sgnn.epoch.readback"):
+                ovf = int(ovf)                  # the epoch's one read of it
+            if ovf > 0:
+                print(f"[WARN] induction candidate overflow: {ovf} edges "
+                      f"dropped this epoch (raise cand_cap)")
+            with span("sgnn.epoch.metrics"):
+                return self._epoch_stats(epoch, mode, status, train, losses, preds,
+                                         labels_np, w_np, t1 - t0)
+
+    def _epoch_stats(self, epoch: int, mode: int, status: str, train: bool, losses,
+                     preds, labels_np, w_np, time_s: float):
+        """The epoch's metrics on the host over its valid rows (TRAIN's
+        optionally over every Nth batch only: the reference's PERIOD_LOG
+        subsampling), logged and returned."""
         valid = w_np > 0
         if train and self.eval_train_every > 1:
             sel = np.arange(losses.size) % self.eval_train_every == 0
@@ -1122,7 +1150,7 @@ class Trainer:
                 y_true.astype(np.int64)]
         stats = {"loss": float(losses.mean())}
         stats.update(self.metrics.calc(y_true, y_pred))
-        self.logger.log_epoch(mode, epoch, stats, status=status, time_s=t1 - t0)
+        self.logger.log_epoch(mode, epoch, stats, status=status, time_s=time_s)
         return stats
 
     @torch.no_grad()
@@ -1157,10 +1185,11 @@ class Trainer:
         with sg.sampling(gen) as sampler:
             for i in range(nb):
                 sl = slice(i * b, (i + 1) * b)
-                buf = sg.inputs(key, roots=roots_d[sl], rows=rows_d[sl], w=w_d[sl],
-                                **(zero if i == 0 else {}))
-                sg.run(key, self._graph_deps(mode, False),
-                       lambda: self._static_profile(mode, buf, sampler))
+                with span("sgnn.step", step=i):
+                    buf = sg.inputs(key, roots=roots_d[sl], rows=rows_d[sl], w=w_d[sl],
+                                    **(zero if i == 0 else {}))
+                    sg.run(key, self._graph_deps(mode, False),
+                           lambda: self._static_profile(mode, buf, sampler))
         hops, counts = buf["hops"].cpu().numpy(), buf["counts"].cpu().numpy()
         for i in range(e):
             self.profiler.update_stats(i, hops[i], *counts[i].tolist())
@@ -1312,9 +1341,11 @@ class Trainer:
         """Point-query serving: class probabilities [len(ids), C] for node
         ids of the mode's node set (PPR-row gather -> cached subgraph ->
         forward)."""
-        return self._serve_batch(ids, mode, "predict_nodes")[0]
+        with span("sgnn.request", ids=int(np.size(ids))):
+            return self._serve_batch(ids, mode, "predict_nodes")[0]
 
     def embed_nodes(self, ids, mode: int = TEST) -> List[np.ndarray]:
         """Point-query embeddings: per-ensemble-branch [len(ids), dim]."""
-        embs = self._serve_batch(ids, mode, "embed_nodes")[1]
+        with span("sgnn.request", ids=int(np.size(ids))):
+            embs = self._serve_batch(ids, mode, "embed_nodes")[1]
         return [embs[i] for i in range(self.num_ensemble)]

@@ -18,9 +18,8 @@ state; every step but the first of its key replays; the collectives'
 calls and bytes of a graphed pass equal the fresh pass's (credited per
 replay).  The static TRAIN and eval steps of each partition read no
 device value on the host (no ``_local_scalar_dense``), with the BFS in a
-fixed number of levels standing in for the kernel.  A graphed
-partitioned Trainer refuses ``collectives.timing`` by name; a gloo group
-and the CPU print that every step runs eagerly.  Leaving the group
+fixed number of levels standing in for the kernel.  A gloo group and
+the CPU print that every step runs eagerly.  Leaving the group
 destroys every captured graph first (an NCCL communicator waits for the
 graphs that hold its collectives).
 """
@@ -219,7 +218,7 @@ def _host_reads(tr, mode, train, roots, rows, labels, w):
 def rank_checks(out_dir):
     """One rank: for each partition a graphed (stub) and a fresh-step
     Trainer through the passes of PASSES, the collectives' counts, the
-    replays, the timing refusal, the plans, the host reads; writes
+    replays, the plans, the host reads; writes
     ``rank<r>.pkl``."""
     out = {}
     for part in PARTS:
@@ -250,14 +249,6 @@ def rank_checks(out_dir):
         res["replays"] = dict(sg.replays)
         res["warmups"] = dict(sg.warmups)
         res["state"] = (_state(graphed), _state(fresh))
-        cc.timing = True
-        try:
-            graphed._run_partition(TRAIN, True, nb, roots, rows, labels, w, 0)
-            res["timing"] = ""
-        except RuntimeError as err:
-            res["timing"] = str(err)
-        finally:
-            cc.timing = False
         res["host_reads"] = {
             name: _host_reads(fresh, mode, train, *fresh._epoch_arrays(mode)[1:])
             for name, mode, train in (("train", TRAIN, True), ("eval", VALID, False))}
@@ -324,19 +315,6 @@ def test_collective_stats_are_credited_per_replay(ranks, part):
 def test_static_steps_read_nothing_on_the_host(ranks, part):
     for res in (r[part] for r in ranks):
         assert res["host_reads"] == {"train": "", "eval": ""}
-
-
-def test_graphed_partition_refuses_collective_timing(ranks):
-    for res in (r[p] for r in ranks for p in PARTS):
-        assert "collectives.timing" in res["timing"]
-        assert "a partitioned step" in res["timing"]
-    cc.timing = True
-    try:
-        with pytest.raises(RuntimeError, match="collectives.timing"):
-            cc.refuse_timing("x")
-    finally:
-        cc.timing = False
-    cc.refuse_timing("x")
 
 
 def test_gloo_and_the_cpu_run_eagerly(ranks, monkeypatch):
