@@ -47,8 +47,11 @@ dense ``torch.bmm`` on the uncached path, or the packed kernel
 (``ops/packed.py``) on cached batches.  GAT and GATScatter take the pair
 ``(adj_norm, adj_struct)`` of dense blocks; the MLP conv takes nothing.
 Every conv is called as ``conv(feat, agg, generator=None,
-node_mask=None)``.  ``norm_feat``'s backward is autograd's; the JAX
-package's custom VJP computes the same gradients in fewer passes.
+node_mask=None)``; SAGE also takes ``rows`` ([B, T]), the only rows of
+its output that its caller reads, and then computes its linears, norms
+and activations at those rows alone (:meth:`SAGEConv.forward`).
+``norm_feat``'s backward is autograd's; the JAX package's custom VJP
+computes the same gradients in fewer passes.
 """
 from __future__ import annotations
 
@@ -173,6 +176,11 @@ def dropout(x: torch.Tensor, p: float, generator: Optional[torch.Generator]
     return torch.where(keep, x / (1.0 - p), 0.0)
 
 
+def gather_rows(x: torch.Tensor, rows: torch.Tensor) -> torch.Tensor:
+    """x [B, N, F], rows [B, T] -> x's rows [B, T, F]."""
+    return torch.gather(x, 1, rows[..., None].expand(-1, -1, x.shape[-1]))
+
+
 def norm_feat(feat: torch.Tensor, scale: torch.Tensor,
               offset: torch.Tensor) -> torch.Tensor:
     """Per-row affine layernorm."""
@@ -245,12 +253,19 @@ class SAGEConv(_ConvBase):
 
     def forward(self, feat: torch.Tensor, agg: Callable,
                 generator: Optional[torch.Generator] = None,
-                node_mask: Optional[torch.Tensor] = None) -> torch.Tensor:
+                node_mask: Optional[torch.Tensor] = None,
+                rows: Optional[torch.Tensor] = None) -> torch.Tensor:
         """One dropout draw on the input feeds both linears and the
-        aggregation (in training mode only)."""
+        aggregation (in training mode only).  With ``rows`` [B, T] the
+        dropout and the aggregation still cover the whole [B, N] block,
+        then both linears, activations and norms run at those rows alone:
+        [B, T, dim], the same rows of the full output."""
+        if rows is not None and self.norm == "pairnorm":
+            raise ValueError("pairnorm reads every row: no rows")
+        take = (lambda x: x) if rows is None else (lambda x: gather_rows(x, rows))
         feat = self._drop(feat, generator)
-        h_self = self.act(self.lin_self(feat))
-        h_neigh = self.act(self.lin_neigh(agg(feat)))
+        h_self = self.act(self.lin_self(take(feat)))
+        h_neigh = self.act(self.lin_neigh(take(agg(feat))))
         return self._norm(h_self, node_mask, 0) + self._norm(h_neigh, node_mask, 1)
 
 

@@ -28,6 +28,12 @@ dense pair (edge-dropped block, structural block) into
 block.  Every path draws the
 same counter-hash dropedge mask (``ops/normalize.py``) from one seed
 per forward.
+Where the readout reads nothing of the last conv's output but the
+targets' rows (``ResPool.reads_target_rows``: center pooling) and that
+conv is SAGE with a row-wise norm, the branch runs its linears, norms
+and activations at the targets' rows alone (``SAGEConv``'s ``rows``;
+the dropout and the aggregation still cover every row); ``last_conv_rows``
+counts the branch forwards that did and did not.
 
 Precision (``ModelConfig.matmul_precision`` / ``compute_dtype``, the
 JAX package's ``--matmul_precision`` / ``--compute_dtype``):
@@ -53,12 +59,14 @@ from __future__ import annotations
 
 import dataclasses
 import functools
+import types
 from typing import List, Optional, Tuple
 
 import torch
 from torch import nn
 
-from shadow_gnn_torch.nn.layers import ATTENTION, NAME2LAYER, NORMS, MLPLayer, TorchLinear
+from shadow_gnn_torch.nn.layers import (ATTENTION, NAME2LAYER, NORMS, MLPLayer, SAGEConv,
+                                        TorchLinear, gather_rows)
 from shadow_gnn_torch.nn.respool import EnsembleAggregator, ResPool
 from shadow_gnn_torch.ops.normalize import ADJ_FREE, prepare_adj
 from shadow_gnn_torch.ops.packed import packed_spmm
@@ -153,6 +161,13 @@ class ModelConfig:
 # the packed kernel's norm of each backbone that aggregates through it
 # (shadow_gnn_tpu/nn/model.py:142)
 PACKED_NORM = {"gcn": "sym", "sage": "rw", "gin": "gin"}
+
+
+# branch forwards whose last conv ran at the targets' rows alone
+# (``target_rows``) or at every row (``full_rows``); a graph replay is
+# credited its capture's counts (train/graphs.py:launch_counters)
+last_conv_rows = types.SimpleNamespace(__name__="last_conv_rows", target_rows=0,
+                                       full_rows=0)
 
 
 def branch_seed(seed, i: int):
@@ -311,11 +326,23 @@ class DeepGNN(nn.Module):
                     emb_a = torch.nn.functional.pad(emb_a, (0, d_lab))
                 x = x + emb_a
         agg = self.aggregator(batch, seed)
+        *body, tail = convs
         xjk = []
-        for conv in convs:
+        for conv in body:
             x = conv(x, agg, generator, node_mask=batch.node_mask) * mask
             xjk.append(x)
-        emb = res_pool(xjk, batch.targets, batch.node_mask, generator).float()
+        at_targets = (res_pool.reads_target_rows and isinstance(tail, SAGEConv)
+                      and tail.norm != "pairnorm")
+        if at_targets:
+            x = tail(x, agg, generator, node_mask=batch.node_mask,
+                     rows=batch.targets) * gather_rows(mask, batch.targets)
+            last_conv_rows.target_rows += 1
+        else:
+            x = tail(x, agg, generator, node_mask=batch.node_mask) * mask
+            last_conv_rows.full_rows += 1
+        xjk.append(x)
+        emb = res_pool(xjk, batch.targets, batch.node_mask, generator,
+                       last_at_targets=at_targets).float()
         return emb / torch.clamp(torch.linalg.vector_norm(emb, dim=-1, keepdim=True),
                                  min=1e-12)
 

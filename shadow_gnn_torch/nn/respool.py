@@ -26,7 +26,7 @@ from typing import Optional, Sequence
 import torch
 from torch import nn
 
-from shadow_gnn_torch.nn.layers import Act, TorchLinear, dropout, norm_feat
+from shadow_gnn_torch.nn.layers import Act, TorchLinear, dropout, gather_rows, norm_feat
 from shadow_gnn_torch.ops.precision import matmul
 from shadow_gnn_torch.ops.segment import (masked_max_pool, masked_mean_pool,
                                           masked_sort_pool, masked_sum_pool)
@@ -49,8 +49,7 @@ def f_residue(feats: Sequence[torch.Tensor], type_res: str) -> torch.Tensor:
 
 def _gather_targets(feat: torch.Tensor, targets: torch.Tensor) -> torch.Tensor:
     """feat [B, N, F], targets [B, T] -> [B*T, F]."""
-    idx = targets[..., None].expand(-1, -1, feat.shape[-1])
-    return torch.gather(feat, 1, idx).reshape(-1, feat.shape[-1])
+    return gather_rows(feat, targets).reshape(-1, feat.shape[-1])
 
 
 class ResPool(nn.Module):
@@ -80,6 +79,12 @@ class ResPool(nn.Module):
             self.scale = nn.Parameter(torch.ones(dim_hid))
             self.offset = nn.Parameter(torch.zeros(dim_hid))
 
+    @property
+    def reads_target_rows(self) -> bool:
+        """Whether the readout reads nothing of the layers' blocks but the
+        targets' rows (center pooling, any residue, either task)."""
+        return self.type_pool == "center"
+
     def _aggr_target_emb(self, feat: torch.Tensor) -> torch.Tensor:
         """Link task: [B*2, F] target rows -> src (*) dst [B, F]."""
         if not self.link:
@@ -89,13 +94,21 @@ class ResPool(nn.Module):
 
     def forward(self, feats_l: Sequence[torch.Tensor], targets: torch.Tensor,
                 node_mask: torch.Tensor,
-                generator: Optional[torch.Generator] = None) -> torch.Tensor:
+                generator: Optional[torch.Generator] = None,
+                last_at_targets: bool = False) -> torch.Tensor:
         """feats_l: per-conv-layer [B, N, F]; targets [B, T] (T = 2 for
-        the link task); node_mask [B, N] -> [B, dim]."""
+        the link task); node_mask [B, N] -> [B, dim].
+        ``last_at_targets``: the last layer's block is already its rows at
+        the targets, [B, T, F] (where :attr:`reads_target_rows`)."""
         tp, tr = self.type_pool, self.type_res
+        if last_at_targets and not self.reads_target_rows:
+            raise ValueError(f"{tp} pooling reads every row of the last layer")
         if tr == "none":
             feats_l = feats_l[-1:]
-        roots = [_gather_targets(f, targets) for f in feats_l]
+        *before, last = feats_l
+        roots = [_gather_targets(f, targets) for f in before]
+        roots.append(last.reshape(-1, last.shape[-1]) if last_at_targets
+                     else _gather_targets(last, targets))
         feat_in = roots[0] if tr == "none" else f_residue(roots, tr)
         if not self.has_mlp:
             return feat_in

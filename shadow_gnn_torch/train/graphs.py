@@ -88,12 +88,15 @@ def release_all():
 def launch_counters():
     """(holder, name) of every kernel launch counter of the port: the
     packed wrappers' (calls, per mode, per norm), the attention
-    wrappers' (per level) and the BFS kernel's; and the collectives'
-    calls and bytes.  A holder is the wrapper or a dict."""
+    wrappers' (per level) and the BFS kernel's; the collectives' calls
+    and bytes; and the model's last convs at the targets' rows or at
+    every row.  A holder is the wrapper, a namespace or a dict."""
+    from shadow_gnn_torch.nn import model
     from shadow_gnn_torch.ops import bfs, gat, packed
     from shadow_gnn_torch.parallel import collectives
     out = [(packed.packed_spmm, "calls"), (bfs.bfs_hops_multi, "launches"),
-           (collectives.stats, "calls"), (collectives.stats, "bytes")]
+           (collectives.stats, "calls"), (collectives.stats, "bytes"),
+           (model.last_conv_rows, "target_rows"), (model.last_conv_rows, "full_rows")]
     for fn in (packed.packed_spmm, packed.packed_spmm_t):
         out += [(fn, "launches"), (fn, "launches_bf16")]
         out += [(fn.launches_by_norm, n) for n in packed.NORMS]
@@ -320,9 +323,14 @@ class StepGraphs:
 
     def summary(self) -> str:
         """One line: the graphs, their replays, warm-ups and captures, the
-        capture seconds and the pool's MiB."""
+        capture seconds and the pool's MiB; and the share of the process's
+        branch forwards whose last conv ran at the targets' rows alone."""
+        from shadow_gnn_torch.nn.model import last_conv_rows as lc
+        runs = lc.target_rows + lc.full_rows
+        at_targets = (f"last conv at the targets {lc.target_rows} of {runs}"
+                      + (f" ({100.0 * lc.target_rows / runs:.1f}%)" if runs else ""))
         if not self.enabled:
-            return "CUDA graphs off: every step runs eagerly"
+            return f"CUDA graphs off: every step runs eagerly; {at_targets}"
         kinds = collections.Counter(k[0] for k in self.graphs)
         captures = f"{sum(self.captures.values())} captures"
         again = sum(n - 1 for n in self.captures.values())
@@ -331,4 +339,5 @@ class StepGraphs:
         return (f"{len(self.graphs)} graphs ({dict(kinds)}), "
                 f"{sum(self.replays.values())} replays, "
                 f"{sum(self.warmups.values())} warm-up steps, {captures}, capture "
-                f"{self.capture_s:.2f}s, pool {self.pool_bytes / 2**20:.0f} MiB")
+                f"{self.capture_s:.2f}s, pool {self.pool_bytes / 2**20:.0f} MiB; "
+                f"{at_targets}")

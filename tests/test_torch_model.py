@@ -2,9 +2,14 @@
 masked pools, ResPool and DeepGNN (SAGE and GAT; forward, and training
 mode with its gradients) against the JAX package's flax modules, under
 the same weights (carried over with ``params_from_flax``) and the same
-numpy inputs; dropout and dropedge on the port's own generators.
+numpy inputs; dropout and dropedge on the port's own generators.  The
+last SAGE conv of a center readout, run at the targets' rows alone,
+against the same conv at every row.
 Tolerance atol 1e-5 / rtol 1e-4 unless stated: the same f32
 arithmetic, summed in another order."""
+import dataclasses
+import functools
+
 import jax
 import jax.numpy as jnp
 import numpy as np
@@ -23,6 +28,7 @@ from shadow_gnn_torch.nn import model as tmodel
 from shadow_gnn_torch.nn import respool as trespool
 from shadow_gnn_torch.ops import segment as tsegment
 from shadow_gnn_torch.ops.normalize import adj_norm_rw
+from shadow_gnn_torch.ops.packed import packed_spmm
 from shadow_gnn_torch.sampling.batch import SubgraphBatch as TBatch
 from shadow_gnn_torch.sampling.cache import pack_bits
 from shadow_gnn_torch.train.pipeline import weighted_loss_fn as t_wloss
@@ -109,6 +115,55 @@ def test_sage_conv_matches_jax(act):
     np.testing.assert_allclose(got, want, **TOL)
 
 
+def _perturb_norms(module, seed):
+    """Norm scales and offsets moved off 1 and 0, so that each matters."""
+    gen = torch.Generator().manual_seed(seed)
+    with torch.no_grad():
+        for name, p in module.named_parameters():
+            if name.endswith(("scale", "offset")):
+                p.add_(0.1 * torch.randn(p.shape, generator=gen))
+
+
+@pytest.mark.parametrize("t", [1, 2])
+@pytest.mark.parametrize("path", ["dense", "packed"])
+def test_sage_conv_at_rows_equals_full_conv(path, t):
+    """SAGEConv with ``rows`` [B, T] equals the full conv's output at those
+    rows: the forward, the input's gradient and every parameter's, in
+    training mode at dropout 0.45 and dropedge 0.05 from one generator
+    state, on the dense block and on the packed bits (the plain version
+    of the packed product and its transposed backward)."""
+    a, feat = _batch_arrays(14)
+    adj = torch.as_tensor(a["adj"])
+    if path == "dense":
+        agg = lambda x: torch.bmm(adj_norm_rw(adj, 77, 0.05), x)   # noqa: E731
+    else:
+        agg = functools.partial(packed_spmm, pack_bits(adj), norm="rw", dropedge=0.05,
+                                seed=77)
+    rng = np.random.default_rng(15)
+    rows = torch.as_tensor(np.stack([rng.permutation(N)[:t] for _ in range(B)]))
+    cot = torch.as_tensor(rng.normal(size=(B, t, DIM)).astype(np.float32))
+    conv = tlayers.SAGEConv(F, DIM, act="prelu", dropout=0.45)
+    tlayers.init_params(conv, torch.Generator().manual_seed(0))
+    _perturb_norms(conv, 1)
+    conv.train()
+    out = []
+    for at in (None, rows):
+        conv.zero_grad(set_to_none=True)
+        tx = torch.tensor(feat, requires_grad=True)
+        y = conv(tx, agg, torch.Generator().manual_seed(5), rows=at)
+        if at is None:
+            y = tlayers.gather_rows(y, rows)
+        (y * cot).sum().backward()
+        out.append((y.detach(), tx.grad, {k: p.grad for k, p in conv.named_parameters()}))
+    (y_full, gx_full, gp_full), (y_rows, gx_rows, gp_rows) = out
+    assert y_rows.shape == (B, t, DIM)
+    np.testing.assert_allclose(y_rows.numpy(), y_full.numpy(), **TOL)
+    np.testing.assert_allclose(gx_rows.numpy(), gx_full.numpy(), **TOL)
+    assert set(gp_rows) == set(gp_full)
+    for k in gp_full:
+        np.testing.assert_allclose(gp_rows[k].numpy(), gp_full[k].numpy(), err_msg=k, **TOL)
+
+
 def _configs(packed, **extra):
     kw = dict(dim_feat_smooth=F, dim_label_raw=C, dim_label_smooth=0,
               aggr="sage", num_layers=3, dim=DIM, act="relu",
@@ -175,14 +230,17 @@ def _grads_np(model):
     return {k: p.grad.numpy() for k, p in model.named_parameters()}
 
 
+@pytest.mark.parametrize("residue", ["none", "sum"])
 @pytest.mark.parametrize("packed", [False, True])
-def test_deep_gnn_train_mode_matches_jax(packed):
+def test_deep_gnn_train_mode_matches_jax(packed, residue):
     """train() mode at dropout 0 / dropedge 0: logits and the gradient of
     weighted_loss_fn for every parameter equal flax apply(train=True)
     (JAX's packed path runs the interpret-mode Pallas kernel and its
-    transposed VJP), at rtol 1e-4 / atol 1e-6."""
+    transposed VJP), at rtol 1e-4 / atol 1e-6.  The flagship's center
+    readout (residue none, and sum) runs its last conv at the targets'
+    rows alone."""
     a, feat = _batch_arrays(11)
-    jcfg, tcfg = _configs(packed)
+    jcfg, tcfg = _configs(packed, residue=residue)
     jm = jmodel.DeepGNN(jcfg)
     args = ([_jax_batch(a, packed)], [jnp.asarray(feat)])
     params = jm.init({"params": jax.random.PRNGKey(1)}, *args,
@@ -197,8 +255,11 @@ def test_deep_gnn_train_mode_matches_jax(packed):
     (j_loss, j_logits), j_grads = jax.value_and_grad(lf, has_aux=True)(params)
     tm = tmodel.DeepGNN(tcfg).train()
     tm.load_state_dict(params_from_flax(_np_tree(params)))
+    counts = (tmodel.last_conv_rows.target_rows, tmodel.last_conv_rows.full_rows)
     logits, _ = tm(_torch_batch(a, packed), torch.as_tensor(feat),
                    torch.Generator().manual_seed(0), 123)
+    assert (tmodel.last_conv_rows.target_rows - counts[0],
+            tmodel.last_conv_rows.full_rows - counts[1]) == (1, 0)
     loss = t_wloss(tcfg, logits, torch.as_tensor(labels), torch.as_tensor(w))
     loss.backward()
     tol = dict(rtol=1e-4, atol=1e-6)
@@ -209,6 +270,57 @@ def test_deep_gnn_train_mode_matches_jax(packed):
     assert set(got) == set(want)
     for k in want:
         np.testing.assert_allclose(got[k], want[k].numpy(), err_msg=k, **tol)
+
+
+@pytest.mark.parametrize("case, at_targets", [
+    (dict(), True),
+    (dict(residue="sum", act="prelu"), True),
+    (dict(residue="max"), True),
+    (dict(residue="concat", layer_norm="none"), True),
+    (dict(pooling="max"), False),
+    (dict(pooling="mean", residue="sum"), False),
+    (dict(layer_norm="pairnorm"), False),
+    (dict(aggr="gcn"), False),
+])
+def test_last_conv_at_targets_equals_full_rows(case, at_targets):
+    """Which models run their last conv at the targets' rows alone (SAGE
+    with center pooling and a row-wise norm; ``last_conv_rows`` counts
+    it), and that doing so changes nothing: in training mode at dropout
+    0.3 and dropedge 0.1 on the packed path, the loss and every
+    gradient equal those of the same model whose readout is taken to
+    read every row.  Subgraph 3 is padding (no valid row): the node mask
+    gathered at its target zeroes the trimmed conv's row as it does the
+    full one's."""
+    a, feat = _batch_arrays(16)
+    a["node_mask"][3] = False
+    cfg = dataclasses.replace(_configs(True, dropout=0.3, dropedge=0.1)[1], **case)
+    labels = torch.as_tensor(np.random.default_rng(17).integers(0, C, B))
+    m = tmodel.DeepGNN(cfg)
+    tlayers.init_params(m, torch.Generator().manual_seed(0))
+    _perturb_norms(m, 2)
+    m.train()
+    out = []
+    for trim in (True, False):
+        lc = tmodel.last_conv_rows
+        counts = (lc.target_rows, lc.full_rows)
+        m.zero_grad(set_to_none=True)
+        with pytest.MonkeyPatch.context() as mp:
+            if not trim:
+                mp.setattr(trespool.ResPool, "reads_target_rows",
+                           property(lambda self: False))
+            logits, _ = m(_torch_batch(a, packed=True), torch.as_tensor(feat),
+                          torch.Generator().manual_seed(5), 99)
+        loss = t_wloss(cfg, logits, labels, torch.ones(B))
+        loss.backward()
+        engaged = trim and at_targets
+        assert (lc.target_rows - counts[0], lc.full_rows - counts[1]) == (
+            (1, 0) if engaged else (0, 1))
+        out.append((logits.detach().numpy(), loss.item(), _grads_np(m)))
+    (lg_t, l_t, g_t), (lg_f, l_f, g_f) = out
+    np.testing.assert_allclose(lg_t, lg_f, **TOL)
+    np.testing.assert_allclose(l_t, l_f, rtol=1e-6)
+    for k in g_f:
+        np.testing.assert_allclose(g_t[k], g_f[k], err_msg=k, **TOL)
 
 
 def test_packed_and_dense_paths_agree_under_dropedge():
@@ -282,7 +394,6 @@ def test_packed_path_equals_dense_path():
 
 def test_unported_branches_raise():
     _, tcfg = _configs(False)
-    import dataclasses
     with pytest.raises(NotImplementedError):
         tmodel.DeepGNN(dataclasses.replace(tcfg, act="softplus"))
     with pytest.raises(ValueError, match="matmul_precision"):
