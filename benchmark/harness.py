@@ -4,8 +4,9 @@ Everything that belongs to one configuration, traffic mix, cell or
 per-layer metric is a file of its own, found by the name that
 ``BENCHMARK.json`` gives it:
 
-* ``configs/<config>.json`` (the ``file`` of its entry): the sizes, the
-  training configuration and the name of its plain reference,
+* ``configs/<config>.json`` (the ``file`` of its entry): the sizes and
+  the task (its ``data`` block, which ``gen.py`` reads), the training
+  configuration and the name of its plain reference,
   ``reference/<reference>.py``;
 * ``traffic/<traffic>.json``: the mix's parameters, among them its
   ``entry``, the driver that runs it: ``entries/<entry>.py``, which
@@ -128,6 +129,20 @@ def assemble(cell: Dict, out: Dict, checks: Dict, traced: bool, device: Dict,
     return res
 
 
+def subgraph_stats(cell: Dict, entry, ref, seed: int) -> Dict[str, float]:
+    """The mean real nodes and edges of the cell's subgraphs: the
+    entry's own ``stats(ref, seed)`` where it has one, else the
+    reference's subgraphs of ``stats_roots`` node roots of the entry's
+    ``STATS_MODE``, drawn from the seed."""
+    if hasattr(entry, "stats"):
+        return entry.stats(ref, seed)
+    import numpy as np
+    pool = ref.data["node_set"][entry.STATS_MODE]
+    roots = np.random.default_rng([seed, 11]).choice(
+        pool, size=min(cell["check"]["stats_roots"], pool.size), replace=False)
+    return ref.stats(entry.STATS_MODE, roots)
+
+
 def measure(name: str, seed: int, seconds: float, traced: bool, t_start: float,
             device: str = "cuda", overrides: Optional[Dict] = None,
             patch: Optional[Callable] = None, root: str = ROOT):
@@ -151,7 +166,6 @@ def run(name: str, seed: int, seconds: float, traced: bool, t_start: float,
         patch: Optional[Callable] = None, root: str = ROOT) -> Dict[str, Any]:
     """One run of the cell ``name``: the program's window, then, with
     its state freed, the reference's judgement."""
-    import numpy as np
     import torch
     from benchmark import verify
     cell, entry, out, dev = measure(name, seed, seconds, traced, t_start, device,
@@ -161,10 +175,7 @@ def run(name: str, seed: int, seconds: float, traced: bool, t_start: float,
     extra = {"forwards_per_root": entry.FORWARDS_PER_ROOT}
     if traced:
         # the mean subgraph of the cell's roots, for the FLOP and byte counts
-        pool = ref.data["node_set"][entry.STATS_MODE]
-        roots = np.random.default_rng([seed, 11]).choice(
-            pool, size=min(cell["check"]["stats_roots"], pool.size), replace=False)
-        extra["subgraph"] = ref.stats(entry.STATS_MODE, roots)
+        extra["subgraph"] = subgraph_stats(cell, entry, ref, seed)
     checks = check_numbers(cell, readings)
     world = int(cell["traffic"].get("world", 1))
     if torch.device(dev).type == "cuda":

@@ -11,9 +11,12 @@ An entry module holds ``Driver(tr, cell, weights, split)`` (the
 warm-up; ``unit(e)`` -> (roots, steps) of one window unit; ``collect()``
 -> what the reference judges), ``end_to_end(out)`` -> {metric: value},
 ``judge(ref, out)`` -> (numbers, diagnostics, the reference's readings),
-``control(ref, out, fault, want)`` -> numbers, ``FORWARDS_PER_ROOT``
-and ``STATS_MODE``, and names in its docstring the program members it
-uses.
+``control(ref, out, fault, want)`` -> numbers, ``FORWARDS_PER_ROOT``,
+and either ``STATS_MODE`` (the mode whose node roots' subgraphs give a
+traced run's mean subgraph, the FLOP and byte counts' sizes) or
+``stats(ref, seed)`` -> {"nodes", "edges"}, that mean worked out by the
+entry itself (a link subgraph has two roots); it names in its
+docstring the program members it uses.
 
 The program is ``shadow_gnn_torch``, imported here and by the entries
 only; the runner reads its launch counters.
@@ -55,7 +58,8 @@ def build_trainer(cell: Dict, data: Dict, seed: int, device, partition: str = "n
     raw = RawGraph(indptr_full=data["indptr"], indices_full=data["indices"],
                    indptr_train=data["indptr_train"], indices_train=data["indices_train"],
                    feat_full=data["feat"], label_full=data["label"],
-                   node_set=dict(data["node_set"]), edge_set=None)
+                   node_set=None if data["node_set"] is None else dict(data["node_set"]),
+                   edge_set=data["edge_set"])
     opts = cfg["trainer"]
     return Trainer(cfg["dataset"], data_dir, raw, parse_config(cfg["train_config"]),
                    seed=seed, device=device, partition=partition,

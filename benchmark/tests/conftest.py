@@ -39,15 +39,17 @@ def small(cell: str):
     return SMALL[cell.split(".")[0]]
 
 
-def checkout(tmp_path, workloads=(), end_to_end=(), per_layer=(), files=None) -> str:
+def checkout(tmp_path, workloads=(), end_to_end=(), per_layer=(), files=None,
+             configs=()) -> str:
     """A copy of the benchmark (``BENCHMARK.json`` and ``benchmark/``,
-    its tests left out) with cells, metrics and files added, as a later
-    change would add them; its root."""
+    its tests left out) with configurations, cells, metrics and files
+    added, as a later change would add them; its root."""
     root = tmp_path / "checkout"
     shutil.copytree(os.path.join(ROOT, "benchmark"), root / "benchmark",
                     ignore=shutil.ignore_patterns("__pycache__", "tests"))
     with open(os.path.join(ROOT, "BENCHMARK.json"), encoding="utf-8") as f:
         spec = json.load(f)
+    spec["configs"] += list(configs)
     spec["workloads"] += list(workloads)
     spec["end_to_end"] += list(end_to_end)
     spec["per_layer"] += list(per_layer)
